@@ -1,0 +1,109 @@
+"""Local sub-problem solvers in plain PyTorch (the port of
+``repro.core.solvers``), batched over a leading worker axis K.
+
+The CoCoA local subproblem on worker k (elastic net, Appendix A) is
+solved by H steps of stochastic coordinate descent with *immediate local
+updates*. The closed-form single-coordinate update, with local residual
+state ``rho = w + sigma * A dalpha``:
+
+    z_tilde = (sigma*||c_j||^2 * a_j - rho^T c_j) / (sigma*||c_j||^2 + lam*eta)
+    z       = soft_threshold(z_tilde, lam*(1-eta)/(sigma*||c_j||^2 + lam*eta))
+    rho    += sigma * c_j * (z - a_j)
+
+Layout: the port stores each worker's column block column-major, as
+``A_T`` of shape (K, n_pad, m), so column ``j`` of worker ``k`` is the
+contiguous row ``A_T[k, j]``. All K workers advance together: step
+``s`` visits column ``idx[k, s]`` on every worker ``k`` at once, which
+is the reference's ``vmap`` over workers written out.
+
+``scd_steps`` is the plain version of kernel K1
+(``repro_torch.kernels.scd``): the kernel holds to it at rtol 1e-4,
+atol 1e-5, because its dot product is summed in another order.
+
+Coordinate indices are pre-sampled by the caller, so that the plain
+version, the kernel and the reference agree given the same index
+stream.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def soft_threshold(z: torch.Tensor, tau) -> torch.Tensor:
+    return torch.sign(z) * torch.clamp(torch.abs(z) - tau, min=0.0)
+
+
+def _scalars(w: torch.Tensor, sigma: float, lam: float, eta: float):
+    """sigma, lam*eta and lam*(1-eta) as f32 tensors on ``w``'s device,
+    rounded from the Python products as the reference rounds them."""
+    def f32(x):
+        return torch.tensor(x, dtype=w.dtype, device=w.device)
+    return f32(sigma), f32(lam * eta), f32(lam * (1.0 - eta))
+
+
+def scd_steps(A_T: torch.Tensor, col_sq: torch.Tensor, alpha: torch.Tensor,
+              w: torch.Tensor, idx: torch.Tensor, *, sigma: float,
+              lam: float, eta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run H = idx.shape[1] sequential SCD steps on each of K workers.
+
+    Args:
+      A_T:    (K, n_pad, m) column-major local blocks (zero columns ok).
+      col_sq: (K, n_pad) squared column norms.
+      alpha:  (K, n_pad) local coordinates of alpha.
+      w:      (m,) shared residual ``w = A alpha - b`` at round start.
+      idx:    (K, H) integer coordinate indices to visit.
+
+    Returns:
+      (delta_v (K, m), alpha_new (K, n_pad)): each worker's m-vector
+      update ``A_k @ dalpha`` to be all-reduced, and its new block.
+    """
+    sig, lam_eta, lam_l1 = _scalars(w, sigma, lam, eta)
+    K = A_T.shape[0]
+    rows = torch.arange(K, device=A_T.device)
+    idx = idx.long()
+    alpha = alpha.clone()
+    rho = w.expand(K, -1).clone()
+    for s in range(idx.shape[1]):
+        j = idx[:, s]
+        c = A_T[rows, j]                                  # (K, m)
+        csq = col_sq[rows, j]
+        a = alpha[rows, j]
+        denom = sig * csq + lam_eta
+        # Zero (padded) column -> denom reduces to lam_eta; the guard
+        # makes the step an exact no-op instead of a shrinkage of a.
+        z_tilde = (sig * csq * a - torch.sum(rho * c, dim=1)) / denom
+        z = soft_threshold(z_tilde, lam_l1 / denom)
+        z = torch.where(csq > 0, z, a)
+        alpha[rows, j] = z
+        rho = rho + (sig * (z - a))[:, None] * c
+    delta_v = (rho - w) / sig
+    return delta_v, alpha
+
+
+def scd_steps_fixed_point(A_T: torch.Tensor, col_sq: torch.Tensor,
+                          alpha: torch.Tensor, w: torch.Tensor,
+                          idx: torch.Tensor, *, sigma: float, lam: float,
+                          eta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mini-batch SCD (SDCA-style) — the same coordinate rule WITHOUT
+    immediate local updates: every step sees the round-start residual.
+    This is the paper's mini-batch baseline; aggregation across the
+    batch is damped by 1/sigma at the caller. Same shapes as
+    ``scd_steps``."""
+    sig, lam_eta, lam_l1 = _scalars(w, sigma, lam, eta)
+    K = A_T.shape[0]
+    rows = torch.arange(K, device=A_T.device)
+    idx = idx.long()
+    alpha = alpha.clone()
+    dv = torch.zeros((K, w.shape[0]), dtype=w.dtype, device=w.device)
+    for s in range(idx.shape[1]):
+        j = idx[:, s]
+        c = A_T[rows, j]
+        csq = col_sq[rows, j]
+        a = alpha[rows, j]
+        denom = sig * csq + lam_eta
+        z_tilde = (sig * csq * a - torch.sum(c * w, dim=1)) / denom  # fixed w
+        z = soft_threshold(z_tilde, lam_l1 / denom)
+        z = torch.where(csq > 0, z, a)
+        alpha[rows, j] = z
+        dv = dv + (z - a)[:, None] * c
+    return dv, alpha

@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. Every test here needs a CUDA device and the CUDA toolkit; without
+a card each one skips (the ``cuda`` fixture decides, so that every
+pytest-xdist worker collects the same tests). Run on the card:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.solvers import scd_steps
+from repro_torch.kernels.dequant import decode_reduce_int8, decode_reduce_int8_ref
+from repro_torch.kernels.quant import quantize_pack_int8, quantize_pack_int8_ref
+from repro_torch.kernels.scd import scd_solve
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _scd_inputs(K, m, n, H, seed, dev):
+    rng = np.random.default_rng(seed)
+    A_T = torch.tensor(rng.standard_normal((K, n, m)), dtype=torch.float32)
+    A_T[:, -1] = 0.0                                    # a zero column
+    col_sq = torch.sum(A_T * A_T, dim=2)
+    alpha = torch.tensor(rng.standard_normal((K, n)) * 0.1, dtype=torch.float32)
+    w = torch.tensor(rng.standard_normal(m), dtype=torch.float32)
+    idx = torch.tensor(rng.integers(0, n, (K, H)), dtype=torch.int32)
+    return [t.to(dev) for t in (A_T, col_sq, alpha, w, idx)]
+
+
+@pytest.mark.parametrize("K,m,n,H", [
+    (1, 33, 5, 1), (4, 96, 64, 64), (3, 1025, 17, 200), (8, 4096, 128, 512),
+    (2, 20000, 40, 50),
+])
+@pytest.mark.parametrize("eta", [0.3, 1.0])
+def test_scd_kernel_matches_plain(cuda, K, m, n, H, eta):
+    args = _scd_inputs(K, m, n, H, seed=m + n + H, dev=cuda)
+    kw = dict(sigma=float(K), lam=1.0, eta=eta)
+    dv_k, a_k = scd_solve(*args, **kw)
+    dv_p, a_p = scd_steps(*args, **kw)
+    torch.testing.assert_close(dv_k, dv_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=1e-5)
+
+
+def test_scd_kernel_repeated_index_and_zero_column(cuda):
+    A_T, col_sq, alpha, w, _ = _scd_inputs(2, 64, 8, 1, seed=2, dev=cuda)
+    idx = torch.tensor([[3, 3, 7, 3, 7, 7]] * 2, dtype=torch.int32, device=cuda)
+    kw = dict(sigma=2.0, lam=0.5, eta=0.8)
+    dv_k, a_k = scd_solve(A_T, col_sq, alpha, w, idx, **kw)
+    dv_p, a_p = scd_steps(A_T, col_sq, alpha, w, idx, **kw)
+    torch.testing.assert_close(dv_k, dv_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+    assert a_k[:, 7].equal(alpha[:, 7])                # zero column: no-op
+
+
+def test_scd_kernel_refuses_what_it_cannot_take(cuda):
+    A_T, col_sq, alpha, w, idx = _scd_inputs(1, 64, 8, 4, seed=3, dev=cuda)
+    kw = dict(sigma=1.0, lam=1.0, eta=1.0)
+    with pytest.raises(TypeError):
+        scd_solve(A_T, col_sq, alpha, w, idx.long(), **kw)
+    strided_w = torch.zeros(128, device=cuda)[::2]      # (64,), stride 2
+    with pytest.raises(ValueError, match="contiguous"):
+        scd_solve(A_T, col_sq, alpha, strided_w, idx, **kw)
+    big = torch.zeros((1, 8, 60000), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        scd_solve(big, col_sq, alpha, torch.zeros(60000, device=cuda), idx,
+                  **kw)
+
+
+@pytest.mark.parametrize("shape", [(8, 16384), (3, 1), (5, 1001), (1, 128),
+                                   (1001,)])
+@pytest.mark.parametrize("scale", [1e-6, 1.0, 1e6])
+def test_quant_kernel_bit_identical(cuda, shape, scale):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda) * scale
+    qk, sk = quantize_pack_int8(x)
+    qp, sp = quantize_pack_int8_ref(x)
+    assert qk.equal(qp) and _bits(sk).equal(_bits(sp))
+
+
+def test_quant_kernel_zero_and_single_element_rows(cuda):
+    x = torch.zeros((3, 257), device=cuda)
+    x[1, 100] = -3.0
+    qk, sk = quantize_pack_int8(x)
+    qp, sp = quantize_pack_int8_ref(x)
+    assert qk.equal(qp) and _bits(sk).equal(_bits(sp))
+    assert sk[0].item() == 1.0 and qk[1, 100].item() == -127
+
+
+@pytest.mark.parametrize("K,L", [(1, 1), (3, 1001), (4, 128), (8, 16384)])
+@pytest.mark.parametrize("mean", [False, True])
+def test_dequant_kernel_bit_identical(cuda, K, L, mean):
+    g = torch.Generator(device=cuda).manual_seed(K * L)
+    q, s = quantize_pack_int8(torch.randn((K, L), generator=g, device=cuda))
+    out_k = decode_reduce_int8(q, s, L, mean=mean)
+    out_p = decode_reduce_int8_ref(q, s, L, mean=mean)
+    assert _bits(out_k).equal(_bits(out_p))
+
+
+def test_wrappers_count_only_kernel_launches(cuda):
+    x = torch.randn((2, 64), device=cuda)
+    before = (quantize_pack_int8.launches, decode_reduce_int8.launches)
+    q, s = quantize_pack_int8(x)
+    decode_reduce_int8(q, s, 64)
+    quantize_pack_int8(x.cpu())                          # plain version
+    assert (quantize_pack_int8.launches, decode_reduce_int8.launches) == (
+        before[0] + 1, before[1] + 1)
