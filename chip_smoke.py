@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py [--m 16384] [--n 32768] [--density 0.15]
-                          [--K 8] [--rounds 30] [--eps 1e-3] [--seed 42]
+                          [--K 8] [--rounds 100] [--eps 1e-3] [--seed 42]
 
 Phases, each ending in ``torch.cuda.synchronize()`` and printing one
 JSON line:
@@ -10,17 +10,25 @@ JSON line:
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes: K1 (SCD) allclose at rtol 1e-4, atol 1e-5;
-     K2 (int8 quantize) and K3 (int8 decode+sum/mean) bit-identical,
-     also on edge cases;
-  3. the main path: CoCoA ridge with ``solver="scd_kernel"`` and
-     ``exchange="compressed:int8"`` on the virtual driver, K workers
-     batched into each launch, with every launch counter set to 0 just
-     before and read just after; each kernel must have launched exactly
-     once per round;
-  4. the whole-path check: the first 3 rounds again with the plain SCD
+     K2 (int8 / int4 / int2 quantize) and K3 (int8 / int4 / int2
+     decode+sum/mean) bit-identical, also at ragged lengths and on edge
+     cases (all zeros, one nonzero, scales 1e-6 and 1e6);
+  3. the main paths: CoCoA ridge with ``solver="scd_kernel"`` on the
+     virtual driver, K workers batched into each launch, under
+     ``compressed:int8``, ``compressed:ef:int4`` (the error-feedback
+     int4 exchange) and ``compressed:ef:int2``, each on its own trainer
+     (freed before the next) for up to ``--rounds`` rounds or until the
+     suboptimality reaches ``--eps``. Every launch counter is set to 0
+     just before each path and read just after: K1 and the path's own
+     K2 and K3 must have launched exactly once per round, the other
+     codecs' kernels never;
+  4. the whole-path checks, under ``compressed:int8`` and
+     ``compressed:ef:int4``: the first 3 rounds again with the plain SCD
      on the same index stream must give the same primal at rtol 1e-4,
      and a small problem run on the card and on the CPU (plain versions
-     throughout) must agree round by round;
+     throughout) on one replayed index stream must agree round by round
+     at rtol 1e-4; the codes that differ between the two runs are
+     counted and printed;
   5. timing: each kernel and its plain version by CUDA events at the
      main path's shapes, beside the least time the card could take.
 
@@ -31,7 +39,9 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -45,6 +55,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # f32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+# the paths phase 3 drives, and the codec whose kernels each launches
+PATHS = (("compressed:int8", "int8"), ("compressed:ef:int4", "int4"),
+         ("compressed:ef:int2", "int2"))
+CHECKED = ("compressed:int8", "compressed:ef:int4")     # phase 4
+CODECS = ("int8", "int4", "int2")
 
 
 def emit(**kw) -> None:
@@ -71,6 +87,10 @@ def bits_equal(torch, a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds per call from CUDA events around ``reps`` warm
     calls."""
@@ -93,6 +113,43 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def free(torch) -> None:
+    """Hand the device memory of a dropped trainer back before the next
+    one is built."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recording(codec):
+    """Keep every wire payload ``codec``'s base encode produces while
+    the block runs (an instance attribute shadows the method)."""
+    base = getattr(codec, "base", codec)
+    seen = []
+    encode = base.encode
+
+    def record(dv):
+        out = encode(dv)
+        seen.append(out[0].cpu())
+        return out
+
+    base.encode = record
+    try:
+        yield seen
+    finally:
+        del base.encode
+
+
+def codes_differ(torch, a, b, bits: int) -> int:
+    """How many of the packed codes differ between two payloads."""
+    if bits == 8:
+        return int((a != b).sum())
+    mask = (1 << bits) - 1
+    a, b = a.to(torch.int32), b.to(torch.int32)
+    return sum(int((((a >> s) & mask) != ((b >> s) & mask)).sum())
+               for s in range(0, 8, bits))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=16384)
@@ -100,7 +157,7 @@ def main(argv=None) -> int:
     ap.add_argument("--density", type=float, default=0.15)
     ap.add_argument("--K", type=int, default=8)
     ap.add_argument("--lam", type=float, default=1.0)
-    ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--rounds", type=int, default=100)
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=50,
@@ -114,16 +171,18 @@ def main(argv=None) -> int:
         return 1
     import numpy as np
 
+    from repro_torch.carry import ReplayIndices
+    from repro_torch.comm.codec import get_codec
     from repro_torch.core import CoCoAConfig, CoCoATrainer
     from repro_torch.core.solvers import scd_steps
-    from repro_torch.carry import ReplayIndices
     from repro_torch.data import make_glm_data
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.dequant import (decode_reduce_int8,
-                                             decode_reduce_int8_ref)
-    from repro_torch.kernels.quant import (quantize_pack_int8,
-                                           quantize_pack_int8_ref)
+    from repro_torch.kernels import _build, dequant, quant
     from repro_torch.kernels.scd import scd_solve
+
+    enc = {c: getattr(quant, f"quantize_pack_{c}") for c in CODECS}
+    enc_ref = {c: getattr(quant, f"quantize_pack_{c}_ref") for c in CODECS}
+    dec = {c: getattr(dequant, f"decode_reduce_{c}") for c in CODECS}
+    dec_ref = {c: getattr(dequant, f"decode_reduce_{c}_ref") for c in CODECS}
 
     card = nvidia_smi()
     print(card, flush=True)
@@ -139,13 +198,13 @@ def main(argv=None) -> int:
     phase_done(torch, "build", t0, build_seconds=info.seconds,
                library=os.path.relpath(info.path, ROOT), ptxas=ptxas)
 
-    # -- data and trainer at the slice's size --------------------------
+    # -- data and the first trainer at the slice's size -----------------
     t0 = time.perf_counter()
     A, b, _ = make_glm_data(m=args.m, n=args.n, density=args.density,
                             zipf_a=1.1, seed=args.seed)
     H = -(-args.n // args.K)                     # H = n_local
     cfg = CoCoAConfig(K=args.K, H=H, lam=args.lam, eta=1.0,
-                      solver="scd_kernel", exchange="compressed:int8",
+                      solver="scd_kernel", exchange=PATHS[0][0],
                       seed=args.seed)
     tr = CoCoATrainer(cfg, A, b)
     dev = tr.A.device
@@ -160,137 +219,174 @@ def main(argv=None) -> int:
     # -- 2. each kernel against its plain version on the card ----------
     t0 = time.perf_counter()
     kw = dict(sigma=cfg.sigma_val, lam=cfg.lam, eta=cfg.eta)
-    alpha0, w0 = tr.init_state()
+    alpha0, _ = tr.init_state()
+    w0 = -tr.b
     idx1 = tr.index_source(1)
     dv_k, al_k = scd_solve(tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
     dv_p, al_p = scd_steps(tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
     torch.cuda.synchronize()
-    err_scd = max(float((dv_k - dv_p).abs().max()),
-                  float((al_k - al_p).abs().max()))
-    ok_scd = (torch.allclose(dv_k, dv_p, rtol=1e-4, atol=1e-5)
-              and torch.allclose(al_k, al_p, rtol=1e-4, atol=1e-5))
+    err = {"scd_solve": max(max_err(dv_k, dv_p), max_err(al_k, al_p))}
+    ok = {"scd_solve": (torch.allclose(dv_k, dv_p, rtol=1e-4, atol=1e-5)
+                        and torch.allclose(al_k, al_p, rtol=1e-4,
+                                           atol=1e-5))}
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     single = torch.zeros((3, 1001), device=dev)
-    single[1, 500] = -2.5
+    single[1, 900] = -2.5                        # last quarter, upper half
     cases = [dv_k,                                         # the main path's
              torch.zeros((K, m), device=dev),              # all zeros
-             torch.randn((K, 1), generator=g, device=dev),  # L = 1
-             torch.randn((5, 1001), generator=g, device=dev) * 1e-3,  # odd L
              single,                                       # one nonzero
+             torch.randn((5, 1001), generator=g, device=dev) * 1e-6,
+             torch.randn((5, 1001), generator=g, device=dev) * 1e6,
              torch.randn((m,), generator=g, device=dev)]   # one 1-D update
-    ok_quant, err_quant = True, 0.0
-    for x in cases:
-        qk, sk = quantize_pack_int8(x)
-        qp, sp = quantize_pack_int8_ref(x)
-        ok_quant &= bits_equal(torch, qk, qp) and bits_equal(torch, sk, sp)
-        err_quant = max(err_quant, float((qk.int() - qp.int()).abs().max()),
-                        float((sk - sp).abs().max()))
-    q_main, s_main = quantize_pack_int8(dv_k)
-    ok_dequant, err_dequant = True, 0.0
-    dq_cases = [(q_main, s_main)]
-    for Kc, L in ((1, 1001), (3, 1), (5, 1001), (8, 4097)):
-        dq_cases.append(quantize_pack_int8(
-            torch.randn((Kc, L), generator=g, device=dev)))
-    for q, s in dq_cases:
-        for mean in (False, True):
-            ok_ = decode_reduce_int8(q, s, q.shape[1], mean=mean)
-            op_ = decode_reduce_int8_ref(q, s, q.shape[1], mean=mean)
-            ok_dequant &= bits_equal(torch, ok_, op_)
-            err_dequant = max(err_dequant, float((ok_ - op_).abs().max()))
+    for i, L in enumerate((1, 2, 3, 4, 5, 1001, 4097)):     # ragged lengths
+        cases.append(torch.randn((1 + i % 8, L), generator=g, device=dev))
+    payloads = {c: [] for c in CODECS}
+    for c in CODECS:
+        ok[c], err[c] = True, 0.0
+        for x in cases:
+            pk, sk = enc[c](x)
+            pp, sp = enc_ref[c](x)
+            ok[c] &= bits_equal(torch, pk, pp) and bits_equal(torch, sk, sp)
+            err[c] = max(err[c], max_err(pk, pp), max_err(sk, sp))
+            if x.dim() == 2:
+                payloads[c].append((pk, sk, x.shape[1]))
+        name = f"decode_{c}"
+        ok[name], err[name] = True, 0.0
+        for p, s, L in payloads[c]:
+            for mean in (False, True):
+                out_k = dec[c](p, s, L, mean=mean)
+                out_p = dec_ref[c](p, s, L, mean=mean)
+                ok[name] &= bits_equal(torch, out_k, out_p)
+                err[name] = max(err[name], max_err(out_k, out_p))
     phase_done(torch, "kernels_vs_plain", t0,
-               scd={"ok": ok_scd, "max_abs_err": err_scd,
-                    "tolerance": "rtol 1e-4, atol 1e-5"},
-               quant_int8={"ok": ok_quant, "max_abs_err": err_quant,
-                           "tolerance": "bit-identical",
-                           "cases": [list(x.shape) for x in cases]},
-               decode_reduce_int8={"ok": ok_dequant,
-                                   "max_abs_err": err_dequant,
-                                   "tolerance": "bit-identical",
-                                   "cases": [list(q.shape)
-                                             for q, _ in dq_cases]})
-    if not (ok_scd and ok_quant and ok_dequant):
+               ok=ok, max_abs_err=err,
+               tolerance={"scd_solve": "rtol 1e-4, atol 1e-5",
+                          "quantize and decode": "bit-identical"},
+               quantize_cases=[list(x.shape) for x in cases],
+               decode_cases=[[list(p.shape), L]
+                             for p, _, L in payloads["int4"]])
+    if not all(ok.values()):
         raise SystemExit("chip_smoke: a kernel disagrees with its plain "
                          "version (see the kernels_vs_plain line)")
+    main_payload = {c: payloads[c][0] for c in CODECS}      # from dv_k
 
-    # -- 3. the main path -----------------------------------------------
-    counters = (scd_solve, quantize_pack_int8, decode_reduce_int8)
-    for fn in counters:
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    hist = tr.run(args.rounds, target_eps=args.eps)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    for r, p, s, sec in zip(hist.rounds, hist.primal, hist.subopt,
-                            hist.seconds):
-        emit(round=r, primal=p, subopt=s, ms=sec * 1e3)
-    n_rounds = len(hist.rounds)
-    r2e = hist.rounds_to(args.eps)
-    phase_done(torch, "main_path", t0, rounds=n_rounds,
-               rounds_to_eps=r2e if r2e is not None else "not reached",
-               eps=args.eps, final_subopt=hist.subopt[-1],
-               round_ms_median=float(np.median(hist.seconds)) * 1e3,
-               comm_bytes_per_round=tr.comm_bytes_per_round(),
-               max_memory_allocated=torch.cuda.max_memory_allocated(),
-               launches=launches)
-    if any(v != n_rounds for v in launches.values()):
-        raise SystemExit(f"chip_smoke: each kernel must launch once per "
-                         f"round ({n_rounds} rounds), got {launches}")
-    if not (np.all(np.isfinite(hist.primal))
-            and np.all(np.isfinite(tr.alpha_final))
-            and tr.alpha_final.shape == (args.n,)
-            and hist.subopt[-1] < 1.0):
-        raise SystemExit("chip_smoke: the main path's output is not finite, "
-                         "not of shape (n,), or made no progress")
+    # -- 3. the main paths ----------------------------------------------
+    counters = [scd_solve] + list(enc.values()) + list(dec.values())
+    runs = {}
+    for ex, c in PATHS:
+        if tr is None:
+            tr = CoCoATrainer(dataclasses.replace(cfg, exchange=ex), A, b)
+        path_p_star = tr.p_star  # solved outside the path's peak memory
+        held = torch.cuda.memory_allocated()
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = tr.run(args.rounds, target_eps=args.eps)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        n_rounds = len(hist.rounds)
+        r2e = hist.rounds_to(args.eps)
+        sec = np.array(hist.seconds)
+        phase_done(torch, "main_path", t0, exchange=ex, rounds=n_rounds,
+                   rounds_to_eps=r2e if r2e is not None else "not reached",
+                   eps=args.eps, p_star=path_p_star,
+                   final_subopt=hist.subopt[-1],
+                   subopt=hist.subopt,
+                   round_ms_median=float(np.median(sec)) * 1e3,
+                   round_ms_max=float(sec.max()) * 1e3,
+                   round_ms_quartiles=(np.percentile(sec, [25, 75])
+                                       * 1e3).tolist(),
+                   comm_bytes_per_round=tr.comm_bytes_per_round(),
+                   memory_allocated_before=held,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   launches=launches)
+        want = {fn.__name__: 0 for fn in counters}
+        want.update({"scd_solve": n_rounds,
+                     f"quantize_pack_{c}": n_rounds,
+                     f"decode_reduce_{c}": n_rounds})
+        if launches != want:
+            raise SystemExit(f"chip_smoke: under {ex} K1 and the {c} "
+                             f"kernels must launch once per round ({n_rounds}"
+                             f" rounds) and no other kernel, got {launches}")
+        if not (np.all(np.isfinite(hist.primal))
+                and np.all(np.isfinite(tr.alpha_final))
+                and tr.alpha_final.shape == (args.n,)
+                and hist.subopt[-1] < 1.0):
+            raise SystemExit(f"chip_smoke: the {ex} path's output is not "
+                             f"finite, not of shape (n,), or made no progress")
+        runs[ex] = dict(primal=hist.primal, rounds=n_rounds, launches=launches)
+        tr = None
+        free(torch)
 
-    # -- 4. whole-path check --------------------------------------------
+    # -- 4. whole-path checks -------------------------------------------
     t0 = time.perf_counter()
-    # The plain SCD sums each dot in another order than K1, which can
-    # move an int8 code at a rounding edge; hence rtol 1e-4, not equality.
-    tr_plain = CoCoATrainer(dataclasses.replace(cfg, solver="scd_ref"), A, b)
-    n_chk = min(3, n_rounds)
-    hist_plain = tr_plain.run(n_chk)
-    rel = np.abs(np.array(hist_plain.primal)
-                 - np.array(hist.primal[:n_chk])) / np.abs(hist.primal[:n_chk])
-    del tr_plain
+    checks = {}
+    n_chk = 3
+    # the plain SCD sums each dot in another order than K1, which can
+    # move a code at a rounding edge; hence rtol 1e-4, not equality
+    for ex in CHECKED:
+        trp = CoCoATrainer(dataclasses.replace(cfg, exchange=ex,
+                                               solver="scd_ref"), A, b)
+        primal = trp.run(n_chk).primal
+        del trp
+        free(torch)
+        want = runs[ex]["primal"][:n_chk]
+        checks[f"{ex} plain vs kernel"] = (
+            np.abs(np.array(primal) - want) / np.abs(want)).tolist()
     # a small problem on the card (kernels) and on the CPU (plain
     # versions) with one replayed index stream
     As, bs, _ = make_glm_data(m=96, n=256, density=0.2, zipf_a=1.1,
                               seed=args.seed)
-    cfg_s = CoCoAConfig(K=4, H=64, lam=1.0, solver="scd_kernel",
-                        exchange="compressed:int8", seed=args.seed)
-    probe = CoCoATrainer(cfg_s, As, bs, device="cpu")
-    stream = [probe.index_source(t).numpy() for t in range(1, 11)]
-    small = {}
-    for where in ("cuda", "cpu"):
-        trs = CoCoATrainer(cfg_s, As, bs, device=where,
-                           index_source=ReplayIndices(stream, device=where))
-        small[where] = trs.run(10).primal
-    rel_small = np.abs(np.array(small["cuda"]) - np.array(small["cpu"])) \
-        / np.abs(small["cpu"])
-    phase_done(torch, "whole_path", t0,
-               plain_vs_kernel_primal_rel=rel.tolist(),
-               card_vs_cpu_small_primal_rel_max=float(rel_small.max()),
+    codes = {}
+    for ex in CHECKED:
+        cfg_s = CoCoAConfig(K=4, H=64, lam=1.0, solver="scd_kernel",
+                            exchange=ex, seed=args.seed)
+        probe = CoCoATrainer(cfg_s, As, bs, device="cpu")
+        stream = [probe.index_source(t).numpy() for t in range(1, 11)]
+        small, sent = {}, {}
+        codec = get_codec(ex.partition(":")[2])
+        for where in ("cuda", "cpu"):
+            trs = CoCoATrainer(cfg_s, As, bs, device=where,
+                               index_source=ReplayIndices(stream,
+                                                          device=where))
+            with recording(codec) as seen:
+                small[where] = trs.run(10).primal
+            sent[where] = seen
+        bits = getattr(codec, "base", codec).bits
+        codes[ex] = [codes_differ(torch, a, b_, bits)
+                     for a, b_ in zip(sent["cuda"], sent["cpu"])]
+        checks[f"{ex} card vs cpu"] = (
+            np.abs(np.array(small["cuda"]) - small["cpu"])
+            / np.abs(small["cpu"])).tolist()
+    worst = {k: max(v) for k, v in checks.items()}
+    phase_done(torch, "whole_path", t0, primal_rel=checks,
+               primal_rel_max=worst, codes_differ_card_vs_cpu=codes,
                tolerance="rtol 1e-4")
-    if rel.max() > 1e-4 or rel_small.max() > 1e-4:
-        raise SystemExit("chip_smoke: the whole-path check failed")
+    if max(worst.values()) > 1e-4:
+        raise SystemExit("chip_smoke: the whole-path check failed (see the "
+                         "whole_path line: primal_rel and codes_differ)")
 
     # -- 5. timing at the main path's shapes ----------------------------
     t0 = time.perf_counter()
+    tr = CoCoATrainer(cfg, A, b)                 # K1's inputs again
+    alpha0, w0 = tr.init_state()
+    idx1 = tr.index_source(1)
     L = m
-    ms_scd = time_ms(torch, lambda: scd_solve(tr.A_T, tr.col_sq, alpha0, w0,
-                                              idx1, **kw), args.reps)
-    plain_scd = time_ms(torch, lambda: scd_steps(tr.A_T, tr.col_sq, alpha0,
-                                                 w0, idx1, **kw), 3, warmup=1)
-    ms_q = time_ms(torch, lambda: quantize_pack_int8(dv_k), 4 * args.reps)
-    plain_q = time_ms(torch, lambda: quantize_pack_int8_ref(dv_k),
-                      4 * args.reps)
-    ms_d = time_ms(torch, lambda: decode_reduce_int8(q_main, s_main, L,
-                                                     mean=False),
-                   4 * args.reps)
-    plain_d = time_ms(torch, lambda: decode_reduce_int8_ref(
-        q_main, s_main, L, mean=False), 4 * args.reps)
+    ms, plain = {}, {}
+    ms["scd_solve"] = time_ms(torch, lambda: scd_solve(
+        tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps)
+    plain["scd_solve"] = time_ms(torch, lambda: scd_steps(
+        tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), 3, warmup=1)
+    for c in CODECS:
+        p, s, _ = main_payload[c]
+        ms[c] = time_ms(torch, lambda: enc[c](dv_k), 4 * args.reps)
+        plain[c] = time_ms(torch, lambda: enc_ref[c](dv_k), 4 * args.reps)
+        ms[f"decode_{c}"] = time_ms(
+            torch, lambda: dec[c](p, s, L, mean=False), 4 * args.reps)
+        plain[f"decode_{c}"] = time_ms(
+            torch, lambda: dec_ref[c](p, s, L, mean=False), 4 * args.reps)
     # K1 reads each distinct visited column once (this run's idx), its
     # norm, the index stream, alpha in and out, w, and writes Delta v;
     # a step is a dot and an axpy, 4m operations, plus ~10 scalar ones
@@ -298,28 +394,37 @@ def main(argv=None) -> int:
                                 + torch.arange(K, device=dev)[:, None]
                                 * n_pad).numel())
     scd_bytes = 4 * (distinct * (m + 1) + K * H + 2 * K * n_pad + m + K * m)
-    scd_bound = bound_ms(scd_bytes, K * H * (4 * m + 10))
-    q_bound = bound_ms(K * (5 * L + 4), 6 * K * L)
-    d_bound = bound_ms(K * (L + 4) + 4 * L, 2 * K * L)
-    rows = [
-        ("scd_solve", "src/repro_torch/kernels/csrc/scd.cu",
-         "src/repro/kernels/scd.py:137", launches["scd_solve"], err_scd,
-         ms_scd, plain_scd, scd_bound, ok_scd),
-        ("quantize_pack_int8", "src/repro_torch/kernels/csrc/quant.cu",
-         "src/repro/kernels/quant.py:90", launches["quantize_pack_int8"],
-         err_quant, ms_q, plain_q, q_bound, ok_quant),
-        ("decode_reduce_int8", "src/repro_torch/kernels/csrc/dequant.cu",
-         "src/repro/kernels/dequant.py:123", launches["decode_reduce_int8"],
-         err_dequant, ms_d, plain_d, d_bound, ok_dequant),
-    ]
+    bounds = {"scd_solve": bound_ms(scd_bytes, K * H * (4 * m + 10))}
+    for c, per in (("int8", 1), ("int4", 2), ("int2", 4)):
+        wire = -(-L // per)
+        # quantize reads the f32 stack, writes the payload and scales;
+        # decode reads the payload and scales, writes the (L,) f32 sum
+        bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
+        bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
+    del tr
+    free(torch)
     phase_done(torch, "timing", t0, reps=args.reps,
                distinct_columns=distinct, scd_bytes=scd_bytes)
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": n_l, "max_abs_err": err,
-                "ms": ms, "plain_ms": pms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None, "ok": ok,
-                "launches_per_round": n_l / n_rounds}
-               for (name, src, rep, n_l, err, ms, pms, bnd, ok) in rows]
+
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [("scd_solve", "scd_solve", src + "scd.cu",
+             "src/repro/kernels/scd.py:137", [ex for ex, _ in PATHS])]
+    for (ex, c), q_line, d_line in zip(PATHS, (90, 110, 130),
+                                       (123, 144, 165)):
+        rows.append((c, f"quantize_pack_{c}", src + "quant.cu",
+                     f"src/repro/kernels/quant.py:{q_line}", [ex]))
+        rows.append((f"decode_{c}", f"decode_reduce_{c}", src + "dequant.cu",
+                     f"src/repro/kernels/dequant.py:{d_line}", [ex]))
+    kernels = []
+    for key, name, source, replaces, paths in rows:
+        n_l = sum(runs[ex]["launches"][name] for ex in paths)
+        n_r = sum(runs[ex]["rounds"] for ex in paths)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n_l, "max_abs_err": err[key],
+            "ms": ms[key], "plain_ms": plain[key], "bound_ms": bounds[key][0],
+            "bound_by": bounds[key][1], "library_ms": None, "ok": ok[key],
+            "paths": paths, "launches_per_round": n_l / n_r})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

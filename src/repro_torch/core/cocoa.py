@@ -5,7 +5,9 @@
 round, every worker takes H local SCD steps on its column block (one
 batched solve, kernel K1 under ``solver="scd_kernel"`` on the card),
 the K updates Delta v are exchanged under the configured scheme (under
-``compressed:int8`` through kernels K2 and K3 on the card), the shared
+``compressed:int8``, ``compressed:int4`` and ``compressed:int2``, and
+their error-feedback forms ``compressed:ef:<base>``, through kernels K2
+and K3 on the card), the shared
 residual ``w = A alpha - b`` absorbs their sum, and the primal objective
 is evaluated from ``w`` and the per-worker regularizers without
 gathering alpha.
@@ -203,10 +205,14 @@ class CoCoATrainer:
     def p_zero(self) -> float:
         return float(self.problem.loss(-self.b))
 
-    def init_state(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def init_state(self):
+        """The round-0 state ``(local, w)``: ``local`` is alpha
+        ``(K, n_pad)`` or, under a stateful (``ef:``) codec, the pair
+        ``(alpha, residual (K, m))``; ``w = A @ 0 - b``."""
         alpha = torch.zeros((self.cfg.K, self.part.n_padded),
                             dtype=torch.float32, device=self.device)
-        return alpha, -self.b  # w = A @ 0 - b
+        return (dist.wrap_local_state(self.exchange, alpha, self.m,
+                                      self.cfg.K), -self.b)
 
     def with_H(self, H: int) -> "CoCoATrainer":
         """A fresh trainer on the same problem and device with the H knob
@@ -216,24 +222,24 @@ class CoCoATrainer:
 
     def comm_bytes_per_round(self) -> int:
         """Modelled bytes through the master per round under the
-        configured scheme (int8 Delta v + f32 scale for ``compressed``,
-        f32 otherwise; the alpha round trip counts the padded blocks)."""
+        configured scheme (the codec's payload + f32 scale for
+        ``compressed:int8|int4|int2`` and their ``ef:`` forms, f32
+        otherwise; the alpha round trip counts the padded blocks)."""
         return self.scheme.bytes_per_round(
             self.m, self.cfg.K, local_state_len=self.cfg.K * self.part.n_padded)
 
     def run(self, rounds: int, target_eps: float | None = None, *,
-            state: tuple[torch.Tensor, torch.Tensor] | None = None,
-            first_round: int = 1) -> History:
+            state=None, first_round: int = 1) -> History:
         """Run up to ``rounds`` rounds, numbered from ``first_round``,
-        from ``state`` (``(alpha (K, n_pad), w (m,))``, default the
-        zero start); stop early once the suboptimality reaches
-        ``target_eps``."""
-        alpha, w = self.init_state() if state is None else state
+        from ``state`` (``(local, w)`` as :meth:`init_state` shapes it,
+        default the zero start); stop early once the suboptimality
+        reaches ``target_eps``."""
+        local, w = self.init_state() if state is None else state
         hist = History(p_star=self.p_star, p_zero=self.p_zero)
         for t in range(first_round, first_round + rounds):
             t0 = time.perf_counter()
             idx = self.index_source(t)
-            alpha, w, primal = self._round_fn(alpha, w, idx, t)
+            local, w, primal = self._round_fn(local, w, idx, t)
             p = float(primal)
             s = suboptimality(p, hist.p_star, hist.p_zero)
             hist.rounds.append(t)
@@ -242,9 +248,9 @@ class CoCoATrainer:
             hist.seconds.append(time.perf_counter() - t0)
             if target_eps is not None and s <= target_eps:
                 break
-        self.alpha = alpha
+        self.alpha = dist.unwrap_local_state(self.exchange, local)
         self.w_final = w.cpu().numpy()
-        self.alpha_final = part_mod.unpack_alpha(alpha.cpu().numpy(),
+        self.alpha_final = part_mod.unpack_alpha(self.alpha.cpu().numpy(),
                                                  self.part, self.n)
         return hist
 

@@ -8,7 +8,8 @@
     ``reduce_scatter``) is one f32 sum over the stacked updates;
     ``compressed:<codec>`` encodes the (K, L) stack and reduces the
     payload with the codec's fused decode+sum (kernels K2 and K3 on the
-    card for ``int8``).
+    card for ``int8``, ``int4`` and ``int2``); under a stateful codec
+    (``ef:<base>``) the encode also advances the per-worker residual.
   * :class:`ExchangeMode` — ``sync`` only. ``stale`` waits for ROADMAP.md
     Queue 1 item 6.
   * :class:`ExchangeConfig` — the scheme and mode in one frozen value,
@@ -18,7 +19,8 @@
   * :func:`build_virtual_round` — K virtual workers on one device, with
     the reference's ``vmap`` over workers written out as a leading K
     axis: one batched ``local_step`` for all workers, one exchange, one
-    apply.
+    apply. Under a stateful codec its ``local`` slot is the
+    ``(local, codec_state)`` pair of :func:`wrap_local_state`.
 
 Randomness does not enter here: the caller hands each round its (K, H)
 coordinate indices, so a run can replay the reference's index stream
@@ -91,14 +93,22 @@ class CommScheme:
             return get_codec(codec or "int8")
         return get_codec("f32")
 
-    def all_reduce_stacked(self, updates: torch.Tensor) -> torch.Tensor:
+    def all_reduce_stacked(self, updates: torch.Tensor, state=None):
         """Sum the (K, L) stacked updates: encode the stack and reduce
         the payload through the codec under ``compressed``, one f32 sum
-        for the exact transports."""
+        for the exact transports. ``state`` is the stacked ``(K, ...)``
+        codec-state carry; when given, the encode goes through the
+        codec's ``encode_with_state`` and the call returns ``(total,
+        new_state)``."""
         if self.transport == "compressed":
-            parts = self.codec.encode(updates)
-            return self.codec.decode_stacked_sum(parts, updates.shape[1])
-        return torch.sum(updates, dim=0)
+            if state is None:
+                parts = self.codec.encode(updates)
+            else:
+                parts, state = self.codec.encode_with_state(updates, state)
+            total = self.codec.decode_stacked_sum(parts, updates.shape[1])
+        else:
+            total = torch.sum(updates, dim=0)
+        return total if state is None else (total, state)
 
     def bytes_per_round(self, update_len: int, K: int,
                         local_state_len: int = 0) -> int:
@@ -203,6 +213,29 @@ class ExchangeConfig:
 
 
 # ---------------------------------------------------------------------------
+# the codec-state slot
+# ---------------------------------------------------------------------------
+def wrap_local_state(exchange, local: torch.Tensor, update_len: int,
+                     K: int):
+    """The driver's ``local`` slot for ``exchange``: the per-worker local
+    state as it is under a stateless codec; under a stateful one
+    (``ef:``) the pair ``(local, codec_state)`` with the ``(K,
+    update_len)`` residual every round's encode reads and rewrites."""
+    codec = ExchangeConfig.parse(exchange).scheme.codec
+    if not codec.stateful:
+        return local
+    return local, torch.stack([codec.init_state(update_len,
+                                                device=local.device)] * K)
+
+
+def unwrap_local_state(exchange, local):
+    """The bare per-worker local state, without the codec-state slot a
+    stateful codec's run carries (the identity for stateless codecs)."""
+    codec = ExchangeConfig.parse(exchange).scheme.codec
+    return local[0] if codec.stateful else local
+
+
+# ---------------------------------------------------------------------------
 # the algorithm protocol and the virtual driver
 # ---------------------------------------------------------------------------
 class RoundAlgorithm(Protocol):
@@ -239,19 +272,29 @@ def build_virtual_round(algo: RoundAlgorithm, exchange, data, *,
     Returns ``round_fn(local, shared, idx, t) -> (local_new, shared_new,
     metric)``: every worker's local step in one batched call, the
     exchange of the (K, L) updates, the apply, and the metric of the new
-    iterate (a 0-dim tensor, left on the device)."""
+    iterate (a 0-dim tensor, left on the device). Under a stateful codec
+    (``ef:``) ``local`` is the ``(local, codec_state)`` pair from
+    :func:`wrap_local_state`, and the residual advances at every
+    round's encode."""
     ex = ExchangeConfig.parse(exchange)
     comm = ex.scheme
+    stateful = comm.codec.stateful
 
     def round_fn(local, shared, idx, t=1):
         if idx.shape[0] != K:
             raise ValueError(f"round_fn: idx must have K={K} rows, got "
                              f"{tuple(idx.shape)}")
+        if stateful:
+            local, cstate = local
         upd, local_new = algo.local_step(data, local, shared, idx, t)
-        total = comm.all_reduce_stacked(upd)
+        if stateful:
+            total, cstate = comm.all_reduce_stacked(upd, cstate)
+        else:
+            total = comm.all_reduce_stacked(upd)
         shared_new = algo.apply_update(shared, total, t)
         metric_sum = torch.sum(algo.local_metric(data, local_new, shared_new))
-        return local_new, shared_new, algo.finalize_metric(shared_new,
+        local_out = (local_new, cstate) if stateful else local_new
+        return local_out, shared_new, algo.finalize_metric(shared_new,
                                                            metric_sum)
 
     return round_fn

@@ -1,23 +1,36 @@
-"""K2: int8 absmax quantize of the (K, L) update stack as a hand-written
-CUDA kernel (``csrc/quant.cu``), one CTA per row.
+"""K2: absmax quantize of the (K, L) update stack for the int8, int4 and
+int2 codecs, as hand-written CUDA kernels (``csrc/quant.cu``), one CTA
+per row.
 
-Replaces the TPU kernel ``repro.kernels.quant.quantize_pack_int8`` (its
-``pallas_call`` at ``src/repro/kernels/quant.py:90``, body
-``_quant_int8_kernel``), which the reference runs once per worker under
-``vmap``; here the K rows go in one launch.
+Replaces the TPU kernels of ``repro.kernels.quant``, which the reference
+runs once per worker under ``vmap``; here the K rows go in one launch:
 
-Bound on the H100: bytes, K*(5L + 4) of them; at the main path's
-K = 8, L = 16384 that is 0.66 MB, and the launch latency dominates.
+  * ``quantize_pack_int8`` — ``pallas_call`` at
+    ``src/repro/kernels/quant.py:90``, body ``_quant_int8_kernel``;
+  * ``quantize_pack_int4`` — ``pallas_call`` at ``:110``, body
+    ``_quant_int4_kernel``: scale absmax/7.5, codes clip(rint(x/s), ±7)
+    + 8, packed ``lo | hi << 4`` under split-half pairing (element ``i``
+    with ``i + ceil(L/2)``);
+  * ``quantize_pack_int2`` — ``pallas_call`` at ``:130``, body
+    ``_quant_int2_kernel``: scale absmax·f32(2/3), codes clip(rint(x/s),
+    ±1) + 2, four to a byte under split-quarter pairing (element ``i``
+    with ``i + q``, ``i + 2q``, ``i + 3q``, ``q = ceil(L/4)``).
 
-The plain version ``quantize_pack_int8_ref`` is the port's copy of
-``Int8Codec.encode_ref``, and the kernel is bit-identical to it. It
-divides by a tensor, never by a Python number: PyTorch's CUDA division
-by a CPU scalar multiplies by the reciprocal instead, which is not the
-IEEE quotient the reference takes.
+Bound on the H100: bytes, K*(4L + payload + 4) of them; at the main
+path's K = 8, L = 16384 that is 0.56-0.66 MB, and the launch latency
+dominates.
 
-``quantize_pack_int8`` takes the plain version for a CPU tensor and
-launches the kernel for a CUDA tensor; ``quantize_pack_int8.launches``
-counts the kernel launches.
+The plain versions ``quantize_pack_int{8,4,2}_ref`` are the port's
+copies of ``Int{8,4,2}Codec.encode_ref`` run op by op, and each kernel is
+bit-identical to its plain version. They divide by a tensor, never by a
+Python number: PyTorch's CUDA division by a CPU scalar multiplies by the
+reciprocal instead, which is not the IEEE quotient the reference takes.
+(Under ``jax.jit`` the reference itself rewrites ``absmax / 7.5`` as such
+a multiply, so its jitted int4 scale can sit one ulp from the eager one;
+the port holds the eager reference.)
+
+Each wrapper takes the plain version for a CPU tensor and launches its
+kernel for a CUDA tensor; its ``.launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -25,7 +38,8 @@ import ctypes
 
 import torch
 
-from repro_torch.comm.codec import INT8_EPS, INT8_QMAX
+from repro_torch.comm.codec import (INT2_QMAX, INT2_SCALE_MUL, INT4_QMAX,
+                                    INT4_SCALE_DIV, INT8_EPS, INT8_QMAX)
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,20 +52,89 @@ def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
     return x if x.dim() == 2 else x[None]
 
 
+def _absmax(rows: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(rows), dim=1)
+
+
+def _codes(rows: torch.Tensor, scale: torch.Tensor, qmax: float
+           ) -> torch.Tensor:
+    """clip(round(x / scale), -qmax, qmax) of each row, as int32."""
+    return torch.clamp(torch.round(rows / scale[:, None]), -qmax,
+                       qmax).to(torch.int32)
+
+
+def _pad(rows: torch.Tensor, parts: int) -> torch.Tensor:
+    """The rows zero-padded to a multiple of ``parts``; reshaped to
+    ``(K, parts, W)``, element ``i`` of a row pairs with ``i + W``,
+    ``i + 2W``, ... (split-half for 2 parts, split-quarter for 4)."""
+    return torch.nn.functional.pad(rows, (0, -rows.shape[1] % parts))
+
+
+def _out(x: torch.Tensor, payload: torch.Tensor, scale: torch.Tensor):
+    return (payload, scale) if x.dim() == 2 else (payload[0], scale[0])
+
+
 def quantize_pack_int8_ref(x: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain int8 encode of each row: ``(q int8, scale f32)`` with
     ``q`` shaped like ``x`` and one scale per row (a 0-dim scale for a
     1-D ``x``)."""
     rows = _rows(x, "quantize_pack_int8_ref").float()
-    absmax = torch.amax(torch.abs(rows), dim=1)
+    absmax = _absmax(rows)
     scale = torch.where(absmax > 0,
                         absmax / torch.full_like(absmax, INT8_QMAX)
                         + torch.full_like(absmax, INT8_EPS),
                         torch.ones_like(absmax))
-    q = torch.clamp(torch.round(rows / scale[:, None]), -INT8_QMAX,
-                    INT8_QMAX).to(torch.int8)
-    return (q, scale) if x.dim() == 2 else (q[0], scale[0])
+    return _out(x, _codes(rows, scale, INT8_QMAX).to(torch.int8), scale)
+
+
+def quantize_pack_int4_ref(x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain int4 encode of each row: ``(packed uint8 (..., ceil(L/2)),
+    scale f32)``, the zero pad of an odd L packed as the biased zero
+    nibble 8."""
+    rows = _rows(x, "quantize_pack_int4_ref").float()
+    absmax = _absmax(rows)
+    scale = torch.where(absmax > 0,
+                        absmax / torch.full_like(absmax, INT4_SCALE_DIV),
+                        torch.ones_like(absmax))
+    q = (_codes(_pad(rows, 2), scale, INT4_QMAX) + 8).reshape(
+        rows.shape[0], 2, -1)
+    return _out(x, (q[:, 0] | (q[:, 1] << 4)).to(torch.uint8), scale)
+
+
+def quantize_pack_int2_ref(x: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain int2 encode of each row: ``(packed uint8 (..., ceil(L/4)),
+    scale f32)``, the zero pad packed as the biased zero code 2."""
+    rows = _rows(x, "quantize_pack_int2_ref").float()
+    absmax = _absmax(rows)
+    scale = torch.where(absmax > 0,
+                        absmax * torch.full_like(absmax, INT2_SCALE_MUL),
+                        torch.ones_like(absmax))
+    q = (_codes(_pad(rows, 4), scale, INT2_QMAX) + 2).reshape(
+        rows.shape[0], 4, -1)
+    packed = q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) | (q[:, 3] << 6)
+    return _out(x, packed.to(torch.uint8), scale)
+
+
+def _launch(x: torch.Tensor, what: str, launcher: str, dtype: torch.dtype,
+            per_byte: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Validate ``x``, allocate the payload and scales, launch
+    ``launcher`` on the current stream and raise if it was refused."""
+    _build.require_cuda(x, what)
+    rows = _rows(x, what)
+    K, L = rows.shape
+    _build.require(rows, "x", dtype=torch.float32, shape=(K, L),
+                   device=x.device)
+    fn = _build.function(launcher, [_P, _P, _P, _I, _I, _P])
+    payload = torch.empty((K, -(-L // per_byte)), dtype=dtype,
+                          device=x.device)
+    scale = torch.empty((K,), dtype=torch.float32, device=x.device)
+    err = fn(rows.data_ptr(), payload.data_ptr(), scale.data_ptr(), K, L,
+             _build.stream_ptr(x.device))
+    _build.check_launch(err, launcher)
+    return _out(x, payload, scale)
 
 
 def quantize_pack_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,19 +143,35 @@ def quantize_pack_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``Int8Codec.encode_ref``."""
     if x.device.type == "cpu":
         return quantize_pack_int8_ref(x)
-    _build.require_cuda(x, "quantize_pack_int8")
-    rows = _rows(x, "quantize_pack_int8")
-    K, L = rows.shape
-    _build.require(rows, "x", dtype=torch.float32, shape=(K, L),
-                   device=x.device)
-    fn = _build.function("quant_int8_launch", [_P, _P, _P, _I, _I, _P])
-    q = torch.empty((K, L), dtype=torch.int8, device=x.device)
-    scale = torch.empty((K,), dtype=torch.float32, device=x.device)
-    err = fn(rows.data_ptr(), q.data_ptr(), scale.data_ptr(), K, L,
-             _build.stream_ptr(x.device))
-    _build.check_launch(err, "quant_int8_launch")
+    out = _launch(x, "quantize_pack_int8", "quant_int8_launch", torch.int8, 1)
     quantize_pack_int8.launches += 1
-    return (q, scale) if x.dim() == 2 else (q[0], scale[0])
+    return out
+
+
+def quantize_pack_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int4 encode of a (L,) update or a (K, L) stack of them, through
+    K2's int4 kernel on the card (the plain version on the CPU);
+    bit-identical to the eager ``Int4Codec.encode_ref``."""
+    if x.device.type == "cpu":
+        return quantize_pack_int4_ref(x)
+    out = _launch(x, "quantize_pack_int4", "quant_int4_launch", torch.uint8,
+                  2)
+    quantize_pack_int4.launches += 1
+    return out
+
+
+def quantize_pack_int2(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int2 encode of a (L,) update or a (K, L) stack of them, through
+    K2's int2 kernel on the card (the plain version on the CPU);
+    bit-identical to ``Int2Codec.encode_ref``."""
+    if x.device.type == "cpu":
+        return quantize_pack_int2_ref(x)
+    out = _launch(x, "quantize_pack_int2", "quant_int2_launch", torch.uint8,
+                  4)
+    quantize_pack_int2.launches += 1
+    return out
 
 
 quantize_pack_int8.launches = 0
+quantize_pack_int4.launches = 0
+quantize_pack_int2.launches = 0

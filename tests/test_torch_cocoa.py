@@ -7,8 +7,9 @@ which PyTorch cannot reproduce, so the port replays the reference's own
 index stream: the same per-round / per-worker key splits the reference
 trainer makes, recomputed here. Under ``persistent`` the per-round
 primal agrees at rtol 1e-5 (the SCD dots and the f32 sums are added in
-another order); under ``compressed:int8`` at rtol 1e-4, because that
-order can move an int8 code at a rounding edge.
+another order); under the quantizing exchanges (``compressed:int8``,
+``compressed:int4``, ``compressed:ef:int4``, ``compressed:ef:int2``) at
+rtol 1e-4, because that order can move a code at a rounding edge.
 
 Rounds-to-eps is pinned at two trainer seeds. The drivers benchmark's
 checked-in counters (10 rounds under ``persistent``, 8 under
@@ -32,6 +33,8 @@ M, N, K, DENSITY, EPS = 96, 256, 4, 0.2, 1e-3
 H = N // K                  # n_local
 SEED = 1                    # a trainer seed at which both schemes reach EPS
 ROUNDS = 20
+EXCHANGES = ("persistent", "compressed:int8", "compressed:int4",
+             "compressed:ef:int4", "compressed:ef:int2")
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +65,7 @@ def ref_runs(data):
     A, b = data
     runs = {}
     for seed in (0, SEED):
-        for ex in ("persistent", "compressed:int8"):
+        for ex in EXCHANGES:
             tr = RefTrainer(RefConfig(K=K, H=H, lam=1.0, solver="scd_ref",
                                       exchange=ex, seed=seed), A, b)
             hist = tr.run(ROUNDS, target_eps=EPS)
@@ -84,7 +87,13 @@ def _port(data, ex, stream, solver="scd_ref", seed=SEED):
     (SEED, "persistent", 1e-5, 10, 3072),
     (SEED, "compressed:int8", 1e-4, 11, 800),
     (0, "persistent", 1e-5, 13, 3072),
-    (0, "compressed:int8", 1e-4, None, 800)])
+    (0, "compressed:int8", 1e-4, None, 800),
+    (SEED, "compressed:int4", 1e-4, None, 416),
+    (SEED, "compressed:ef:int4", 1e-4, 10, 416),
+    (SEED, "compressed:ef:int2", 1e-4, 9, 224),
+    (0, "compressed:int4", 1e-4, None, 416),
+    (0, "compressed:ef:int4", 1e-4, 13, 416),
+    (0, "compressed:ef:int2", 1e-4, 15, 224)])
 @pytest.mark.parametrize("solver", ["scd_ref", "scd_kernel"])
 def test_per_round_primal_matches_live_reference(data, ref_runs, seed, ex,
                                                  rtol, r2e, nbytes, solver):
@@ -104,25 +113,40 @@ def test_per_round_primal_matches_live_reference(data, ref_runs, seed, ex,
                                rtol=rtol)
 
 
-def test_carry_round_trip_and_resume_mid_run(data, ref_runs):
-    """Start the port from the reference's state after round 4 and
-    follow the reference's trajectory from round 5 on."""
-    ref_tr, ref_hist, stream = ref_runs[SEED, "persistent"]
-    alpha, w = ref_tr.init_state()
+@pytest.mark.parametrize("ex,rtol", [("persistent", 1e-5),
+                                     ("compressed:ef:int4", 1e-4)])
+def test_carry_round_trip_and_resume_mid_run(data, ref_runs, ex, rtol):
+    """Start the port from the reference's state after round 4 (under
+    ``ef:`` the local slot is ``(alpha, residual)``) and follow the
+    reference's trajectory from round 5 on."""
+    ref_tr, ref_hist, stream = ref_runs[SEED, ex]
+    local, w = ref_tr.init_state()
     key = jax.random.key(SEED)
     for t in range(1, 5):
         key, sub = jax.random.split(key)
-        alpha, w, _ = ref_tr._round_fn(alpha, w, sub, t)
-    state = carry.state_from_reference(np.asarray(alpha), np.asarray(w),
-                                       device="cpu")
-    back = carry.state_to_numpy(*state)
-    np.testing.assert_array_equal(back[0], np.asarray(alpha))
-    np.testing.assert_array_equal(back[1], np.asarray(w))
-    tr = _port(data, "persistent", stream)
+        local, w, _ = ref_tr._round_fn(local, w, sub, t)
+    local_np = jax.tree_util.tree_map(np.asarray, local)
+    state = carry.state_from_reference(local_np, np.asarray(w), device="cpu")
+    back_local, back_w = carry.state_to_numpy(*state)
+    for got, want in zip(jax.tree_util.tree_leaves(back_local),
+                         jax.tree_util.tree_leaves(local_np)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(back_w, np.asarray(w))
+    if ex != "persistent":
+        assert isinstance(state[0], tuple) and state[0][1].shape == (K, M)
+        assert float(np.abs(local_np[1]).max()) > 0   # a live residual
+    tr = _port(data, ex, stream)
     rest = len(ref_hist.rounds) - 4
     hist = tr.run(rest, state=state, first_round=5)
     assert hist.rounds == ref_hist.rounds[4:]
-    np.testing.assert_allclose(hist.primal, ref_hist.primal[4:], rtol=1e-5)
+    np.testing.assert_allclose(hist.primal, ref_hist.primal[4:], rtol=rtol)
+
+
+def test_carry_refuses_a_residual_of_the_wrong_shape():
+    alpha, w = np.zeros((2, 3), np.float32), np.zeros(5, np.float32)
+    with pytest.raises(ValueError):
+        carry.state_from_reference((alpha, np.zeros((2, 4))), w,
+                                   device="cpu")
 
 
 def test_replay_refuses_rounds_it_does_not_hold():
@@ -172,7 +196,7 @@ def test_minibatch_fixed_point_solver_keeps_residual_invariant(data):
 
 @pytest.mark.parametrize("bad", [dict(solver="scd_fast"),
                                  dict(partitioner="random"),
-                                 dict(exchange="compressed:int4")])
+                                 dict(exchange="compressed:topk")])
 def test_config_rejects_what_the_port_does_not_run(bad):
     with pytest.raises((ValueError, NotImplementedError)):
         CoCoAConfig(**bad)

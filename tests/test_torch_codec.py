@@ -1,6 +1,7 @@
 """The port's int8 codec (kernels K2 and K3's plain versions on the CPU),
 its byte model and its exchange grammar against the reference. The
-int8 encode and decode+reduce are held bit-identical."""
+int8 encode and decode+reduce are held bit-identical. The int4, int2 and
+``ef:`` codecs are in ``test_torch_codec_lowbit.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,15 +103,19 @@ def test_f32_codec_is_the_identity():
                                x.mean(0).numpy())
 
 
-@pytest.mark.parametrize("name", ["f32", "int8"])
-@pytest.mark.parametrize("L", [1, 96, 1001, 16384])
+@pytest.mark.parametrize("name", ["f32", "int8", "int4", "int2", "ef:int8",
+                                  "ef:int4", "ef:int2"])
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 96, 1001, 16384])
 def test_wire_bytes_equal(name, L):
     assert get_codec(name).wire_bytes(L) == get_codec_ref(name).wire_bytes(L)
 
 
 @pytest.mark.parametrize("scheme", ["persistent", "spark_faithful",
                                     "reduce_scatter", "compressed",
-                                    "compressed:int8", "compressed:f32"])
+                                    "compressed:int8", "compressed:f32",
+                                    "compressed:int4", "compressed:int2",
+                                    "compressed:ef:int4",
+                                    "compressed:ef:int2"])
 @pytest.mark.parametrize("m,K,n_pad", [(96, 4, 64), (16384, 8, 4096),
                                        (1001, 3, 17)])
 def test_bytes_per_round_equal(scheme, m, K, n_pad):
@@ -127,14 +132,19 @@ def test_bytes_per_round_equal(scheme, m, K, n_pad):
     assert coll.padded_len(m, K) == coll_ref.padded_len(m, K)
 
 
-def test_smoke_shape_bytes_per_round():
-    """The byte counts the drivers benchmark pins at the smoke shape."""
-    assert dist.CommScheme("persistent").bytes_per_round(96, 4, 256) == 3072
-    assert dist.CommScheme("compressed:int8").bytes_per_round(96, 4, 256) == 800
+@pytest.mark.parametrize("scheme,nbytes", [
+    ("persistent", 3072), ("compressed:int8", 800),
+    ("compressed:int4", 416), ("compressed:ef:int4", 416),
+    ("compressed:int2", 224), ("compressed:ef:int2", 224)])
+def test_smoke_shape_bytes_per_round(scheme, nbytes):
+    """The byte counts at the drivers benchmark's smoke shape (m=96,
+    K=4): 2*K*(wire bytes of a 96-element update)."""
+    assert dist.CommScheme(scheme).bytes_per_round(96, 4, 256) == nbytes
+    assert dist_ref.CommScheme(scheme).bytes_per_round(
+        96, 4, local_state_len=256) == nbytes
 
 
-@pytest.mark.parametrize("name", ["int4", "int2", "topk", "topk(r=0.1)",
-                                  "ef:int8", "ef:int4"])
+@pytest.mark.parametrize("name", ["topk", "topk(r=0.1)", "ef:topk"])
 def test_unported_codecs_raise_not_implemented(name):
     get_codec_ref(name)                      # the reference knows it
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -151,7 +161,8 @@ def test_unknown_codecs_raise_value_error(name):
 
 @pytest.mark.parametrize("spec", ["persistent", "compressed:int8", "compressed",
                                   "reduce_scatter/sync", "sync/spark_faithful",
-                                  "compressed:f32/sync"])
+                                  "compressed:f32/sync", "compressed:int4",
+                                  "sync/compressed:ef:int2"])
 def test_exchange_spec_matches_reference(spec):
     ours = dist.ExchangeConfig.parse(spec)
     ref = dist_ref.ExchangeConfig.parse(spec)

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.comm.codec import get_codec
 from repro_torch.core.solvers import scd_steps
+from repro_torch.kernels import dequant, quant
 from repro_torch.kernels.dequant import decode_reduce_int8, decode_reduce_int8_ref
 from repro_torch.kernels.quant import quantize_pack_int8, quantize_pack_int8_ref
 from repro_torch.kernels.scd import scd_solve
@@ -108,11 +110,79 @@ def test_dequant_kernel_bit_identical(cuda, K, L, mean):
     assert _bits(out_k).equal(_bits(out_p))
 
 
+LOWBIT_SHAPES = [(8, 16384), (3, 1), (2, 2), (1, 3), (4, 4), (5, 5),
+                 (5, 1001), (2, 4097), (1001,)]
+
+
+@pytest.mark.parametrize("name", ["int4", "int2"])
+@pytest.mark.parametrize("shape", LOWBIT_SHAPES)
+@pytest.mark.parametrize("scale", [1e-6, 1.0, 1e6])
+def test_lowbit_quant_kernel_bit_identical(cuda, name, shape, scale):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda) * scale
+    pk, sk = getattr(quant, f"quantize_pack_{name}")(x)
+    pp, sp = getattr(quant, f"quantize_pack_{name}_ref")(x)
+    assert pk.dtype == torch.uint8 and pk.equal(pp)
+    assert _bits(sk).equal(_bits(sp))
+
+
+@pytest.mark.parametrize("name", ["int4", "int2"])
+def test_lowbit_quant_kernel_zero_and_single_element_rows(cuda, name):
+    x = torch.zeros((3, 257), device=cuda)
+    x[1, 200] = 3.0                  # in the upper half / last quarter
+    pk, sk = getattr(quant, f"quantize_pack_{name}")(x)
+    pp, sp = getattr(quant, f"quantize_pack_{name}_ref")(x)
+    assert pk.equal(pp) and _bits(sk).equal(_bits(sp))
+    assert sk[0].item() == 1.0
+    # the biased zero code (8 or 2) in every slot but the one nonzero
+    # element's, the pad included
+    zero = 0x88 if name == "int4" else 0xAA
+    assert bool((pk[0] == zero).all())
+    assert int((pk[1] != zero).sum()) == 1
+
+
+@pytest.mark.parametrize("name", ["int4", "int2"])
+@pytest.mark.parametrize("K,L", [(1, 1), (3, 2), (2, 3), (4, 5), (3, 1001),
+                                 (8, 4097), (8, 16384)])
+@pytest.mark.parametrize("mean", [False, True])
+def test_lowbit_dequant_kernel_bit_identical(cuda, name, K, L, mean):
+    g = torch.Generator(device=cuda).manual_seed(K * L)
+    x = torch.randn((K, L), generator=g, device=cuda)
+    p, s = getattr(quant, f"quantize_pack_{name}")(x)
+    out_k = getattr(dequant, f"decode_reduce_{name}")(p, s, L, mean=mean)
+    out_p = getattr(dequant, f"decode_reduce_{name}_ref")(p, s, L, mean=mean)
+    assert out_k.shape == (L,) and _bits(out_k).equal(_bits(out_p))
+
+
+@pytest.mark.parametrize("name", ["ef:int4", "ef:int2"])
+def test_ef_encode_with_state_card_matches_cpu(cuda, name):
+    """Kernels K2/K3 and the eager residual on the card against the CPU
+    plain path, bit for bit, over three chained rounds."""
+    codec = get_codec(name)
+    rng = np.random.default_rng(5)
+    K, L = 8, 4097
+    st_c, st_g = torch.zeros((K, L)), torch.zeros((K, L), device=cuda)
+    for _ in range(3):
+        dv = torch.tensor(rng.standard_normal((K, L)), dtype=torch.float32)
+        (p_c, s_c), st_c = codec.encode_with_state(dv, st_c)
+        (p_g, s_g), st_g = codec.encode_with_state(dv.to(cuda), st_g)
+        assert p_g.cpu().equal(p_c) and _bits(s_g.cpu()).equal(_bits(s_c))
+        assert _bits(st_g.cpu()).equal(_bits(st_c))
+        tot_c = codec.decode_stacked_sum((p_c, s_c), L)
+        tot_g = codec.decode_stacked_sum((p_g, s_g), L)
+        assert _bits(tot_g.cpu()).equal(_bits(tot_c))
+
+
 def test_wrappers_count_only_kernel_launches(cuda):
     x = torch.randn((2, 64), device=cuda)
-    before = (quantize_pack_int8.launches, decode_reduce_int8.launches)
-    q, s = quantize_pack_int8(x)
-    decode_reduce_int8(q, s, 64)
-    quantize_pack_int8(x.cpu())                          # plain version
-    assert (quantize_pack_int8.launches, decode_reduce_int8.launches) == (
-        before[0] + 1, before[1] + 1)
+    wrappers = [(getattr(quant, f"quantize_pack_{n}"),
+                 getattr(dequant, f"decode_reduce_{n}"))
+                for n in ("int8", "int4", "int2")]
+    before = [(q.launches, d.launches) for q, d in wrappers]
+    for enc, dec in wrappers:
+        p, s = enc(x)
+        dec(p, s, 64)
+        p_cpu, s_cpu = enc(x.cpu())                      # plain versions
+        dec(p_cpu, s_cpu, 64)
+    assert [(q.launches, d.launches) for q, d in wrappers] == [
+        (q + 1, d + 1) for q, d in before]
