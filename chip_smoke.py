@@ -10,27 +10,34 @@ JSON line:
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes: K1 (SCD) allclose at rtol 1e-4, atol 1e-5;
-     K2 (int8 / int4 / int2 quantize) and K3 (int8 / int4 / int2
-     decode+sum/mean) bit-identical, also at ragged lengths and on edge
-     cases (all zeros, one nonzero, scales 1e-6 and 1e6);
+     K2 (int8 / int4 / int2 quantize), K3 (int8 / int4 / int2
+     decode+sum/mean) and K4 (top-k select) bit-identical, also at
+     ragged lengths and on edge cases (all zeros, one nonzero, scales
+     1e-6 and 1e6; for K4 k in {1, ceil(L/8), L}, heavy ties, +x/-x
+     pairs and -0.0 entries);
   3. the main paths: CoCoA ridge with ``solver="scd_kernel"`` on the
      virtual driver, K workers batched into each launch, under
      ``compressed:int8``, ``compressed:ef:int4`` (the error-feedback
-     int4 exchange) and ``compressed:ef:int2``, each on its own trainer
-     (freed before the next) for up to ``--rounds`` rounds or until the
+     int4 exchange), ``compressed:ef:int2``,
+     ``compressed:ef:topk(r=0.125)`` and the same with ``stale:k=2`` and
+     worker 1 dropped in rounds 5-9, each on its own trainer (freed
+     before the next) for up to ``--rounds`` rounds or until the
      suboptimality reaches ``--eps``. Every launch counter is set to 0
      just before each path and read just after: K1 and the path's own
-     K2 and K3 must have launched exactly once per round, the other
-     codecs' kernels never;
-  4. the whole-path checks, under ``compressed:int8`` and
-     ``compressed:ef:int4``: the first 3 rounds again with the plain SCD
-     on the same index stream must give the same primal at rtol 1e-4,
-     and a small problem run on the card and on the CPU (plain versions
-     throughout) on one replayed index stream must agree round by round
-     at rtol 1e-4; the codes that differ between the two runs are
+     codec kernels (K2 and K3, or K4) must have launched exactly once
+     per round, the other codecs' kernels never;
+  4. the whole-path checks, under ``compressed:int8``,
+     ``compressed:ef:int4`` and ``compressed:ef:topk(r=0.125)``: the
+     first 3 rounds again with the plain SCD on the same index stream
+     must give the same primal at rtol 1e-4, and a small problem run on
+     the card and on the CPU (plain versions throughout) on one replayed
+     index stream must agree round by round at rtol 1e-4; the codes (for
+     topk, the selected indices) that differ between the two runs are
      counted and printed;
   5. timing: each kernel and its plain version by CUDA events at the
-     main path's shapes, beside the least time the card could take.
+     main path's shapes, beside the least time the card could take and,
+     for K4, ``torch.topk`` of the magnitudes (the library call that
+     computes the same selection; the port never calls it).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -57,9 +64,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 # the paths phase 3 drives, and the codec whose kernels each launches
+TOPK_R = 0.125
+TOPK = f"compressed:ef:topk(r={TOPK_R:g})"
 PATHS = (("compressed:int8", "int8"), ("compressed:ef:int4", "int4"),
-         ("compressed:ef:int2", "int2"))
-CHECKED = ("compressed:int8", "compressed:ef:int4")     # phase 4
+         ("compressed:ef:int2", "int2"), (TOPK, "topk"),
+         (f"{TOPK}/stale:k=2/drop:1@5-9", "topk"))
+CHECKED = ("compressed:int8", "compressed:ef:int4", TOPK)     # phase 4
 CODECS = ("int8", "int4", "int2")
 
 
@@ -122,15 +132,15 @@ def free(torch) -> None:
 
 @contextlib.contextmanager
 def recording(codec):
-    """Keep every wire payload ``codec``'s base encode produces while
-    the block runs (an instance attribute shadows the method)."""
+    """Keep every wire tuple ``codec``'s base encode produces while the
+    block runs (an instance attribute shadows the method)."""
     base = getattr(codec, "base", codec)
     seen = []
     encode = base.encode
 
     def record(dv):
         out = encode(dv)
-        seen.append(out[0].cpu())
+        seen.append([t.cpu() for t in out])
         return out
 
     base.encode = record
@@ -148,6 +158,12 @@ def codes_differ(torch, a, b, bits: int) -> int:
     a, b = a.to(torch.int32), b.to(torch.int32)
     return sum(int((((a >> s) & mask) != ((b >> s) & mask)).sum())
                for s in range(0, 8, bits))
+
+
+def indices_differ(torch, a, b) -> int:
+    """How many selected indices of a row the other run did not select
+    (``a`` and ``b`` are two (K, k) top-k index tensors)."""
+    return sum(int((~torch.isin(ra, rb)).sum()) for ra, rb in zip(a, b))
 
 
 def main(argv=None) -> int:
@@ -178,6 +194,7 @@ def main(argv=None) -> int:
     from repro_torch.data import make_glm_data
     from repro_torch.kernels import _build, dequant, quant
     from repro_torch.kernels.scd import scd_solve
+    from repro_torch.kernels.topk import topk_select, topk_select_ref
 
     enc = {c: getattr(quant, f"quantize_pack_{c}") for c in CODECS}
     enc_ref = {c: getattr(quant, f"quantize_pack_{c}_ref") for c in CODECS}
@@ -259,20 +276,53 @@ def main(argv=None) -> int:
                 out_p = dec_ref[c](p, s, L, mean=mean)
                 ok[name] &= bits_equal(torch, out_k, out_p)
                 err[name] = max(err[name], max_err(out_k, out_p))
+    # K4 on the round-1 stack at the main path's ratios, then on ragged
+    # lengths, k in {1, ceil(L/8), L}, and rows of ties and signed zeros
+    topk_cases = [(dv_k, get_codec(f"topk(r={r:g})")._k(m))
+                  for r in (0.01, TOPK_R, 1.0)]
+    ties = torch.randint(-3, 4, (4, 4097), generator=g, device=dev).float()
+    negzero = torch.where(torch.rand((4, 4097), generator=g, device=dev)
+                          < 0.5, torch.tensor(-0.0, device=dev),
+                          torch.tensor(0.0, device=dev))
+    negzero[:, ::7] = torch.randn(negzero[:, ::7].shape, generator=g,
+                                  device=dev)
+    for L in (1, 2, 3, 127, 128, 129, 1001, 4097):
+        one = torch.zeros((2, L), device=dev)
+        one[1, L // 2] = -2.5
+        for kk in sorted({1, -(-L // 8), L}):
+            topk_cases += [
+                (torch.randn((3, L), generator=g, device=dev), kk),
+                (torch.zeros((2, L), device=dev), kk),   # all zeros
+                (one, kk),                               # one nonzero
+                (ties[:, :L].contiguous(), kk),      # ties and +x/-x pairs
+                (negzero[:, :L].contiguous(), kk)]   # -0.0 entries
+    ok["topk"], err["topk"] = True, 0.0
+    for x, kk in topk_cases:
+        got, want = topk_select(x, kk), topk_select_ref(x, kk)
+        ok["topk"] &= all(bits_equal(torch, a, b_) for a, b_ in
+                          zip(got, want))
+        err["topk"] = max(err["topk"], max_err(got[0], want[0]),
+                          max_err(got[2], want[2]),
+                          max_err(got[1].long(), want[1].long()))
     phase_done(torch, "kernels_vs_plain", t0,
                ok=ok, max_abs_err=err,
                tolerance={"scd_solve": "rtol 1e-4, atol 1e-5",
-                          "quantize and decode": "bit-identical"},
+                          "quantize, decode and topk": "bit-identical"},
                quantize_cases=[list(x.shape) for x in cases],
                decode_cases=[[list(p.shape), L]
-                             for p, _, L in payloads["int4"]])
+                             for p, _, L in payloads["int4"]],
+               topk_cases=len(topk_cases),
+               topk_negative_zeros=int(torch.signbit(negzero).sum()
+                                       - (negzero < 0).sum()),
+               topk_main_k=[kk for _, kk in topk_cases[:3]])
     if not all(ok.values()):
         raise SystemExit("chip_smoke: a kernel disagrees with its plain "
                          "version (see the kernels_vs_plain line)")
     main_payload = {c: payloads[c][0] for c in CODECS}      # from dv_k
 
     # -- 3. the main paths ----------------------------------------------
-    counters = [scd_solve] + list(enc.values()) + list(dec.values())
+    counters = ([scd_solve] + list(enc.values()) + list(dec.values())
+                + [topk_select])
     runs = {}
     for ex, c in PATHS:
         if tr is None:
@@ -299,13 +349,16 @@ def main(argv=None) -> int:
                    round_ms_quartiles=(np.percentile(sec, [25, 75])
                                        * 1e3).tolist(),
                    comm_bytes_per_round=tr.comm_bytes_per_round(),
+                   comm_bytes_by_round=(
+                       [tr.comm_bytes_per_round(t) for t in hist.rounds]
+                       if "drop:" in ex else "every round the same"),
                    memory_allocated_before=held,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    launches=launches)
         want = {fn.__name__: 0 for fn in counters}
-        want.update({"scd_solve": n_rounds,
-                     f"quantize_pack_{c}": n_rounds,
-                     f"decode_reduce_{c}": n_rounds})
+        own = (("topk_select",) if c == "topk"
+               else (f"quantize_pack_{c}", f"decode_reduce_{c}"))
+        want.update({name: n_rounds for name in ("scd_solve",) + own})
         if launches != want:
             raise SystemExit(f"chip_smoke: under {ex} K1 and the {c} "
                              f"kernels must launch once per round ({n_rounds}"
@@ -354,9 +407,14 @@ def main(argv=None) -> int:
             with recording(codec) as seen:
                 small[where] = trs.run(10).primal
             sent[where] = seen
-        bits = getattr(codec, "base", codec).bits
-        codes[ex] = [codes_differ(torch, a, b_, bits)
-                     for a, b_ in zip(sent["cuda"], sent["cpu"])]
+        pairs = list(zip(sent["cuda"], sent["cpu"]))
+        if ex == TOPK:                   # the selected indices
+            codes[ex] = [indices_differ(torch, a[1], b_[1])
+                         for a, b_ in pairs]
+        else:                            # the packed codes
+            bits = getattr(codec, "base", codec).bits
+            codes[ex] = [codes_differ(torch, a[0], b_[0], bits)
+                         for a, b_ in pairs]
         checks[f"{ex} card vs cpu"] = (
             np.abs(np.array(small["cuda"]) - small["cpu"])
             / np.abs(small["cpu"])).tolist()
@@ -379,6 +437,13 @@ def main(argv=None) -> int:
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps)
     plain["scd_solve"] = time_ms(torch, lambda: scd_steps(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), 3, warmup=1)
+    k_main = get_codec(f"topk(r={TOPK_R:g})")._k(L)
+    ms["topk"] = time_ms(torch, lambda: topk_select(dv_k, k_main),
+                         4 * args.reps)
+    plain["topk"] = time_ms(torch, lambda: topk_select_ref(dv_k, k_main),
+                            4 * args.reps)
+    library = {"topk": time_ms(torch, lambda: torch.topk(
+        dv_k.abs(), k_main, dim=1, sorted=True), 4 * args.reps)}
     for c in CODECS:
         p, s, _ = main_payload[c]
         ms[c] = time_ms(torch, lambda: enc[c](dv_k), 4 * args.reps)
@@ -401,20 +466,27 @@ def main(argv=None) -> int:
         # decode reads the payload and scales, writes the (L,) f32 sum
         bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
         bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
+    # K4 reads the f32 stack and writes k values, k indices and one
+    # threshold per row; one magnitude per element
+    bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k_main + 4), K * L)
     del tr
     free(torch)
     phase_done(torch, "timing", t0, reps=args.reps,
-               distinct_columns=distinct, scd_bytes=scd_bytes)
+               distinct_columns=distinct, scd_bytes=scd_bytes,
+               topk_k=k_main)
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [("scd_solve", "scd_solve", src + "scd.cu",
              "src/repro/kernels/scd.py:137", [ex for ex, _ in PATHS])]
-    for (ex, c), q_line, d_line in zip(PATHS, (90, 110, 130),
+    for (ex, c), q_line, d_line in zip(PATHS[:3], (90, 110, 130),
                                        (123, 144, 165)):
         rows.append((c, f"quantize_pack_{c}", src + "quant.cu",
                      f"src/repro/kernels/quant.py:{q_line}", [ex]))
         rows.append((f"decode_{c}", f"decode_reduce_{c}", src + "dequant.cu",
                      f"src/repro/kernels/dequant.py:{d_line}", [ex]))
+    rows.append(("topk", "topk_select", src + "topk.cu",
+                 "src/repro/kernels/topk.py:83",
+                 [ex for ex, c in PATHS if c == "topk"]))
     kernels = []
     for key, name, source, replaces, paths in rows:
         n_l = sum(runs[ex]["launches"][name] for ex in paths)
@@ -423,7 +495,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_l, "max_abs_err": err[key],
             "ms": ms[key], "plain_ms": plain[key], "bound_ms": bounds[key][0],
-            "bound_by": bounds[key][1], "library_ms": None, "ok": ok[key],
+            "bound_by": bounds[key][1], "library_ms": library.get(key),
+            "ok": ok[key],
             "paths": paths, "launches_per_round": n_l / n_r})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -1,6 +1,7 @@
 """Update codecs: what one worker's update vector looks like on the wire
-(the port of ``repro.comm.codec``, for the ``f32``, ``int8``, ``int4``
-and ``int2`` codecs and the ``ef:`` error-feedback wrapper).
+(the port of ``repro.comm.codec``: the ``f32``, ``int8``, ``int4``,
+``int2`` and ``topk(r=..)`` codecs and the ``ef:`` error-feedback
+wrapper).
 
 An :class:`UpdateCodec` turns f32 updates into a tuple of *wire
 tensors* (``encode``), reconstructs f32 from a stacked ``(K, ...)``
@@ -23,6 +24,9 @@ leading axis — and returns one scale per row.
     absmax * f32(2/3)``), biased 2-bit codes packed four to a byte under
     split-quarter pairing: element ``i`` with ``i + q``, ``i + 2q``,
     ``i + 3q``, ``q = ceil(L/4)`` (``ceil(L/4)`` bytes + 4).
+  * ``topk(r=..)`` — magnitude sparsification: the ``k = min(L, max(1,
+    ceil(r*L)))`` largest-|.| entries as f32 values and int32 indices,
+    plus the k-th magnitude as a threshold (``8k + 4`` bytes).
 
 On the card the quantized codecs' ``encode`` launches kernel K2
 (``repro_torch.kernels.quant``) and their stacked reductions launch
@@ -30,7 +34,11 @@ kernel K3 (``repro_torch.kernels.dequant``); on the CPU both run their
 plain versions. Both are bit-identical to the reference's eager
 ``encode_ref`` and ``decode_reduce_ref``: the reduction adds the K
 decoded rows in worker order and the mean is the sum times the
-f32-rounded 1/K.
+f32-rounded 1/K. The topk encode launches kernel K4
+(``repro_torch.kernels.topk``) on the card and is bit-identical to the
+reference's ``lax.top_k``; its decode is plain PyTorch (a scatter per
+row, the rows added in worker order), as it is jnp outside any kernel
+in the reference.
 
 The ``ef:<base>`` wrapper adds *error feedback*: it encodes ``dv +
 residual`` with the lossy base codec and keeps ``(dv + residual) -
@@ -41,16 +49,13 @@ grid rounds away this round re-enters the sum next round. It is
 codecs expose the same surface with a zero-length placeholder. The
 residual is plain PyTorch, as it is jnp in the reference.
 
-The reference's ``topk(r=..)`` codec (and so ``ef:topk``) is not ported
-yet (ROADMAP.md Queue 1 item 5, its kernel Queue 2); asking for it
-raises ``NotImplementedError``.
-
 Zero is a fixed point of every codec: an all-zero update gets scale 1
-and decodes to exact zeros.
+(top-k: threshold 0) and decodes to exact zeros.
 """
 from __future__ import annotations
 
 import functools
+import math
 import re
 from typing import Protocol, runtime_checkable
 
@@ -68,7 +73,8 @@ INT2_SCALE_MUL = 2.0 / 3.0  # scale = absmax * f32(2/3), a multiply as in
 #                             the reference (its division by 1.5 was one
 #                             ulp apart between its two paths)
 
-# the reference's top-k codec, which the port does not have yet
+TOPK_DEFAULT_R = 0.01  # bare "topk" keeps 1% of the entries
+
 _TOPK_RE = re.compile(r"topk(?:\((?P<arg>[^)]*)\))?")
 
 
@@ -139,7 +145,8 @@ class StatelessCodec:
     The base ``decode_stacked_sum`` / ``decode_stacked_mean`` reduce the
     decoded stack with ``torch.sum`` / ``torch.mean`` — right for a
     codec whose stack is already f32 wire data (``f32``); the quantized
-    codecs override them with the fused sequential reduction."""
+    codecs override them with the fused sequential reduction, ``topk``
+    with a sum of its scattered rows in worker order."""
     stateful = False
     lossless = False
 
@@ -257,6 +264,76 @@ class Int2Codec(_QuantCodec):
     bits = 2
 
 
+class TopKCodec(StatelessCodec):
+    """Magnitude sparsification: ship only the ``k = min(L, max(1,
+    ceil(r*L)))`` largest-|.| entries.
+
+    Wire tuple: ``(values f32 (..., k), indices int32 (..., k),
+    threshold f32 (...))``; the threshold, last like every codec's
+    scale, is the k-th largest magnitude. ``encode`` is kernel K4 on the
+    card and its plain version on the CPU; ``encode_ref`` is always the
+    plain version. The decode scatters each row into zeros after
+    ``_enforce``, so the threshold is consumed as in the reference, and
+    the stacked sum adds the K scattered rows one at a time in worker
+    order. The indices of one row are distinct, so a plain ``scatter_``
+    per row is exact; no accumulating scatter (``index_add_``), whose
+    CUDA atomics add in no fixed order, is used."""
+
+    def __init__(self, r: float):
+        self.r = float(r)
+        self.name = f"topk(r={self.r:g})"
+
+    def _k(self, length: int) -> int:
+        return min(int(length), max(1, math.ceil(self.r * length)))
+
+    def encode(self, dv: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """K4 on the card, its plain version on the CPU."""
+        from repro_torch.kernels.topk import topk_select
+        return topk_select(dv, self._k(dv.shape[-1]))
+
+    def encode_ref(self, dv: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The plain path (and kernel K4's bit-exact oracle)."""
+        from repro_torch.kernels.topk import topk_select_ref
+        return topk_select_ref(dv, self._k(dv.shape[-1]))
+
+    @staticmethod
+    def _enforce(values: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+        """Drop anything below the advertised threshold: the identity on
+        honestly encoded values (``|v| >= thr`` for each of them), kept
+        so that the decode reads the threshold as the reference's does."""
+        return torch.where(torch.abs(values) >= thr, values,
+                           torch.zeros_like(values))
+
+    def decode(self, parts, length: int) -> torch.Tensor:
+        values, idx, thr = parts
+        out = torch.zeros((length,), dtype=torch.float32, device=values.device)
+        return out.scatter_(0, idx.long(), self._enforce(values, thr))
+
+    def decode_stacked(self, parts, length: int) -> torch.Tensor:
+        values, idx, thr = parts             # (K, k), (K, k), (K,)
+        out = torch.zeros((values.shape[0], length), dtype=torch.float32,
+                          device=values.device)
+        return out.scatter_(1, idx.long(),
+                            self._enforce(values, thr[:, None]))
+
+    def decode_stacked_sum(self, parts, length: int) -> torch.Tensor:
+        rows = self.decode_stacked(parts, length)
+        total = rows[0].clone()
+        for k in range(1, rows.shape[0]):
+            total = total + rows[k]
+        return total
+
+    def decode_stacked_mean(self, parts, length: int) -> torch.Tensor:
+        """The sum divided by K as a tensor (a true division, as
+        ``jnp.mean``'s; PyTorch's CUDA division by a Python number
+        multiplies by the reciprocal)."""
+        total = self.decode_stacked_sum(parts, length)
+        return total / torch.full_like(total, float(parts[0].shape[0]))
+
+    def wire_bytes(self, length: int) -> int:
+        return 2 * FP_ITEMSIZE * self._k(length) + SCALE_BYTES
+
+
 class EFWrapper:
     """Error feedback around a lossy base codec (``ef:<base>``).
 
@@ -310,11 +387,11 @@ CODECS: dict[str, UpdateCodec] = {
 @functools.lru_cache(maxsize=None)
 def get_codec(name: str) -> UpdateCodec:
     """Validated codec lookup, cached so that every call site naming the
-    same codec shares one object: a ported codec or ``ef:<lossy base>``;
-    ``NotImplementedError`` for the reference's ``topk(r=..)`` (and so
-    ``ef:topk``), which the port does not have yet; ``ValueError`` for
-    a nested ``ef:ef:``, an ``ef:`` around a lossless codec, or a name
-    neither package knows."""
+    same codec shares one object: a named codec, ``topk`` /
+    ``topk(r=<float>)`` / ``topk(<float>)`` with ``0 < r <= 1`` (bare
+    ``topk`` keeps 1%), or ``ef:<lossy base>``; ``ValueError`` for a bad
+    ``topk`` argument, a nested ``ef:ef:``, an ``ef:`` around a lossless
+    codec, or an unknown name."""
     if name in CODECS:
         return CODECS[name]
     if name.startswith("ef:"):
@@ -330,12 +407,24 @@ def get_codec(name: str) -> UpdateCodec:
                 f"there is no quantization error to feed back — drop the "
                 f"'ef:' prefix")
         return EFWrapper(base)
-    if _TOPK_RE.fullmatch(name):
-        raise NotImplementedError(
-            f"codec {name!r} is not ported yet: the port has "
-            f"{tuple(CODECS)} and 'ef:<base>' over them; topk is ROADMAP.md "
-            f"Queue 1 item 5 and its kernel Queue 2")
+    m = _TOPK_RE.fullmatch(name)
+    if m is not None:
+        arg = m.group("arg")
+        if not arg:
+            r = TOPK_DEFAULT_R
+        else:
+            body = arg[2:] if arg.startswith("r=") else arg
+            try:
+                r = float(body)
+            except ValueError:
+                raise ValueError(
+                    f"bad codec {name!r}: expected topk(r=<float>), got "
+                    f"argument {arg!r}") from None
+        if not 0.0 < r <= 1.0:
+            raise ValueError(
+                f"bad codec {name!r}: keep ratio r={r!r} must satisfy "
+                f"0 < r <= 1")
+        return TopKCodec(r)
     raise ValueError(
-        f"unknown update codec {name!r}; known: {tuple(CODECS)} plus the "
-        f"'ef:<lossy base>' wrapper (the reference's 'topk(r=<float>)' is "
-        f"not ported yet)")
+        f"unknown update codec {name!r}; known: {tuple(CODECS)} plus "
+        f"'topk(r=<float>)' and the 'ef:<lossy base>' wrapper")

@@ -1,10 +1,12 @@
 """CoCoA on one card: the GLM objective, the partitioner, the local
 solvers, the virtual driver and the trainer (the port of
-``repro.core`` for this slice)."""
+``repro.core`` for the virtual driver)."""
 from repro_torch.core.glm import (GLMProblem, primal_objective,  # noqa: F401
                                   ridge_exact, suboptimality)
 from repro_torch.core.cocoa import (CoCoAConfig, CoCoATrainer,  # noqa: F401
                                     History, UniformIndices)
 from repro_torch.core.distributed import (COMM_TRANSPORTS,  # noqa: F401
                                           EXCHANGE_MODES, CommScheme,
-                                          ExchangeConfig, ExchangeMode)
+                                          ExchangeConfig, ExchangeMode,
+                                          MembershipSchedule,
+                                          StragglerProfile)

@@ -4,13 +4,16 @@
 ``CoCoATrainer.run()`` runs K *virtual* workers on one device: each
 round, every worker takes H local SCD steps on its column block (one
 batched solve, kernel K1 under ``solver="scd_kernel"`` on the card),
-the K updates Delta v are exchanged under the configured scheme (under
+the K updates Delta v are exchanged under the configured exchange (under
 ``compressed:int8``, ``compressed:int4`` and ``compressed:int2``, and
 their error-feedback forms ``compressed:ef:<base>``, through kernels K2
-and K3 on the card), the shared
-residual ``w = A alpha - b`` absorbs their sum, and the primal objective
-is evaluated from ``w`` and the per-worker regularizers without
-gathering alpha.
+and K3 on the card; under ``compressed:topk(r=..)`` and
+``compressed:ef:topk(r=..)`` through kernel K4), the shared residual
+``w = A alpha - b`` absorbs their sum (under ``stale:k=..`` ``k`` rounds
+late), and the primal objective is evaluated from ``w`` and the
+per-worker regularizers without gathering alpha. The exchange may also
+drop workers for a window of rounds (``drop:``) or carry a straggler
+profile, which changes no number.
 
 Randomness: the reference samples each worker's H coordinates with
 ``jax.random.categorical`` under keys split per round and per worker.
@@ -54,8 +57,8 @@ class CoCoAConfig:
     eta: float = 1.0                 # 1.0 = ridge
     sigma: float | None = None       # subproblem safety; default K ("adding")
     solver: str = "scd_ref"          # scd_ref | scd_kernel | scd_fixed
-    # an ExchangeConfig or a spec string ("compressed:int8"); None is
-    # the default persistent/sync exchange
+    # an ExchangeConfig or a spec string ("compressed:int4/stale:k=2");
+    # None is the default persistent/sync exchange
     exchange: "dist.ExchangeConfig | str | None" = None
     partitioner: str = "balanced"    # balanced | block
     seed: int = 0
@@ -206,13 +209,15 @@ class CoCoATrainer:
         return float(self.problem.loss(-self.b))
 
     def init_state(self):
-        """The round-0 state ``(local, w)``: ``local`` is alpha
+        """The round-0 state ``(local, shared)``: ``local`` is alpha
         ``(K, n_pad)`` or, under a stateful (``ef:``) codec, the pair
-        ``(alpha, residual (K, m))``; ``w = A @ 0 - b``."""
+        ``(alpha, residual (K, m))``; ``shared`` is ``w = A @ 0 - b``
+        or, under ``stale:k=..``, the pair ``(w, queue (k, m))``."""
         alpha = torch.zeros((self.cfg.K, self.part.n_padded),
                             dtype=torch.float32, device=self.device)
         return (dist.wrap_local_state(self.exchange, alpha, self.m,
-                                      self.cfg.K), -self.b)
+                                      self.cfg.K),
+                dist.init_exchange_state(self.exchange, -self.b))
 
     def with_H(self, H: int) -> "CoCoATrainer":
         """A fresh trainer on the same problem and device with the H knob
@@ -220,26 +225,34 @@ class CoCoATrainer:
         return type(self)(dataclasses.replace(self.cfg, H=int(H)),
                           self.A_np, self.b_np, device=self.device)
 
-    def comm_bytes_per_round(self) -> int:
+    def comm_bytes_per_round(self, t: int | None = None) -> int:
         """Modelled bytes through the master per round under the
-        configured scheme (the codec's payload + f32 scale for
-        ``compressed:int8|int4|int2`` and their ``ef:`` forms, f32
-        otherwise; the alpha round trip counts the padded blocks)."""
+        configured scheme (the codec's payload for ``compressed:<codec>``,
+        f32 otherwise; the alpha round trip counts the padded blocks).
+        ``t`` asks for one 1-based round of the membership schedule:
+        dropped workers ship nothing (``None``: all K live)."""
+        K_live = (None if t is None
+                  else self.exchange.membership.live_count(t, self.cfg.K))
         return self.scheme.bytes_per_round(
-            self.m, self.cfg.K, local_state_len=self.cfg.K * self.part.n_padded)
+            self.m, self.cfg.K, local_state_len=self.cfg.K * self.part.n_padded,
+            K_live=K_live)
 
     def run(self, rounds: int, target_eps: float | None = None, *,
             state=None, first_round: int = 1) -> History:
         """Run up to ``rounds`` rounds, numbered from ``first_round``,
-        from ``state`` (``(local, w)`` as :meth:`init_state` shapes it,
-        default the zero start); stop early once the suboptimality
-        reaches ``target_eps``."""
+        from ``state`` (``(local, shared)`` as :meth:`init_state` shapes
+        it, default the zero start); stop early once the suboptimality
+        reaches ``target_eps``. Under ``stale`` the recorded primal is
+        one round behind (the driver's metric), and the pending
+        aggregates are absorbed after the last round."""
         local, w = self.init_state() if state is None else state
         hist = History(p_star=self.p_star, p_zero=self.p_zero)
+        last_t = 0
         for t in range(first_round, first_round + rounds):
             t0 = time.perf_counter()
             idx = self.index_source(t)
             local, w, primal = self._round_fn(local, w, idx, t)
+            last_t = t
             p = float(primal)
             s = suboptimality(p, hist.p_star, hist.p_zero)
             hist.rounds.append(t)
@@ -248,6 +261,7 @@ class CoCoATrainer:
             hist.seconds.append(time.perf_counter() - t0)
             if target_eps is not None and s <= target_eps:
                 break
+        w = dist.finish_run(self._round_fn, w, last_t)
         self.alpha = dist.unwrap_local_state(self.exchange, local)
         self.w_final = w.cpu().numpy()
         self.alpha_final = part_mod.unpack_alpha(self.alpha.cpu().numpy(),

@@ -1,5 +1,5 @@
 """The distributed-driver layer on one card: the port of
-``repro.core.distributed`` for this slice.
+``repro.core.distributed`` for the virtual driver.
 
   * :class:`CommScheme` — a *transport* composed with an update codec
     (``repro_torch.comm``). All four of the reference's transports
@@ -7,27 +7,44 @@
     driver every exact transport (``persistent``, ``spark_faithful``,
     ``reduce_scatter``) is one f32 sum over the stacked updates;
     ``compressed:<codec>`` encodes the (K, L) stack and reduces the
-    payload with the codec's fused decode+sum (kernels K2 and K3 on the
-    card for ``int8``, ``int4`` and ``int2``); under a stateful codec
-    (``ef:<base>``) the encode also advances the per-worker residual.
-  * :class:`ExchangeMode` — ``sync`` only. ``stale`` waits for ROADMAP.md
-    Queue 1 item 6.
-  * :class:`ExchangeConfig` — the scheme and mode in one frozen value,
-    parsed from and printed as the reference's ``/``-separated spec.
-    Any segment this slice does not run (``stale``, ``drop:``,
-    ``straggler:``, ``ring``) raises ``NotImplementedError``.
+    payload through the codec (kernels K2 and K3 on the card for
+    ``int8``, ``int4`` and ``int2``, K4 for the ``topk`` encode); under
+    a stateful codec (``ef:<base>``) the encode also advances the
+    per-worker residual.
+  * :class:`ExchangeMode` — ``sync``, or ``stale`` / ``stale:k=<int>``:
+    the aggregate computed in round ``t`` is applied in round ``t+k``
+    while the workers compute against state absorbed through round
+    ``t-1-k``; the last ``k`` aggregates travel as a stacked pending
+    queue in the driver's ``shared`` slot (:func:`init_exchange_state`),
+    and ``round_fn.flush`` / :func:`finish_run` absorb it after the last
+    round.
+  * :class:`StragglerProfile` — the straggler segment of the grammar
+    (per-worker compute-time multipliers). Time-only: under a
+    bulk-synchronous barrier a straggler changes the wall clock, never
+    the numbers, so the driver ignores it.
+  * :class:`MembershipSchedule` — elastic membership (``drop:1@5-9``): a
+    dropped worker contributes an exact-zero update (zeroed before the
+    encode, its ``ef:`` residual too), keeps its local state and
+    residual frozen, and the byte model prices the live workers only.
+  * :class:`ExchangeConfig` — all of the above in one frozen value,
+    parsed from and printed as the reference's ``/``-separated spec
+    (``"compressed:ef:topk(r=0.125)/stale:k=2/drop:1@5-9"``), segments
+    in any order. The collective backend is ``xla`` only; a ``ring``
+    segment raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 8).
   * :func:`build_virtual_round` — K virtual workers on one device, with
     the reference's ``vmap`` over workers written out as a leading K
     axis: one batched ``local_step`` for all workers, one exchange, one
-    apply. Under a stateful codec its ``local`` slot is the
-    ``(local, codec_state)`` pair of :func:`wrap_local_state`.
+    apply. Under a stateful codec its ``local`` slot is the ``(local,
+    codec_state)`` pair of :func:`wrap_local_state`.
 
 Randomness does not enter here: the caller hands each round its (K, H)
 coordinate indices, so a run can replay the reference's index stream
-(``repro_torch.carry``).
+(``repro_torch.carry``). Round indices are Python ints, so the masks
+the reference evaluates in-graph are plain branches here.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Callable, Protocol
 
@@ -37,17 +54,28 @@ from repro_torch.comm import UpdateCodec, get_codec, wire_bytes
 
 COMM_TRANSPORTS = ("persistent", "spark_faithful", "compressed",
                    "reduce_scatter")
-EXCHANGE_MODES = ("sync",)
+EXCHANGE_MODES = ("sync", "stale")
+STRAGGLER_KINDS = ("none", "det", "lognormal", "mix")
+# the reference's collective backends; the port runs the fused one
+COLLECTIVE_BACKENDS = ("xla", "ring")
+_UNPORTED_BACKENDS = {"ring": "ROADMAP.md Queue 1 item 8"}
 
-# reference segments this slice does not run, and where they are queued
-_UNPORTED_SEGMENTS = {
-    "stale": "ROADMAP.md Queue 1 item 6",
-    "straggler": "ROADMAP.md Queue 1 item 6",
-    "drop": "ROADMAP.md Queue 1 item 6",
-    "ring": "ROADMAP.md Queue 1 item 8",
-}
+EXCHANGE_GRAMMAR = ("<transport>[:<codec>] | "
+                    + " | ".join(COLLECTIVE_BACKENDS)
+                    + " | sync | stale[:k=<int>] | "
+                    "straggler:<kind>[(p=..,slow=..,sigma=..)] | "
+                    "drop:<worker>@<round>[-<round>]")
 
-EXCHANGE_GRAMMAR = "<transport>[:<codec>] | sync"
+
+def _check_backend(name: str) -> str:
+    if name in _UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"collective backend {name!r} is not ported yet "
+            f"({_UNPORTED_BACKENDS[name]}); the port runs 'xla'")
+    if name not in COLLECTIVE_BACKENDS:
+        raise ValueError(f"unknown collective backend {name!r}; known: "
+                         f"{COLLECTIVE_BACKENDS}")
+    return name
 
 
 # ---------------------------------------------------------------------------
@@ -78,7 +106,7 @@ class CommScheme:
                     f"comm scheme {self.name!r}: only the 'compressed' "
                     f"transport takes a codec suffix ('{transport}' "
                     f"moves exact f32 by construction)")
-            get_codec(codec)  # raises on unknown or unported codecs
+            get_codec(codec)  # raises on unknown codec names
 
     @property
     def transport(self) -> str:
@@ -111,11 +139,13 @@ class CommScheme:
         return total if state is None else (total, state)
 
     def bytes_per_round(self, update_len: int, K: int,
-                        local_state_len: int = 0) -> int:
+                        local_state_len: int = 0,
+                        K_live: int | None = None) -> int:
         """Bytes on the wire per round (paper Fig 1 + §5.3), sized to
-        the dtypes the collectives move."""
+        the dtypes the collectives move; ``K_live`` is the live-worker
+        count of an elastic round (``None``: all K)."""
         return wire_bytes(self.transport, self.codec, update_len, K,
-                          local_state_len=local_state_len)
+                          local_state_len=local_state_len, K_live=K_live)
 
 
 # ---------------------------------------------------------------------------
@@ -123,29 +153,208 @@ class CommScheme:
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class ExchangeMode:
-    """``sync``: the round-``t`` aggregate is applied before round
-    ``t+1`` computes. The reference's bounded-staleness ``stale`` mode is
-    not ported yet."""
-    name: str = "sync"
+    """``sync`` (the round-``t`` aggregate is applied before round
+    ``t+1`` computes) or ``stale`` (``k``-round-bounded delay: the
+    aggregate computed in round ``t`` is applied during round ``t+k``).
+    Spelled ``"sync"``, ``"stale"`` (k=1) or ``"stale:k=<int>"``."""
+    name: str
+    k: int = 1
 
     @classmethod
     def parse(cls, spec: "ExchangeMode | str") -> "ExchangeMode":
         if isinstance(spec, ExchangeMode):
             return spec
-        return cls(str(spec))
+        name, _, opts = str(spec).partition(":")
+        if name not in EXCHANGE_MODES:
+            raise ValueError(f"unknown exchange mode {spec!r}; "
+                             f"known: {EXCHANGE_MODES} (bounded "
+                             f"staleness spells 'stale:k=<int>')")
+        if not opts:
+            return cls(name)
+        m = re.fullmatch(r"k=([0-9]+)", opts)
+        if name != "stale" or not m:
+            raise ValueError(f"unknown exchange mode {spec!r}; the only "
+                             f"parameterized spelling is 'stale:k=<int>' "
+                             f"(e.g. 'stale:k=2')")
+        return cls(name, int(m.group(1)))
 
     def __post_init__(self):
-        if self.name.partition(":")[0] == "stale":
-            raise NotImplementedError(
-                f"exchange mode {self.name!r} is not ported yet "
-                f"({_UNPORTED_SEGMENTS['stale']})")
         if self.name not in EXCHANGE_MODES:
             raise ValueError(f"unknown exchange mode {self.name!r}; "
                              f"known: {EXCHANGE_MODES}")
+        if self.k < 1:
+            raise ValueError(f"exchange mode {self.name!r}: the staleness "
+                             f"bound k must be >= 1, got {self.k}")
+        if self.name == "sync" and self.k != 1:
+            raise ValueError(f"exchange mode 'sync' takes no staleness "
+                             f"bound (got k={self.k}); spell a bounded "
+                             f"delay as 'stale:k={self.k}'")
+
+    @property
+    def stale(self) -> bool:
+        return self.name == "stale"
 
     @property
     def spec(self) -> str:
-        return self.name
+        return self.name if self.k == 1 else f"{self.name}:k={self.k}"
+
+
+# ---------------------------------------------------------------------------
+# straggler profiles
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class StragglerProfile:
+    """Per-worker compute-time multiplier distribution (the paper's
+    straggling executors, §4). Time-only: the driver ignores it, so the
+    port keeps its grammar (``parse``, ``spec``, ``active``); the timing
+    model comes with a driver that keeps a clock (ROADMAP.md Queue 1
+    item 8).
+
+      * ``none``               every worker runs at 1x.
+      * ``det(slow=S)``        worker 0 is S× slower.
+      * ``lognormal(sigma=σ)`` mean-1 lognormal jitter on every worker.
+      * ``mix(p=P,slow=S)``    each worker S× slow with probability P."""
+    kind: str = "none"
+    slow: float = 4.0
+    p: float = 0.1
+    sigma: float = 0.5
+
+    _PARAMS = {"none": (), "det": ("slow",), "lognormal": ("sigma",),
+               "mix": ("p", "slow")}
+
+    @classmethod
+    def parse(cls, spec: "StragglerProfile | str") -> "StragglerProfile":
+        if isinstance(spec, StragglerProfile):
+            return spec
+        body = str(spec)
+        body = body[len("straggler:"):] if body.startswith("straggler:") \
+            else body
+        m = re.fullmatch(r"([a-z_]+)(?:\(([^()]*)\))?", body)
+        if not m or m.group(1) not in STRAGGLER_KINDS:
+            raise ValueError(f"unknown straggler profile {spec!r}; known "
+                             f"kinds: {STRAGGLER_KINDS}, parameterized as "
+                             f"'straggler:mix(p=0.1,slow=8)'")
+        kind, params = m.group(1), m.group(2)
+        allowed = cls._PARAMS[kind]
+        kwargs = {}
+        for item in (params.split(",") if params else ()):
+            key, sep, val = item.partition("=")
+            key = key.strip()
+            if not sep or key not in allowed:
+                raise ValueError(
+                    f"straggler profile {spec!r}: '{kind}' takes "
+                    f"{allowed or 'no'} parameters, got {item!r}")
+            try:
+                kwargs[key] = float(val)
+            except ValueError:
+                raise ValueError(f"straggler profile {spec!r}: parameter "
+                                 f"{key}={val!r} is not a number") from None
+        return cls(kind, **kwargs)
+
+    def __post_init__(self):
+        if self.kind not in STRAGGLER_KINDS:
+            raise ValueError(f"unknown straggler profile kind "
+                             f"{self.kind!r}; known: {STRAGGLER_KINDS}")
+        if self.slow < 1.0:
+            raise ValueError(f"straggler slow multiplier must be >= 1, "
+                             f"got {self.slow}")
+        if not 0.0 <= self.p <= 1.0:
+            raise ValueError(f"straggler probability p must be in [0, 1], "
+                             f"got {self.p}")
+        if self.sigma < 0.0:
+            raise ValueError(f"straggler lognormal sigma must be >= 0, "
+                             f"got {self.sigma}")
+
+    @property
+    def active(self) -> bool:
+        return self.kind != "none"
+
+    @property
+    def spec(self) -> str:
+        fmt = {"slow": self.slow, "p": self.p, "sigma": self.sigma}
+        args = ",".join(f"{k}={fmt[k]:g}" for k in self._PARAMS[self.kind])
+        return f"straggler:{self.kind}" + (f"({args})" if args else "")
+
+
+# ---------------------------------------------------------------------------
+# elastic membership schedules
+# ---------------------------------------------------------------------------
+_DROP_RE = re.compile(r"drop:([0-9]+)@([0-9]+)(?:-([0-9]+))?")
+
+
+@dataclass(frozen=True)
+class MembershipSchedule:
+    """Elastic worker membership: each event removes one worker for an
+    inclusive window of 1-based rounds (``(worker, first, last)``;
+    ``last=None`` means it never rejoins). Spelled ``"drop:1@5"`` /
+    ``"drop:1@5-9"``; several ``drop`` segments compose."""
+    events: tuple = ()
+
+    @staticmethod
+    def parse_event(seg: str) -> tuple:
+        m = _DROP_RE.fullmatch(seg)
+        if not m:
+            raise ValueError(f"malformed membership segment {seg!r}; the "
+                             f"grammar is 'drop:<worker>@<round>' or "
+                             f"'drop:<worker>@<first>-<last>'")
+        w, d, r = int(m.group(1)), int(m.group(2)), m.group(3)
+        return (w, d, None if r is None else int(r))
+
+    @classmethod
+    def parse(cls, spec: "MembershipSchedule | str") -> "MembershipSchedule":
+        if isinstance(spec, MembershipSchedule):
+            return spec
+        segs = [s for s in str(spec).split("/") if s]
+        return cls(tuple(cls.parse_event(s) for s in segs))
+
+    def __post_init__(self):
+        norm = []
+        for ev in self.events:
+            w, d, r = ev
+            if w < 0 or d < 1 or (r is not None and r < d):
+                raise ValueError(
+                    f"membership event {ev!r}: need worker >= 0, first "
+                    f"round >= 1 (rounds are 1-based) and last >= first")
+            norm.append((int(w), int(d), None if r is None else int(r)))
+        object.__setattr__(self, "events", tuple(norm))
+
+    @property
+    def empty(self) -> bool:
+        return not self.events
+
+    @property
+    def spec(self) -> str:
+        return "/".join(f"drop:{w}@{d}" if r is None else f"drop:{w}@{d}-{r}"
+                        for (w, d, r) in self.events)
+
+    def check_workers(self, K: int) -> None:
+        for (w, _, _) in self.events:
+            if w >= K:
+                raise ValueError(f"membership schedule {self.spec!r} drops "
+                                 f"worker {w} but the run has only K={K} "
+                                 f"workers")
+
+    def _absent(self, w: int, t: int) -> bool:
+        return any(w == ew and t >= d and (r is None or t <= r)
+                   for (ew, d, r) in self.events)
+
+    def live_mask(self, t: int, K: int, device=None) -> torch.Tensor:
+        """``(K,)`` f32 {0, 1} mask of the live workers at 1-based round
+        ``t``, on ``device``. Filled in place on the device: a tensor
+        copied from a host list would block the host until the card's
+        queued work (the round's K1) has finished."""
+        self.check_workers(K)
+        mask = torch.ones((K,), dtype=torch.float32, device=device)
+        for w in range(K):
+            if self._absent(w, t):
+                mask[w] = 0.0
+        return mask
+
+    def live_count(self, t: int, K: int) -> int:
+        """The live-worker count at round ``t`` (the byte model's
+        ``K_live``)."""
+        self.check_workers(K)
+        return sum(0 if self._absent(w, t) else 1 for w in range(K))
 
 
 # ---------------------------------------------------------------------------
@@ -153,24 +362,46 @@ class ExchangeMode:
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class ExchangeConfig:
-    """How one run exchanges updates: the comm scheme and the mode.
-    Round-trips to/from the reference's spec string for the segments
-    this slice runs (``"compressed:int8"``, ``"persistent/sync"``)."""
+    """How one run exchanges updates, in one frozen value: the comm
+    scheme, the collective backend (``xla`` only in the port), the
+    exchange mode, the straggler profile and the membership schedule.
+
+    Round-trips to/from the reference's ``"/"``-separated spec, whose
+    segments may come in any order (``"compressed:int4/stale:k=2"``,
+    ``"persistent/straggler:mix(p=0.1,slow=8)"``,
+    ``"spark_faithful/drop:1@5-9/drop:3@7"``); omitted segments take
+    their defaults and ``str(cfg)`` prints the canonical spec with the
+    defaults elided."""
     scheme: CommScheme = field(default_factory=lambda: CommScheme("persistent"))
-    mode: ExchangeMode = field(default_factory=ExchangeMode)
+    mode: ExchangeMode = field(default_factory=lambda: ExchangeMode("sync"))
+    straggler: StragglerProfile = field(default_factory=StragglerProfile)
+    membership: MembershipSchedule = field(default_factory=MembershipSchedule)
+    backend: str = "xla"
 
     def __post_init__(self):
         if isinstance(self.scheme, str):
             object.__setattr__(self, "scheme", CommScheme.parse(self.scheme))
         if isinstance(self.mode, str):
             object.__setattr__(self, "mode", ExchangeMode.parse(self.mode))
+        if isinstance(self.straggler, str):
+            object.__setattr__(self, "straggler",
+                               StragglerProfile.parse(self.straggler))
+        if isinstance(self.membership, (str, tuple)):
+            object.__setattr__(
+                self, "membership",
+                MembershipSchedule.parse(self.membership)
+                if isinstance(self.membership, str)
+                else MembershipSchedule(self.membership))
+        _check_backend(self.backend)
 
     @classmethod
     def parse(cls, spec: "ExchangeConfig | CommScheme | ExchangeMode | str | None"
               ) -> "ExchangeConfig":
         """Parse a spec string (or pass through / wrap a typed value);
         ``None`` is the default ``persistent/sync`` exchange. Segments
-        may come in any order; duplicates are rejected."""
+        are classified by their head token, so order never matters;
+        duplicate scheme, backend, mode and straggler segments are
+        rejected."""
         if spec is None:
             return cls()
         if isinstance(spec, ExchangeConfig):
@@ -179,14 +410,20 @@ class ExchangeConfig:
             return cls(scheme=spec)
         if isinstance(spec, ExchangeMode):
             return cls(mode=spec)
-        scheme = mode = None
+        scheme = mode = straggler = backend = None
+        events: list = []
         for seg in str(spec).split("/"):
             head = seg.partition(":")[0]
-            if head in _UNPORTED_SEGMENTS:
-                raise NotImplementedError(
-                    f"exchange spec {spec!r}: segment {seg!r} is not "
-                    f"ported yet ({_UNPORTED_SEGMENTS[head]})")
-            if head in COMM_TRANSPORTS:
+            if head in COLLECTIVE_BACKENDS:
+                if seg != head:
+                    raise ValueError(
+                        f"exchange spec {spec!r}: collective-backend "
+                        f"segment {seg!r} takes no parameters")
+                if backend is not None:
+                    raise ValueError(f"exchange spec {spec!r}: duplicate "
+                                     f"collective-backend segment {seg!r}")
+                backend = _check_backend(head)
+            elif head in COMM_TRANSPORTS:
                 if scheme is not None:
                     raise ValueError(f"exchange spec {spec!r}: duplicate "
                                      f"comm-scheme segment {seg!r}")
@@ -196,25 +433,57 @@ class ExchangeConfig:
                     raise ValueError(f"exchange spec {spec!r}: duplicate "
                                      f"exchange-mode segment {seg!r}")
                 mode = ExchangeMode.parse(seg)
+            elif head == "straggler":
+                if straggler is not None:
+                    raise ValueError(f"exchange spec {spec!r}: duplicate "
+                                     f"straggler segment {seg!r}")
+                straggler = StragglerProfile.parse(seg)
+            elif head == "drop":
+                events.append(MembershipSchedule.parse_event(seg))
             else:
                 raise ValueError(
                     f"unknown exchange spec segment {seg!r} in {spec!r}; "
                     f"the grammar is {EXCHANGE_GRAMMAR}")
         return cls(scheme=scheme or CommScheme("persistent"),
-                   mode=mode or ExchangeMode("sync"))
+                   mode=mode or ExchangeMode("sync"),
+                   straggler=straggler or StragglerProfile(),
+                   membership=MembershipSchedule(tuple(events)),
+                   backend=backend or "xla")
 
     @property
     def spec(self) -> str:
-        """Canonical spec string (default segments elided)."""
-        return self.scheme.name
+        """Canonical spec string: the scheme first, then every other
+        non-default segment; ``parse(spec)`` round-trips."""
+        segs = [self.scheme.name]
+        if self.mode.spec != "sync":
+            segs.append(self.mode.spec)
+        if self.straggler.active:
+            segs.append(self.straggler.spec)
+        if not self.membership.empty:
+            segs.append(self.membership.spec)
+        return "/".join(segs)
 
     def __str__(self) -> str:
         return self.spec
 
 
 # ---------------------------------------------------------------------------
-# the codec-state slot
+# the driver's state slots: the stale queue and the codec state
 # ---------------------------------------------------------------------------
+def init_exchange_state(mode, shared: torch.Tensor):
+    """The driver's ``shared`` slot for ``mode`` (an
+    :class:`ExchangeConfig` contributes its mode): ``sync`` passes the
+    shared state through; ``stale`` pairs it with the pending-aggregate
+    queue, a ``(k, ...)`` stack of zeros."""
+    if isinstance(mode, ExchangeConfig):
+        mode = mode.mode
+    mode = ExchangeMode.parse(mode)
+    if not mode.stale:
+        return shared
+    return shared, torch.zeros((mode.k,) + tuple(shared.shape),
+                               dtype=shared.dtype, device=shared.device)
+
+
 def wrap_local_state(exchange, local: torch.Tensor, update_len: int,
                      K: int):
     """The driver's ``local`` slot for ``exchange``: the per-worker local
@@ -235,6 +504,61 @@ def unwrap_local_state(exchange, local):
     return local[0] if codec.stateful else local
 
 
+def _masked_apply(algo, shared, agg, idx: int):
+    """Apply one aggregate under its own round index ``idx``; nothing
+    while ``idx < 1`` (the queue slot holds only the zero init, and an
+    algorithm's apply need not be the identity on a zero update)."""
+    return shared if idx < 1 else algo.apply_update(shared, agg, idx)
+
+
+def _queue_push(queue: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """Shift the pending queue one slot and append this round's
+    aggregate: after round ``t`` it holds rounds ``t-k+1 .. t``, oldest
+    first."""
+    return torch.cat([queue[1:], total[None]], dim=0)
+
+
+def _delayed_apply(algo, shared, queue, t: int, k: int):
+    """Apply the oldest pending aggregate, round ``t-k``'s, under its
+    own round index."""
+    return _masked_apply(algo, shared, queue[0], t - k)
+
+
+def _absorb_for_metric(algo, shared, queue, t: int, k: int):
+    """Fold the other pending aggregates (rounds ``t-k+1 .. t-1``) into
+    a metric-only copy of the shared state, so the metric is the
+    objective of the round-``t-1`` iterate (a no-op at ``k=1``)."""
+    for i in range(1, k):
+        shared = _masked_apply(algo, shared, queue[i], t - k + i)
+    return shared
+
+
+def _make_flush(algo, mode: ExchangeMode) -> Callable:
+    """``flush(shared_state, t) -> shared``: absorb every aggregate
+    still pending after the last executed round ``t`` (the identity
+    under ``sync``), each under its own round index."""
+    if not mode.stale:
+        return lambda shared, t: shared
+    k = mode.k
+
+    def flush(shared_state, t: int):
+        shared, queue = shared_state
+        for i in range(k):
+            shared = _masked_apply(algo, shared, queue[i], t - (k - 1) + i)
+        return shared
+
+    return flush
+
+
+def finish_run(round_fn: Callable, shared, last_t: int):
+    """The post-run epilogue of every trainer loop: absorb the pending
+    aggregates after the last executed round (``last_t``, 1-based; 0
+    means no round ran, so the bare shared state is unwrapped as is)."""
+    if last_t > 0:
+        return round_fn.flush(shared, last_t)
+    return shared[0] if round_fn.mode.stale else shared
+
+
 # ---------------------------------------------------------------------------
 # the algorithm protocol and the virtual driver
 # ---------------------------------------------------------------------------
@@ -246,6 +570,9 @@ class RoundAlgorithm(Protocol):
     ``local``  ``(K, L_local)`` per-worker persistent state.
     ``shared`` replicated state (the residual ``w``).
     ``idx``    ``(K, H)`` this round's coordinate indices per worker.
+
+    An algorithm that averages over workers sets ``live_reweight = True``
+    so that an elastic round rescales its aggregate by ``K / K_live``.
     """
 
     def local_step(self, data, local, shared, idx, t):
@@ -265,20 +592,42 @@ class RoundAlgorithm(Protocol):
         ...
 
 
+def _freeze_dropped(new: torch.Tensor, old: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """A worker absent this round keeps its pre-round state verbatim."""
+    return torch.where(mask[:, None] > 0, new, old)
+
+
 def build_virtual_round(algo: RoundAlgorithm, exchange, data, *,
                         K: int) -> Callable:
     """K virtual workers on one device, batched along the leading axis.
 
-    Returns ``round_fn(local, shared, idx, t) -> (local_new, shared_new,
-    metric)``: every worker's local step in one batched call, the
-    exchange of the (K, L) updates, the apply, and the metric of the new
-    iterate (a 0-dim tensor, left on the device). Under a stateful codec
-    (``ef:``) ``local`` is the ``(local, codec_state)`` pair from
-    :func:`wrap_local_state`, and the residual advances at every
-    round's encode."""
+    ``exchange`` is an :class:`ExchangeConfig`, a :class:`CommScheme` or
+    a spec string. Returns ``round_fn(local, shared, idx, t) ->
+    (local_new, shared_new, metric)``: every worker's local step in one
+    batched call, the exchange of the (K, L) updates, the apply, and the
+    metric (a 0-dim tensor, left on the device).
+
+    Under a stateful codec (``ef:``) ``local`` is the ``(local,
+    codec_state)`` pair from :func:`wrap_local_state`; the residual
+    advances at every round's encode, whatever the stale queue delays.
+    Under ``stale`` ``shared`` is the ``(shared, queue)`` pair from
+    :func:`init_exchange_state`: the workers compute against state
+    absorbed through round ``t-1-k``, the oldest pending aggregate is
+    applied, this round's joins the queue, and the metric is the
+    round-``t-1`` iterate's (one round behind). Workers that the
+    membership schedule drops contribute exact-zero updates (zeroed
+    before the encode, residual included) and keep their local state and
+    residual frozen; an algorithm with ``live_reweight`` gets its
+    aggregate rescaled by ``K / K_live``. Straggler profiles never enter.
+    ``round_fn.mode`` and ``round_fn.flush`` are what :func:`finish_run`
+    reads."""
     ex = ExchangeConfig.parse(exchange)
-    comm = ex.scheme
+    ex.membership.check_workers(K)
+    comm, xmode, membership = ex.scheme, ex.mode, ex.membership
+    k = xmode.k
     stateful = comm.codec.stateful
+    reweight = not membership.empty and getattr(algo, "live_reweight", False)
 
     def round_fn(local, shared, idx, t=1):
         if idx.shape[0] != K:
@@ -286,15 +635,45 @@ def build_virtual_round(algo: RoundAlgorithm, exchange, data, *,
                              f"{tuple(idx.shape)}")
         if stateful:
             local, cstate = local
+        if xmode.stale:
+            shared, queue = shared
         upd, local_new = algo.local_step(data, local, shared, idx, t)
+        cstate_in = cstate if stateful else None
+        if not membership.empty:
+            mask = membership.live_mask(t, K, device=upd.device)
+            upd = upd * mask[:, None]
+            local_new = _freeze_dropped(local_new, local, mask)
+            if stateful:
+                # a dropped worker's encode is of an exact zero: its
+                # residual is zeroed with the update and frozen below
+                cstate_in = cstate_in * mask[:, None]
         if stateful:
-            total, cstate = comm.all_reduce_stacked(upd, cstate)
+            total, cstate_new = comm.all_reduce_stacked(upd, cstate_in)
+            if not membership.empty:
+                cstate_new = _freeze_dropped(cstate_new, cstate, mask)
         else:
             total = comm.all_reduce_stacked(upd)
-        shared_new = algo.apply_update(shared, total, t)
-        metric_sum = torch.sum(algo.local_metric(data, local_new, shared_new))
-        local_out = (local_new, cstate) if stateful else local_new
-        return local_out, shared_new, algo.finalize_metric(shared_new,
+        if reweight:
+            live = torch.clamp(torch.sum(mask), min=1.0)
+            total = total * (torch.full_like(live, float(K)) / live)
+        if xmode.stale:
+            shared_new = _delayed_apply(algo, shared, queue, t, k)
+            shared_out = (shared_new, _queue_push(queue, total))
+            # the metric of ONE iterate: the shared state absorbed
+            # through round t-1 with the round-(t-1) local state
+            metric_shared = _absorb_for_metric(algo, shared_new, queue, t, k)
+            metric_local = local
+        else:
+            shared_new = algo.apply_update(shared, total, t)
+            shared_out = shared_new
+            metric_shared = shared_new
+            metric_local = local_new
+        metric_sum = torch.sum(algo.local_metric(data, metric_local,
+                                                 metric_shared))
+        local_out = (local_new, cstate_new) if stateful else local_new
+        return local_out, shared_out, algo.finalize_metric(metric_shared,
                                                            metric_sum)
 
+    round_fn.mode = xmode
+    round_fn.flush = _make_flush(algo, xmode)
     return round_fn

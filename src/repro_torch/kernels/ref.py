@@ -10,6 +10,7 @@ from repro_torch.kernels.dequant import (decode_reduce_int2_ref,
 from repro_torch.kernels.quant import (quantize_pack_int2_ref,  # noqa: F401
                                        quantize_pack_int4_ref,
                                        quantize_pack_int8_ref)
+from repro_torch.kernels.topk import topk_select_ref  # noqa: F401
 
 _DECODE_REDUCE_REF = {"int8": decode_reduce_int8_ref,
                       "int4": decode_reduce_int4_ref,

@@ -196,7 +196,9 @@ def test_minibatch_fixed_point_solver_keeps_residual_invariant(data):
 
 @pytest.mark.parametrize("bad", [dict(solver="scd_fast"),
                                  dict(partitioner="random"),
-                                 dict(exchange="compressed:topk")])
+                                 dict(exchange="compressed:topk(r=0)")])
 def test_config_rejects_what_the_port_does_not_run(bad):
+    """An unknown solver or partitioner, and a codec argument out of
+    range (``topk(r=0)``), are refused when the config is built."""
     with pytest.raises((ValueError, NotImplementedError)):
         CoCoAConfig(**bad)

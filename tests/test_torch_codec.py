@@ -1,7 +1,9 @@
 """The port's int8 codec (kernels K2 and K3's plain versions on the CPU),
 its byte model and its exchange grammar against the reference. The
 int8 encode and decode+reduce are held bit-identical. The int4, int2 and
-``ef:`` codecs are in ``test_torch_codec_lowbit.py``."""
+``ef:`` codecs are in ``test_torch_codec_lowbit.py``, the topk codec in
+``test_torch_topk.py`` and the regimes of the exchange in
+``test_torch_exchange.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,7 +106,8 @@ def test_f32_codec_is_the_identity():
 
 
 @pytest.mark.parametrize("name", ["f32", "int8", "int4", "int2", "ef:int8",
-                                  "ef:int4", "ef:int2"])
+                                  "ef:int4", "ef:int2", "topk",
+                                  "topk(r=0.125)", "ef:topk(r=0.125)"])
 @pytest.mark.parametrize("L", [1, 2, 3, 5, 96, 1001, 16384])
 def test_wire_bytes_equal(name, L):
     assert get_codec(name).wire_bytes(L) == get_codec_ref(name).wire_bytes(L)
@@ -115,7 +118,9 @@ def test_wire_bytes_equal(name, L):
                                     "compressed:int8", "compressed:f32",
                                     "compressed:int4", "compressed:int2",
                                     "compressed:ef:int4",
-                                    "compressed:ef:int2"])
+                                    "compressed:ef:int2",
+                                    "compressed:topk(r=0.125)",
+                                    "compressed:ef:topk"])
 @pytest.mark.parametrize("m,K,n_pad", [(96, 4, 64), (16384, 8, 4096),
                                        (1001, 3, 17)])
 def test_bytes_per_round_equal(scheme, m, K, n_pad):
@@ -135,10 +140,12 @@ def test_bytes_per_round_equal(scheme, m, K, n_pad):
 @pytest.mark.parametrize("scheme,nbytes", [
     ("persistent", 3072), ("compressed:int8", 800),
     ("compressed:int4", 416), ("compressed:ef:int4", 416),
-    ("compressed:int2", 224), ("compressed:ef:int2", 224)])
+    ("compressed:int2", 224), ("compressed:ef:int2", 224),
+    ("compressed:topk(r=0.125)", 800), ("compressed:ef:topk(r=0.125)", 800)])
 def test_smoke_shape_bytes_per_round(scheme, nbytes):
     """The byte counts at the drivers benchmark's smoke shape (m=96,
-    K=4): 2*K*(wire bytes of a 96-element update)."""
+    K=4): 2*K*(wire bytes of a 96-element update); topk keeps 12 of the
+    96 entries, 8*12 + 4 bytes."""
     assert dist.CommScheme(scheme).bytes_per_round(96, 4, 256) == nbytes
     assert dist_ref.CommScheme(scheme).bytes_per_round(
         96, 4, local_state_len=256) == nbytes
@@ -146,11 +153,16 @@ def test_smoke_shape_bytes_per_round(scheme, nbytes):
 
 @pytest.mark.parametrize("name", ["topk", "topk(r=0.1)", "ef:topk"])
 def test_unported_codecs_raise_not_implemented(name):
-    get_codec_ref(name)                      # the reference knows it
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_codec(name)
-    with pytest.raises(NotImplementedError):
-        dist.CommScheme(f"compressed:{name}")
+    """The codecs the port once refused (it had no topk) are ported:
+    each resolves like the reference's, to one cached object, and the
+    scheme around it parses."""
+    ref, ours = get_codec_ref(name), get_codec(name)
+    assert (ours.name, ours.stateful, ours.lossless) == (
+        ref.name, ref.stateful, ref.lossless)
+    assert get_codec(name) is ours
+    base, base_ref = getattr(ours, "base", ours), getattr(ref, "base", ref)
+    assert base.r == base_ref.r and base._k(1001) == base_ref._k(1001)
+    assert dist.CommScheme(f"compressed:{name}").codec is ours
 
 
 @pytest.mark.parametrize("name", ["int3", "float16", ""])
@@ -177,9 +189,19 @@ def test_exchange_spec_matches_reference(spec):
                                   "persistent/straggler:mix(p=0.1,slow=8)",
                                   "persistent/ring"])
 def test_unported_exchange_segments_raise(spec):
-    dist_ref.ExchangeConfig.parse(spec)      # the reference runs it
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist.ExchangeConfig.parse(spec)
+    """Only the ``ring`` backend is still refused; the stale, drop and
+    straggler segments the port once refused parse like the
+    reference's."""
+    ref = dist_ref.ExchangeConfig.parse(spec)      # the reference runs it
+    if "ring" in spec:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dist.ExchangeConfig.parse(spec)
+        return
+    ours = dist.ExchangeConfig.parse(spec)
+    assert ours.spec == ref.spec
+    assert (ours.mode.name, ours.mode.k) == (ref.mode.name, ref.mode.k)
+    assert ours.membership.events == ref.membership.events
+    assert ours.straggler.spec == ref.straggler.spec
 
 
 @pytest.mark.parametrize("spec", ["bogus", "persistent/persistent",

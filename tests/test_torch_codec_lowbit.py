@@ -175,8 +175,8 @@ def test_ef_state_protocol_matches_reference():
 
 @pytest.mark.parametrize("name", ["ef:ef:int4", "ef:f32", "ef:bogus", "ef:"])
 def test_ef_grammar_value_errors(name):
-    """The reference's typed errors; ``ef:topk`` (the base's
-    NotImplementedError) is in ``test_torch_codec.py``."""
+    """The reference's typed errors; those of ``ef:topk(..)`` with a bad
+    argument are in ``test_torch_topk.py``."""
     with pytest.raises(ValueError):
         get_codec_ref(name)
     with pytest.raises(ValueError):

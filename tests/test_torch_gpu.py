@@ -5,6 +5,8 @@ pytest-xdist worker collects the same tests). Run on the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,9 @@ from repro_torch.core.solvers import scd_steps
 from repro_torch.kernels import dequant, quant
 from repro_torch.kernels.dequant import decode_reduce_int8, decode_reduce_int8_ref
 from repro_torch.kernels.quant import quantize_pack_int8, quantize_pack_int8_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.scd import scd_solve
+from repro_torch.kernels.topk import topk_select, topk_select_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -186,3 +190,109 @@ def test_wrappers_count_only_kernel_launches(cuda):
         dec(p_cpu, s_cpu, 64)
     assert [(q.launches, d.launches) for q, d in wrappers] == [
         (q + 1, d + 1) for q, d in before]
+
+
+def _topk_row(kind, L, g, dev):
+    if kind == "zeros":
+        return torch.zeros(L, device=dev)
+    if kind == "single":
+        x = torch.zeros(L, device=dev)
+        x[L // 2] = -1.7
+        return x
+    if kind == "ties":          # integers in [-3, 3]: +x and -x of one magnitude
+        return torch.randint(-3, 4, (L,), generator=g, device=dev).float()
+    if kind == "negzero":       # -0.0 and +0.0, a nonzero every 7th entry
+        x = torch.where(torch.rand(L, generator=g, device=dev) < 0.5,
+                        torch.tensor(-0.0, device=dev),
+                        torch.tensor(0.0, device=dev))
+        x[::7] = torch.randn(x[::7].shape, generator=g, device=dev)
+        return x
+    return torch.randn(L, generator=g, device=dev)
+
+
+def _assert_topk_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _bits(a).equal(_bits(b))
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 127, 128, 129, 1001, 4097])
+@pytest.mark.parametrize("kind", ["normal", "zeros", "single", "ties",
+                                  "negzero"])
+def test_topk_kernel_bit_identical(cuda, L, kind):
+    g = torch.Generator(device=cuda).manual_seed(L)
+    x = torch.stack([_topk_row(kind, L, g, cuda) for _ in range(3)])
+    for k in sorted({1, -(-L // 8), L}):
+        _assert_topk_equal(topk_select(x, k), topk_select_ref(x, k))
+        _assert_topk_equal(topk_select(x[0], k), topk_select_ref(x[0], k))
+
+
+@pytest.mark.parametrize("r", [0.01, 0.125, 1.0])
+def test_topk_kernel_bit_identical_at_the_main_path_shape(cuda, r):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((8, 16384), generator=g, device=cuda) * 1e-3
+    k = get_codec(f"topk(r={r})")._k(16384)
+    _assert_topk_equal(topk_select(x, k), topk_select_ref(x, k))
+
+
+def test_topk_kernel_all_zero_rows_take_the_first_indices(cuda):
+    vals, idx, thr = topk_select(torch.zeros((4, 1001), device=cuda), 126)
+    assert idx.equal(torch.arange(126, device=cuda, dtype=torch.int32)
+                     .expand(4, 126))
+    assert bool((thr == 0).all()) and bool((vals == 0).all())
+
+
+def test_topk_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.randn((2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        topk_select(x.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_select(torch.randn((64, 2), device=cuda).t(), 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_select(torch.zeros((1, 60000), device=cuda), 1)
+
+
+def test_topk_launch_failure_raises(cuda):
+    """A launch the runtime refuses (here zero rows) comes back as a
+    RuntimeError, not as a silent no-op."""
+    fn = _build.function("topk_launch", [ctypes.c_void_p] * 4
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = torch.empty(4, device=cuda)
+    err = fn(out.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(),
+             0, 4, 1, _build.stream_ptr(cuda))
+    with pytest.raises(RuntimeError, match="topk_launch"):
+        _build.check_launch(err, "topk_launch")
+
+
+def test_build_failure_raises(cuda, tmp_path, monkeypatch):
+    (tmp_path / "broken.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+
+
+def test_topk_kernel_counts_one_launch_per_stack(cuda):
+    x = torch.randn((8, 4097), device=cuda)
+    before = topk_select.launches
+    topk_select(x, 513)
+    topk_select(x.cpu(), 513)                            # the plain version
+    get_codec("topk(r=0.125)").encode(x)
+    get_codec("topk(r=0.125)").encode_ref(x)             # plain, on the card
+    assert topk_select.launches == before + 2
+
+
+def test_ef_topk_encode_with_state_card_matches_cpu(cuda):
+    """K4 and the eager residual and decode on the card against the CPU
+    plain path, bit for bit, over three chained rounds."""
+    codec = get_codec("ef:topk(r=0.125)")
+    rng = np.random.default_rng(6)
+    K, L = 8, 4097
+    st_c, st_g = torch.zeros((K, L)), torch.zeros((K, L), device=cuda)
+    for _ in range(3):
+        dv = torch.tensor(rng.standard_normal((K, L)), dtype=torch.float32)
+        p_c, st_c = codec.encode_with_state(dv, st_c)
+        p_g, st_g = codec.encode_with_state(dv.to(cuda), st_g)
+        _assert_topk_equal([t.cpu() for t in p_g], p_c)
+        assert _bits(st_g.cpu()).equal(_bits(st_c))
+        for reduce in (codec.decode_stacked_sum, codec.decode_stacked_mean):
+            assert _bits(reduce(p_g, L).cpu()).equal(_bits(reduce(p_c, L)))
