@@ -7,9 +7,13 @@
 Phases, each ending in ``torch.cuda.synchronize()`` and printing one
 JSON line:
 
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, and,
+     once the data are on the card, print K1's layout and
+     ``cudaOccupancyMaxActiveClusters`` for each cluster size C in
+     {1, 2, 4, 8, 16} at the main path's shapes, and the C it plans;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the main path's shapes: K1 (SCD) allclose at rtol 1e-4, atol 1e-5;
+     the main path's shapes: K1 (SCD) allclose at rtol 1e-4, atol 1e-5
+     for the planned C and for every other C that fits;
      K2 (int8 / int4 / int2 quantize), K3 (int8 / int4 / int2
      decode+sum/mean) and K4 (top-k select) bit-identical, also at
      ragged lengths and on edge cases (all zeros, one nonzero, scales
@@ -37,7 +41,12 @@ JSON line:
   5. timing: each kernel and its plain version by CUDA events at the
      main path's shapes, beside the least time the card could take and,
      for K4, ``torch.topk`` of the magnitudes (the library call that
-     computes the same selection; the port never calls it).
+     computes the same selection; the port never calls it); K1 also for
+     every C that fits;
+  6. a device trace: ``torch.profiler`` over 5 rounds of
+     ``compressed:int8`` (after 2 untraced ones), each kernel's device
+     time by name and the device's busy share of the window (a trace
+     without device time is reported, not failed).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -166,6 +175,53 @@ def indices_differ(torch, a, b) -> int:
     return sum(int((~torch.isin(ra, rb)).sum()) for ra, rb in zip(a, b))
 
 
+def device_trace(torch, fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activities) and
+    sum the device time of each kernel by name, with the device's busy
+    share of the host window. A trace that holds no device time says so
+    instead of failing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_name, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        if end <= start:
+            continue
+        spans.append((start, end))
+        name = ev.name if len(ev.name) <= 80 else ev.name[:77] + "..."
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (end - start))
+    if not spans:
+        return dict(device_time="none in the trace", window_ms=window_us / 1e3)
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:             # the union of the device spans
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    device_span = spans[-1][1] - spans[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return dict(
+        window_ms=window_us / 1e3, device_busy_ms=busy / 1e3,
+        device_span_ms=device_span / 1e3,
+        busy_share_of_window=busy / window_us,
+        busy_share_of_device_span=busy / device_span,
+        kernels={name: {"calls": n, "device_ms": us / 1e3}
+                 for name, (n, us) in top})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=16384)
@@ -192,7 +248,7 @@ def main(argv=None) -> int:
     from repro_torch.core import CoCoAConfig, CoCoATrainer
     from repro_torch.core.solvers import scd_steps
     from repro_torch.data import make_glm_data
-    from repro_torch.kernels import _build, dequant, quant
+    from repro_torch.kernels import _build, dequant, quant, scd
     from repro_torch.kernels.scd import scd_solve
     from repro_torch.kernels.topk import topk_select, topk_select_ref
 
@@ -230,6 +286,26 @@ def main(argv=None) -> int:
                density=args.density,
                A_T_bytes=tr.A_T.numel() * tr.A_T.element_size())
     t0 = time.perf_counter()
+    def resident(p):
+        return scd.max_active_clusters(dev, p)
+
+    occupancy, fits = {}, []
+    for c in sorted(scd.CLUSTERS):
+        lay = scd.scd_layout(m, n_pad, c)
+        if lay is None:
+            occupancy[str(c)] = "over 227 KB of shared memory"
+            continue
+        occupancy[str(c)] = dict(max_active_clusters=resident(lay),
+                                 **dataclasses.asdict(lay))
+        try:
+            scd.scd_plan(K, m, n_pad, resident, cluster=c)
+            fits.append(c)
+        except ValueError:
+            pass
+    plan = scd.scd_plan(K, m, n_pad, resident)
+    phase_done(torch, "clusters", t0, K=K, occupancy=occupancy,
+               fits=fits, plan=dataclasses.asdict(plan))
+    t0 = time.perf_counter()
     p_star = tr.p_star
     phase_done(torch, "p_star", t0, p_star=p_star, p_zero=tr.p_zero)
 
@@ -240,12 +316,21 @@ def main(argv=None) -> int:
     w0 = -tr.b
     idx1 = tr.index_source(1)
     dv_k, al_k = scd_solve(tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
+    if scd_solve.last_plan != plan:
+        raise SystemExit(f"chip_smoke: K1 ran {scd_solve.last_plan}, "
+                         f"planned {plan}")
     dv_p, al_p = scd_steps(tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
     torch.cuda.synchronize()
-    err = {"scd_solve": max(max_err(dv_k, dv_p), max_err(al_k, al_p))}
-    ok = {"scd_solve": (torch.allclose(dv_k, dv_p, rtol=1e-4, atol=1e-5)
-                        and torch.allclose(al_k, al_p, rtol=1e-4,
-                                           atol=1e-5))}
+    scd_by_c = {}
+    for c in [None] + fits:          # the planned C, then every C that fits
+        dv_c, al_c = ((dv_k, al_k) if c is None else scd_solve(
+            tr.A_T, tr.col_sq, alpha0, w0, idx1, cluster=c, **kw))
+        scd_by_c["plan" if c is None else str(c)] = dict(
+            max_abs_err=max(max_err(dv_c, dv_p), max_err(al_c, al_p)),
+            ok=(torch.allclose(dv_c, dv_p, rtol=1e-4, atol=1e-5)
+                and torch.allclose(al_c, al_p, rtol=1e-4, atol=1e-5)))
+    err = {"scd_solve": max(v["max_abs_err"] for v in scd_by_c.values())}
+    ok = {"scd_solve": all(v["ok"] for v in scd_by_c.values())}
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     single = torch.zeros((3, 1001), device=dev)
@@ -305,7 +390,7 @@ def main(argv=None) -> int:
                           max_err(got[2], want[2]),
                           max_err(got[1].long(), want[1].long()))
     phase_done(torch, "kernels_vs_plain", t0,
-               ok=ok, max_abs_err=err,
+               ok=ok, max_abs_err=err, scd_by_cluster=scd_by_c,
                tolerance={"scd_solve": "rtol 1e-4, atol 1e-5",
                           "quantize, decode and topk": "bit-identical"},
                quantize_cases=[list(x.shape) for x in cases],
@@ -437,6 +522,9 @@ def main(argv=None) -> int:
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps)
     plain["scd_solve"] = time_ms(torch, lambda: scd_steps(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), 3, warmup=1)
+    scd_ms = {str(c): time_ms(torch, lambda c=c: scd_solve(
+        tr.A_T, tr.col_sq, alpha0, w0, idx1, cluster=c, **kw), args.reps)
+        for c in fits}
     k_main = get_codec(f"topk(r={TOPK_R:g})")._k(L)
     ms["topk"] = time_ms(torch, lambda: topk_select(dv_k, k_main),
                          4 * args.reps)
@@ -469,11 +557,19 @@ def main(argv=None) -> int:
     # K4 reads the f32 stack and writes k values, k indices and one
     # threshold per row; one magnitude per element
     bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k_main + 4), K * L)
-    del tr
-    free(torch)
     phase_done(torch, "timing", t0, reps=args.reps,
                distinct_columns=distinct, scd_bytes=scd_bytes,
-               topk_k=k_main)
+               topk_k=k_main, scd_ms_by_cluster=scd_ms,
+               scd_bound_ratio_by_cluster={
+                   c: t / bounds["scd_solve"][0] for c, t in scd_ms.items()})
+
+    # -- 6. a device trace of compressed:int8 rounds ---------------------
+    t0 = time.perf_counter()
+    tr.run(2)                        # p_star and the first rounds, untraced
+    trace = device_trace(torch, lambda: tr.run(5))
+    del tr
+    free(torch)
+    phase_done(torch, "trace", t0, exchange=PATHS[0][0], rounds=5, **trace)
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [("scd_solve", "scd_solve", src + "scd.cu",
@@ -498,6 +594,8 @@ def main(argv=None) -> int:
             "bound_by": bounds[key][1], "library_ms": library.get(key),
             "ok": ok[key],
             "paths": paths, "launches_per_round": n_l / n_r})
+    kernels[0].update(cluster=plan.cluster, ring=plan.ring, slab=plan.slab,
+                      ms_by_cluster=scd_ms)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

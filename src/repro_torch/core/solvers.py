@@ -18,7 +18,8 @@ is the reference's ``vmap`` over workers written out.
 
 ``scd_steps`` is the plain version of kernel K1
 (``repro_torch.kernels.scd``): the kernel holds to it at rtol 1e-4,
-atol 1e-5, because its dot product is summed in another order.
+atol 1e-5, because it sums each dot product per slab of rows (one slab
+a CTA of the worker's cluster) and then over the slabs in rank order.
 
 Coordinate indices are pre-sampled by the caller, so that the plain
 version, the kernel and the reference agree given the same index

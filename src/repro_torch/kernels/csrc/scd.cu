@@ -1,9 +1,8 @@
 // K1: the CoCoA local SCD solve, all K workers in one launch.
 //
 // Replaces the TPU kernel `_scd_kernel` / `scd_pallas` in
-// src/repro/kernels/scd.py (pallas_call at :137). Each CTA is one worker;
-// it runs that worker's H sequential coordinate steps in a loop inside
-// the block, which takes the place of the TPU's sequential grid.
+// src/repro/kernels/scd.py (pallas_call at :137), which runs a worker's H
+// sequential coordinate steps on a sequential grid.
 //
 // Per step s, with j = idx[k, s] and c = column j (contiguous, because the
 // data is stored column-major as A_T of shape (K, n_pad, m)):
@@ -12,29 +11,66 @@
 //   rho += sigma*(z - a_j) * c;  alpha_j = z
 // and at the end delta_v = (rho - w) / sigma.
 //
-// What bounds it on an H100: not bytes (a round reads the visited columns,
-// about 1.3 GB at m = 16384, H = 4096, K = 8, i.e. ~0.4 ms at 3.35 TB/s)
-// but the serial dependency between steps: every step needs the previous
-// step's rho, so each step is a column load followed by a block-wide
-// reduction and two barriers, 4096 times over, on only K of the 132 SMs.
-// What the design does about it: the column is loaded once per step into
-// registers (coalesced: thread t reads elements t, t+1024, ...) and reused
-// for the rho update; rho and the worker's alpha block stay in shared
-// memory for the whole round, so no step touches device memory except for
-// its column; the reduction is warp shuffles plus one 32-slot exchange.
-// Prefetching the next column and spreading rho over a thread-block
-// cluster to use more SMs are left for later work.
+// What bounds it on an H100: first the serial chain of steps (step s+1's
+// dot needs step s's rho), then bytes (a round reads the visited columns,
+// about 1.36 GB at m = 16384, H = 4096, K = 8, i.e. ~0.4 ms at 3.35 TB/s).
+// With one CTA per worker, each step paid two or three device-memory
+// latencies in series (index, column, column norm) and a 1024-thread
+// reduction, on 8 of the 132 SMs.
+//
+// The design:
+// - A thread-block cluster of C CTAs per worker (cudaLaunchKernelEx with a
+//   cluster dimension of C, grid K*C; cluster k is worker k). CTA rank r
+//   owns the rows [r*S, min((r+1)*S, m)) of the worker's residual rho, held
+//   in its consumer threads' registers (thread t holds rows t, t+256, ...),
+//   so a step's column is read by C SMs at once.
+// - A prefetch ring. The index stream is known at launch, so one producer
+//   warp per CTA runs ahead of the step: it loads 32 indices and their
+//   column norms at a time, checks each index (an index outside the block
+//   traps before any copy is issued), and copies the step's slab of the
+//   column into one of P shared-memory stages, with a "full" and an "empty"
+//   mbarrier per stage. The index and what depends on the column alone
+//   (its norm, sigma*||c||^2, the denominator and the soft threshold, one
+//   division per lane for 32 steps at once) ride in the stage, so the
+//   step's chain holds one division.
+//   alpha is never prefetched: it is read from shared memory at the step,
+//   so a repeated index inside the ring window sees the latest value.
+// - One rendezvous a step. Each CTA's 8 consumer warps reduce their
+//   slab's dot (warp shuffles, then the warps' partials after one named
+//   barrier); lanes 0..C-1 of warp 0 then send the CTA's partial to every
+//   CTA of the cluster with st.async, which completes the bytes on the
+//   peer's own mbarrier. The slots and barriers are double-buffered by step
+//   parity. Every thread of every CTA sums the C partials in rank order
+//   0..C-1 and computes the same z (bit-identical under -fmad=false), so
+//   no second broadcast is needed.
+// - alpha replicated: every CTA keeps the worker's whole alpha block in
+//   shared memory and applies the same update; rank 0 writes alpha_out,
+//   and each CTA writes its slab of delta_v.
+//
+// Alignment: the 1-D bulk copy (cp.async.bulk) needs 16-byte addresses and
+// a size that is a multiple of 16 B. S is a multiple of 4 floats, so when
+// m is a multiple of 4 (and A_T 16-byte aligned) every slab, the last
+// ragged one included, starts and ends on 16 B. Otherwise the producer
+// warp copies the slab with 4-byte cp.async, one element a lane at a time,
+// and completes the stage through cp.async.mbarrier.arrive.
 //
 // Compiled with -fmad=false: the f32 arithmetic is the plain version's,
-// except that the dot product is summed in another order (hence the
-// rtol 1e-4, atol 1e-5 contract).
+// except that the dot is summed per slab (per thread, per warp, per CTA)
+// and then over the slabs in rank order; hence rtol 1e-4, atol 1e-5 against
+// the plain version. No atomics: two launches with the same C give
+// bit-identical outputs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;       // + one producer warp
+constexpr int kMaxCluster = 16;
+constexpr int kMaxRing = 8;
+constexpr int kMaxItems = 64;                   // slab <= 64 * kConsumers
+constexpr long long kWaitCycles = 1LL << 34;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -42,116 +78,419 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   uint32_t bytes) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t a, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+               "selp.u32 %0, 1, 0, p;\n\t}\n"
+               : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// The same, acquiring at cluster scope: the bytes behind the phase were
+// stored by the peers of the cluster.
+__device__ __forceinline__ bool mbar_try_cluster(uint32_t a,
+                                                 uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 "
+               "p, [%1], %2;\n\t"
+               "selp.u32 %0, 1, 0, p;\n\t}\n"
+               : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Spin until the phase of `bar` with parity `parity` has completed. A wait
+// that lasts kWaitCycles (seconds; no step takes that long) is a fault of
+// the pipeline: it traps, so that the launch fails instead of hanging.
+template <bool CLUSTER>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  if (CLUSTER ? mbar_try_cluster(a, parity) : mbar_try(a, parity)) return;
+  const long long t0 = clock64();
+  while (!(CLUSTER ? mbar_try_cluster(a, parity) : mbar_try(a, parity)))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// The shared::cluster address of `p` in the CTA of rank `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// Store one float into a peer's shared memory and complete 4 bytes on the
+// peer's mbarrier.
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+               "[%0], %1, [%2];\n"
+               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes),
+                  "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the barrier's count includes this arrival).
+__device__ __forceinline__ void copy4_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
+}
+
+// Shared memory of one CTA, in 4-byte words and then 8-byte mbarriers.
+// scd_shared_bytes() and the Python plan compute the same total.
+struct Layout {
+  int ring, coef, red, slots, alpha, jdx, bars;
+  __host__ __device__ Layout(int slab, int P, int n_pad) {
+    ring = 0;                          // P * slab floats (16 B aligned)
+    coef = ring + P * slab;            // P x (csq, sigma*csq, denom, thr)
+    red = coef + 4 * P;                // 2 x kConsumerWarps partials
+    slots = red + 2 * kConsumerWarps;  // 2 x kMaxCluster CTA partials
+    alpha = slots + 2 * kMaxCluster;   // n_pad floats
+    jdx = alpha + n_pad;               // P indices
+    bars = (jdx + P + 1) / 2 * 2;      // 8 B aligned: full P, empty P, red 2
+  }
+  __host__ __device__ long long bytes(int P) const {
+    return 4LL * bars + 8LL * (2 * P + 2);
+  }
+};
+
 template <int ITEMS>
 __global__ void __launch_bounds__(kThreads, 1)
 scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
            const float* __restrict__ alpha_in, const float* __restrict__ w,
            const int32_t* __restrict__ idx, float* __restrict__ alpha_out,
-           float* __restrict__ delta_v, int n_pad, int m, int H,
-           float sigma, float lam_eta, float lam_l1) {
-  extern __shared__ float smem[];
-  float* rho = smem;               // m: the worker's local residual
-  float* alpha = rho + m;          // n_pad: the worker's alpha block
-  float* red = alpha + n_pad;      // kWarps: per-warp partial dots
-  float* move = red + kWarps;      // 1: the step's sigma*(z - a)
+           float* __restrict__ delta_v, int n_pad, int m, int H, int slab,
+           int P, int aligned, float sigma, float lam_eta, float lam_l1) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(slab, P, n_pad);
+  float* ring = smem + L.ring;
+  float* alpha = smem + L.alpha;
+  float* red = smem + L.red;
+  float* slots = smem + L.slots;
+  float* coef_ring = smem + L.coef;
+  int32_t* j_ring = reinterpret_cast<int32_t*>(smem + L.jdx);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + P;
+  uint64_t* red_bar = empty + P;
 
-  const int k = blockIdx.x;
+  const uint32_t C = cluster_size();
+  const uint32_t rank = cluster_rank();
+  const int k = blockIdx.x / C;
+  const int lo = min((int)rank * slab, m);
+  const int len = min(lo + slab, m) - lo;      // this CTA's rows, maybe 0
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* A_k = A_T + (size_t)k * n_pad * m;
-  const float* csq_k = col_sq + (size_t)k * n_pad;
-  const int32_t* idx_k = idx + (size_t)k * H;
 
-  for (int i = tid; i < m; i += kThreads) rho[i] = w[i];
+  if (tid == 0) {
+    for (int st = 0; st < P; ++st) {
+      mbar_init(&full[st], aligned ? 1 : 33);
+      mbar_init(&empty[st], kConsumerWarps);
+    }
+    mbar_init(&red_bar[0], 1);
+    mbar_init(&red_bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   for (int i = tid; i < n_pad; i += kThreads)
     alpha[i] = alpha_in[(size_t)k * n_pad + i];
-  __syncthreads();
+  cluster_sync();   // every CTA's barriers exist before any peer uses them
 
-  for (int s = 0; s < H; ++s) {
-    const int j = idx_k[s];
-    if (j < 0 || j >= n_pad) __trap();   // an index outside the block
-    const float* col = A_k + (size_t)j * m;
-    float c[ITEMS];
-    float part = 0.f;
-#pragma unroll
-    for (int it = 0; it < ITEMS; ++it) {
-      const int i = tid + it * kThreads;
-      c[it] = (i < m) ? col[i] : 0.f;
-      if (i < m) part += rho[i] * c[it];
-    }
-    part = warp_sum(part);
-    if (lane == 0) red[warp] = part;
-    __syncthreads();
-    if (warp == 0) {
-      const float dot = warp_sum(red[lane]);
-      if (lane == 0) {
-        const float csq = csq_k[j];
-        const float a = alpha[j];
-        const float scsq = sigma * csq;
-        const float denom = scsq + lam_eta;
-        const float z_tilde = (scsq * a - dot) / denom;
-        const float sgn = z_tilde > 0.f ? 1.f : (z_tilde < 0.f ? -1.f : 0.f);
-        float z = sgn * fmaxf(fabsf(z_tilde) - lam_l1 / denom, 0.f);
-        z = csq > 0.f ? z : a;           // zero (padded) column: no-op
-        alpha[j] = z;
-        move[0] = sigma * (z - a);
+  if (warp == kConsumerWarps) {
+    // ---- producer warp: keep up to P steps of columns in flight --------
+    const float* csq_k = col_sq + (size_t)k * n_pad;
+    const int32_t* idx_k = idx + (size_t)k * H;
+    for (int base = 0; base < H; base += 32) {
+      const int s = base + lane;
+      int j = 0;
+      float cs = 0.f;
+      if (s < H) {
+        j = idx_k[s];
+        if (j < 0 || j >= n_pad) __trap();   // an index outside the block
+        cs = csq_k[j];
+      }
+      // the step's scalars that depend on the column alone, off the chain
+      const float scsq = sigma * cs;
+      const float denom = scsq + lam_eta;
+      const float thr = lam_l1 / denom;
+      const int n = min(32, H - base);
+      for (int u = 0; u < n; ++u) {
+        const int t = base + u;
+        const int st = t % P;
+        const int jj = __shfl_sync(0xffffffffu, j, u);
+        float4 cf;
+        cf.x = __shfl_sync(0xffffffffu, cs, u);
+        cf.y = __shfl_sync(0xffffffffu, scsq, u);
+        cf.z = __shfl_sync(0xffffffffu, denom, u);
+        cf.w = __shfl_sync(0xffffffffu, thr, u);
+        if (t >= P)
+          mbar_wait<false>(&empty[st], (uint32_t)((t / P - 1) & 1));
+        float* dst = ring + (size_t)st * slab;
+        const float* src = A_k + (size_t)jj * m + lo;
+        if (aligned) {
+          if (lane == 0) {
+            j_ring[st] = jj;
+            reinterpret_cast<float4*>(coef_ring)[st] = cf;
+            mbar_arrive_expect(&full[st], 4u * (uint32_t)len);
+            if (len > 0) bulk_copy(dst, src, 4u * (uint32_t)len, &full[st]);
+          }
+        } else {
+          for (int i = lane; i < len; i += 32) copy4(dst + i, src + i);
+          copy4_arrive(&full[st]);
+          if (lane == 0) {
+            j_ring[st] = jj;
+            reinterpret_cast<float4*>(coef_ring)[st] = cf;
+            mbar_arrive(&full[st]);
+          }
+        }
+        __syncwarp();
       }
     }
-    __syncthreads();
-    const float mv = move[0];
+  } else {
+    // ---- consumer warps: the H steps -----------------------------------
+    // lane q < C of warp 0 sends to the CTA of rank q, by step parity
+    uint32_t slot0 = 0u, slot1 = 0u, bar0 = 0u, bar1 = 0u;
+    if (warp == 0 && lane < (int)C) {
+      slot0 = peer_addr(&slots[rank], lane);
+      slot1 = peer_addr(&slots[kMaxCluster + rank], lane);
+      bar0 = peer_addr(&red_bar[0], lane);
+      bar1 = peer_addr(&red_bar[1], lane);
+    }
+    float r[ITEMS];                             // rho's rows of this thread
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
-      const int i = tid + it * kThreads;
-      if (i < m) rho[i] = rho[i] + mv * c[it];
+      const int i = tid + it * kConsumers;
+      r[it] = (i < len) ? w[lo + i] : 0.f;
     }
+    for (int s = 0; s < H; ++s) {
+      const int st = s % P;
+      const int p = s & 1;
+      mbar_wait<false>(&full[st], (uint32_t)((s / P) & 1));
+      const int j = j_ring[st];
+      const float4 cf = reinterpret_cast<const float4*>(coef_ring)[st];
+      const float* col = ring + (size_t)st * slab;
+      float c[ITEMS];
+      float part = 0.f;
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) {
+        const int i = tid + it * kConsumers;
+        c[it] = (i < len) ? col[i] : 0.f;
+        part += r[it] * c[it];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);   // the stage is free again
+      const float a = alpha[j];
+      part = warp_sum(part);
+      if (lane == 0) red[p * kConsumerWarps + warp] = part;
+      consumers_sync();
+      if (warp == 0) {
+        // each group of 8 lanes sums the 8 warp partials in the same
+        // butterfly order, so every sending lane holds the CTA's partial
+        float v = red[p * kConsumerWarps + (lane & (kConsumerWarps - 1))];
+#pragma unroll
+        for (int o = kConsumerWarps / 2; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane < (int)C) st_async(p ? slot1 : slot0, v, p ? bar1 : bar0);
+        if (lane == 0) mbar_arrive_expect(&red_bar[p], 4u * C);
+      }
+      mbar_wait<true>(&red_bar[p], (uint32_t)((s >> 1) & 1));
+      float dot = 0.f;
+      for (uint32_t q = 0; q < C; ++q) dot += slots[p * kMaxCluster + q];
+      const float z_tilde = (cf.y * a - dot) / cf.z;
+      const float sgn = z_tilde > 0.f ? 1.f : (z_tilde < 0.f ? -1.f : 0.f);
+      float z = sgn * fmaxf(fabsf(z_tilde) - cf.w, 0.f);
+      z = cf.x > 0.f ? z : a;                   // zero (padded) column: no-op
+      if (lane == 0) alpha[j] = z;              // same value in every warp
+      __syncwarp();
+      const float mv = sigma * (z - a);
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) r[it] = r[it] + mv * c[it];
+    }
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int i = tid + it * kConsumers;
+      if (i < len) delta_v[(size_t)k * m + lo + i] = (r[it] - w[lo + i]) / sigma;
+    }
+    consumers_sync();
+    if (rank == 0)
+      for (int i = tid; i < n_pad; i += kConsumers)
+        alpha_out[(size_t)k * n_pad + i] = alpha[i];
   }
-  __syncthreads();
-  for (int i = tid; i < n_pad; i += kThreads)
-    alpha_out[(size_t)k * n_pad + i] = alpha[i];
-  for (int i = tid; i < m; i += kThreads)
-    delta_v[(size_t)k * m + i] = (rho[i] - w[i]) / sigma;
+  cluster_sync();   // no CTA leaves while a peer may still store into it
+}
+
+template <int ITEMS>
+cudaError_t configure(int cluster, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      scd_kernel<ITEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(scd_kernel<ITEMS>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              cluster > 8 ? 1 : 0);
+}
+
+cudaLaunchConfig_t config(int K, int cluster, size_t smem,
+                          cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(K * cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int ITEMS>
 cudaError_t launch(const float* A_T, const float* col_sq,
                    const float* alpha_in, const float* w, const int32_t* idx,
                    float* alpha_out, float* delta_v, int K, int n_pad, int m,
-                   int H, float sigma, float lam_eta, float lam_l1,
-                   size_t smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      scd_kernel<ITEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                   int H, int cluster, int slab, int ring, int aligned,
+                   float sigma, float lam_eta, float lam_l1, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t e = configure<ITEMS>(cluster, smem);
   if (e != cudaSuccess) return e;
-  scd_kernel<ITEMS><<<K, kThreads, smem, stream>>>(
-      A_T, col_sq, alpha_in, w, idx, alpha_out, delta_v, n_pad, m, H, sigma,
-      lam_eta, lam_l1);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(K, cluster, smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, scd_kernel<ITEMS>, A_T, col_sq, alpha_in, w,
+                         idx, alpha_out, delta_v, n_pad, m, H, slab, ring,
+                         aligned, sigma, lam_eta, lam_l1);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int ITEMS>
+cudaError_t occupancy(int cluster, size_t smem, int* out) {
+  cudaError_t e = configure<ITEMS>(cluster, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = config(1, cluster, smem, 0, attr);
+  return cudaOccupancyMaxActiveClusters(out, scd_kernel<ITEMS>, &cfg);
+}
+
+// The slab a plan must give: ceil(m / cluster) rounded up to 4 floats.
+int plan_slab(int m, int cluster) {
+  const int s = (m + cluster - 1) / cluster;
+  return (s + 3) / 4 * 4;
+}
+
+bool plan_ok(int m, int n_pad, int cluster, int slab, int ring) {
+  return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
+          cluster == 16) && slab == plan_slab(m, cluster) &&
+         slab <= kMaxItems * kConsumers && ring >= 2 && ring <= kMaxRing &&
+         n_pad >= 1;
 }
 
 }  // namespace
 
-// Dynamic shared memory one CTA needs: rho, alpha, the reduction slots
-// and the broadcast slot. The wrapper checks it against the 227 KB a
-// block may use before it launches.
-extern "C" long long scd_shared_bytes(int m, int n_pad) {
-  return (long long)sizeof(float) * ((long long)m + n_pad + kWarps + 1);
+// Dynamic shared memory one CTA needs: the ring of `ring` column slabs,
+// the worker's alpha block, the partials, the stage scalars
+// and the mbarriers. kernels/scd.py computes the same number.
+extern "C" long long scd_shared_bytes(int slab, int ring, int n_pad) {
+  return Layout(slab, ring, n_pad).bytes(ring);
 }
 
+// How many clusters of `cluster` CTAs with `smem` bytes each can be
+// resident on this device at once (cudaOccupancyMaxActiveClusters).
+extern "C" int scd_max_active_clusters(int cluster, int slab, long long smem,
+                                       int* out) {
+  const int items = (slab + kConsumers - 1) / kConsumers;
+#define SCD_OCC(N) \
+  if (items <= N) return (int)occupancy<N>(cluster, (size_t)smem, out);
+  SCD_OCC(1)
+  SCD_OCC(2)
+  SCD_OCC(4)
+  SCD_OCC(8)
+  SCD_OCC(16)
+  SCD_OCC(32)
+  SCD_OCC(64)
+#undef SCD_OCC
+  return (int)cudaErrorInvalidValue;
+}
+
+// One launch of K clusters of `cluster` CTAs. `slab`, `ring` and `smem`
+// come from the Python plan; a plan this side does not reproduce is
+// refused with cudaErrorInvalidValue.
 extern "C" int scd_launch(const float* A_T, const float* col_sq,
                           const float* alpha_in, const float* w,
                           const int32_t* idx, float* alpha_out,
                           float* delta_v, int K, int n_pad, int m, int H,
+                          int cluster, int slab, int ring, long long smem,
                           float sigma, float lam_eta, float lam_l1,
                           void* stream) {
-  const size_t smem = (size_t)scd_shared_bytes(m, n_pad);
-  const int items = (m + kThreads - 1) / kThreads;
+  if (K < 1 || m < 1 || !plan_ok(m, n_pad, cluster, slab, ring) ||
+      smem != scd_shared_bytes(slab, ring, n_pad))
+    return (int)cudaErrorInvalidValue;
+  const int aligned = (m % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(A_T) % 16 == 0);
+  const int items = (slab + kConsumers - 1) / kConsumers;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SCD_CASE(N)                                                        \
-  if (items <= N)                                                          \
-    return (int)launch<N>(A_T, col_sq, alpha_in, w, idx, alpha_out,        \
-                          delta_v, K, n_pad, m, H, sigma, lam_eta, lam_l1, \
-                          smem, st);
+#define SCD_CASE(N)                                                         \
+  if (items <= N)                                                           \
+    return (int)launch<N>(A_T, col_sq, alpha_in, w, idx, alpha_out,         \
+                          delta_v, K, n_pad, m, H, cluster, slab, ring,     \
+                          aligned, sigma, lam_eta, lam_l1, (size_t)smem, st);
   SCD_CASE(1)
   SCD_CASE(2)
   SCD_CASE(4)

@@ -16,7 +16,7 @@ from repro_torch.core.solvers import scd_steps
 from repro_torch.kernels import dequant, quant
 from repro_torch.kernels.dequant import decode_reduce_int8, decode_reduce_int8_ref
 from repro_torch.kernels.quant import quantize_pack_int8, quantize_pack_int8_ref
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, scd
 from repro_torch.kernels.scd import scd_solve
 from repro_torch.kernels.topk import topk_select, topk_select_ref
 
@@ -45,29 +45,118 @@ def _scd_inputs(K, m, n, H, seed, dev):
     return [t.to(dev) for t in (A_T, col_sq, alpha, w, idx)]
 
 
+def _fits(args, cluster):
+    """Whether K1 takes ``cluster`` CTAs a worker for these inputs on this
+    card (shared memory and residency of all K clusters)."""
+    K, n_pad, m = args[0].shape
+    try:
+        scd.scd_plan(K, m, n_pad,
+                     lambda p: scd.max_active_clusters(args[0].device, p),
+                     cluster=cluster)
+    except ValueError:
+        return False
+    return True
+
+
+def _check_scd(args, kw, cluster, tol=dict(rtol=1e-4, atol=1e-5)):
+    """K1 with ``cluster`` CTAs a worker against the plain version, or,
+    where that cluster does not fit, a ValueError and no launch."""
+    before = scd_solve.launches
+    if not _fits(args, cluster):
+        with pytest.raises(ValueError, match="no cluster size fits"):
+            scd_solve(*args, cluster=cluster, **kw)
+        assert scd_solve.launches == before
+        return None
+    dv_k, a_k = scd_solve(*args, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    assert scd_solve.launches == before + 1
+    dv_p, a_p = scd_steps(*args, **kw)
+    torch.testing.assert_close(dv_k, dv_p, **tol)
+    torch.testing.assert_close(a_k, a_p, **tol)
+    return dv_k, a_k
+
+
+CLUSTERS = [None, *scd.CLUSTERS]
+
+
 @pytest.mark.parametrize("K,m,n,H", [
     (1, 33, 5, 1), (4, 96, 64, 64), (3, 1025, 17, 200), (8, 4096, 128, 512),
     (2, 20000, 40, 50),
 ])
 @pytest.mark.parametrize("eta", [0.3, 1.0])
-def test_scd_kernel_matches_plain(cuda, K, m, n, H, eta):
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_matches_plain(cuda, K, m, n, H, eta, cluster):
     args = _scd_inputs(K, m, n, H, seed=m + n + H, dev=cuda)
-    kw = dict(sigma=float(K), lam=1.0, eta=eta)
-    dv_k, a_k = scd_solve(*args, **kw)
-    dv_p, a_p = scd_steps(*args, **kw)
-    torch.testing.assert_close(dv_k, dv_p, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(a_k, a_p, rtol=1e-4, atol=1e-5)
+    _check_scd(args, dict(sigma=float(K), lam=1.0, eta=eta), cluster)
 
 
-def test_scd_kernel_repeated_index_and_zero_column(cuda):
+@pytest.mark.parametrize("H", [1, 2, 3, 9, 17])
+@pytest.mark.parametrize("cluster", [2, 16])
+def test_scd_kernel_short_streams_wrap_the_ring(cuda, H, cluster):
+    """H below, at and past the ring depth (the stages' barrier phases
+    flip every P steps), on 16-byte and 4-byte copies."""
+    for m in (64, 67):
+        args = _scd_inputs(2, m, 8, H, seed=H + m, dev=cuda)
+        _check_scd(args, dict(sigma=2.0, lam=1.0, eta=0.5), cluster)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_beyond_one_block(cuda, cluster):
+    """m = 60000 was refused while rho had to fit one CTA; the slabs of a
+    cluster hold it now."""
+    args = _scd_inputs(2, 60000, 8, 40, seed=11, dev=cuda)
+    out = _check_scd(args, dict(sigma=2.0, lam=1.0, eta=1.0), cluster)
+    if cluster is None:
+        assert out is not None and scd_solve.last_plan.cluster > 1
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_repeated_index_and_zero_column(cuda, cluster):
     A_T, col_sq, alpha, w, _ = _scd_inputs(2, 64, 8, 1, seed=2, dev=cuda)
-    idx = torch.tensor([[3, 3, 7, 3, 7, 7]] * 2, dtype=torch.int32, device=cuda)
     kw = dict(sigma=2.0, lam=0.5, eta=0.8)
-    dv_k, a_k = scd_solve(A_T, col_sq, alpha, w, idx, **kw)
-    dv_p, a_p = scd_steps(A_T, col_sq, alpha, w, idx, **kw)
-    torch.testing.assert_close(dv_k, dv_p, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
-    assert a_k[:, 7].equal(alpha[:, 7])                # zero column: no-op
+    tol = dict(rtol=1e-5, atol=1e-6)
+    # one index over and over, alternating pairs, and a mix, all inside
+    # the ring window; 7 is the zero column
+    for row in ([3, 3, 7, 3, 7, 7], [3] * 20, [3, 5] * 10, [7, 3] * 9):
+        idx = torch.tensor([row] * 2, dtype=torch.int32, device=cuda)
+        out = _check_scd((A_T, col_sq, alpha, w, idx), kw, cluster, tol)
+        if out is not None:
+            assert out[1][:, 7].equal(alpha[:, 7])   # zero column: no-op
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_unaligned_columns(cuda, cluster):
+    """A_T 4 bytes off a 16-byte boundary with m a multiple of 4: the
+    slabs take the 4-byte copies."""
+    A_T, col_sq, alpha, w, idx = _scd_inputs(3, 1024, 16, 100, seed=4,
+                                             dev=cuda)
+    buf = torch.empty(A_T.numel() + 1, device=cuda)
+    shifted = buf[1:].view(A_T.shape)
+    shifted.copy_(A_T)
+    assert shifted.data_ptr() % 16 == 4
+    _check_scd((shifted, col_sq, alpha, w, idx),
+               dict(sigma=3.0, lam=1.0, eta=0.7), cluster)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_two_launches_bit_identical(cuda, cluster):
+    args = _scd_inputs(8, 4096, 128, 512, seed=9, dev=cuda)
+    kw = dict(sigma=8.0, lam=1.0, eta=1.0)
+    if not _fits(args, cluster):
+        pytest.skip(f"{cluster} CTAs a worker do not fit on this card")
+    dv1, a1 = scd_solve(*args, cluster=cluster, **kw)
+    dv2, a2 = scd_solve(*args, cluster=cluster, **kw)
+    assert _bits(dv1).equal(_bits(dv2)) and _bits(a1).equal(_bits(a2))
+
+
+def test_scd_kernel_main_path_shape_plans_the_largest_cluster(cuda):
+    """At K = 8, m = 16384, n_pad = 4096 the plan is the largest C whose
+    eight clusters are all resident."""
+    want = next(c for c in scd.CLUSTERS if scd.max_active_clusters(
+        cuda, scd.scd_layout(16384, 4096, c)) >= 8)
+    plan = scd.scd_plan(8, 16384, 4096,
+                        lambda p: scd.max_active_clusters(cuda, p))
+    assert plan.cluster == want and plan.ring == scd.RING_MAX
 
 
 def test_scd_kernel_refuses_what_it_cannot_take(cuda):
@@ -78,10 +167,36 @@ def test_scd_kernel_refuses_what_it_cannot_take(cuda):
     strided_w = torch.zeros(128, device=cuda)[::2]      # (64,), stride 2
     with pytest.raises(ValueError, match="contiguous"):
         scd_solve(A_T, col_sq, alpha, strided_w, idx, **kw)
-    big = torch.zeros((1, 8, 60000), device=cuda)
+    # above the new limits: alpha alone over 227 KB, and a slab over the
+    # 16384 rows a CTA holds even at C = 16
+    n_big = 60000
     with pytest.raises(ValueError, match="shared memory"):
-        scd_solve(big, col_sq, alpha, torch.zeros(60000, device=cuda), idx,
-                  **kw)
+        scd_solve(torch.zeros((1, n_big, 64), device=cuda),
+                  torch.zeros((1, n_big), device=cuda),
+                  torch.zeros((1, n_big), device=cuda), w,
+                  torch.zeros((1, 4), dtype=torch.int32, device=cuda), **kw)
+    m_big = 300000
+    with pytest.raises(ValueError, match="a slab of 18752 rows"):
+        scd_solve(torch.zeros((1, 8, m_big), device=cuda), col_sq, alpha,
+                  torch.zeros(m_big, device=cuda), idx, **kw)
+
+
+def test_scd_launch_refuses_a_plan_it_does_not_reproduce(cuda):
+    """The C side recomputes the shared bytes and the slab from the same
+    inputs and refuses a launch whose plan disagrees."""
+    A_T, col_sq, alpha, w, idx = _scd_inputs(1, 64, 8, 4, seed=3, dev=cuda)
+    out = torch.empty((1, 64), device=cuda)
+    plan = scd.scd_layout(64, 8, 2)
+    fn = _build.function("scd_launch", [ctypes.c_void_p] * 7
+                         + [ctypes.c_int] * 7 + [ctypes.c_longlong]
+                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    ptrs = [t.data_ptr() for t in (A_T, col_sq, alpha, w, idx, out, out)]
+    for slab, smem in ((plan.slab, plan.shared_bytes + 8),
+                       (plan.slab + 4, plan.shared_bytes)):
+        err = fn(*ptrs, 1, 8, 64, 4, 2, slab, plan.ring, smem, 1.0, 1.0,
+                 0.0, _build.stream_ptr(cuda))
+        with pytest.raises(RuntimeError, match="scd_launch"):
+            _build.check_launch(err, "scd_launch")
 
 
 @pytest.mark.parametrize("shape", [(8, 16384), (3, 1), (5, 1001), (1, 128),
