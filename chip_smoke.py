@@ -11,6 +11,8 @@ JSON line:
      once the data are on the card, print K1's layout and
      ``cudaOccupancyMaxActiveClusters`` for each cluster size C in
      {1, 2, 4, 8, 16} at the main path's shapes, and the C it plans;
+     beside it the plans of K2 (each width) and K4 at the main path's
+     (K, m) stack (C, slab, shared bytes) and the C's that fit;
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes: K1 (SCD) allclose at rtol 1e-4, atol 1e-5
      for the planned C and for every other C that fits;
@@ -18,7 +20,8 @@ JSON line:
      decode+sum/mean) and K4 (top-k select) bit-identical, also at
      ragged lengths and on edge cases (all zeros, one nonzero, scales
      1e-6 and 1e6; for K4 k in {1, ceil(L/8), L}, heavy ties, +x/-x
-     pairs and -0.0 entries);
+     pairs and -0.0 entries), K2 and K4 at the planned C and at every
+     C that fits each case;
   3. the main paths: CoCoA ridge with ``solver="scd_kernel"`` on the
      virtual driver, K workers batched into each launch, under
      ``compressed:int8``, ``compressed:ef:int4`` (the error-feedback
@@ -38,15 +41,20 @@ JSON line:
      index stream must agree round by round at rtol 1e-4; the codes (for
      topk, the selected indices) that differ between the two runs are
      counted and printed;
-  5. timing: each kernel and its plain version by CUDA events at the
-     main path's shapes, beside the least time the card could take and,
+  5. timing at the main path's shapes, for every kernel two times: the
+     wrapper's time per call by CUDA events around back-to-back calls
+     (host work included when the host launches slower than the device
+     runs), and the kernel's device time per launch from a
+     ``torch.profiler`` trace of the same calls; beside them the least
+     time the card could take, the plain version's time by events and,
      for K4, ``torch.topk`` of the magnitudes (the library call that
-     computes the same selection; the port never calls it); K1 also for
-     every C that fits;
-  6. a device trace: ``torch.profiler`` over 5 rounds of
-     ``compressed:int8`` (after 2 untraced ones), each kernel's device
-     time by name and the device's busy share of the window (a trace
-     without device time is reported, not failed).
+     computes the same selection; the port never calls it). K1, K2 and
+     K4 also for every C that fits, K4 also at k = L;
+  6. device traces: ``torch.profiler`` over 5 rounds of
+     ``compressed:int8`` and of ``compressed:ef:topk(r=0.125)`` (after 2
+     untraced ones each), each kernel's device time by name and the
+     device's busy share of the window (a trace without device time is
+     reported, not failed).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -80,6 +88,18 @@ PATHS = (("compressed:int8", "int8"), ("compressed:ef:int4", "int4"),
          (f"{TOPK}/stale:k=2/drop:1@5-9", "topk"))
 CHECKED = ("compressed:int8", "compressed:ef:int4", TOPK)     # phase 4
 CODECS = ("int8", "int4", "int2")
+BITS = {"int8": 8, "int4": 4, "int2": 2}
+# K2 and K4 run at the planned C (None) and at every C forced
+CLUSTER_RUNS = (None, 16, 8, 4, 2, 1)
+# the name of each timed kernel's __global__ function, as the profiler
+# reports it (a substring of the demangled name)
+KERNEL_NAMES = {"scd_solve": "scd_kernel", "topk": "topk_kernel",
+                "topk_k_eq_L": "topk_kernel",
+                "int8": "quant_kernel<1,", "int4": "quant_kernel<2,",
+                "int2": "quant_kernel<4,",
+                "decode_int8": "dequant_int8_kernel",
+                "decode_int4": "dequant_packed_kernel",
+                "decode_int2": "dequant_packed_kernel"}
 
 
 def emit(**kw) -> None:
@@ -124,6 +144,40 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, kernel: str):
+    """Mean device milliseconds per launch of the kernel whose name holds
+    ``kernel``, from a ``torch.profiler`` trace of ``reps`` warm calls of
+    ``fn``; "not measured" when the trace holds no such kernel."""
+    fn()
+    trace = device_trace(torch, lambda: [fn() for _ in range(reps)])
+    hits = [v for name, v in trace.get("kernels", {}).items()
+            if kernel in name]
+    calls = sum(v["calls"] for v in hits)
+    if not calls:
+        return "not measured"
+    return sum(v["device_ms"] for v in hits) / calls
+
+
+def quant_fits(L: int, bits: int, cluster) -> bool:
+    """Whether K2 takes ``cluster`` CTAs a row of L elements."""
+    from repro_torch.kernels.quant import quant_plan
+    try:
+        quant_plan(1, L, bits, cluster)
+    except ValueError:
+        return False
+    return True
+
+
+def topk_fits(L: int, k: int, cluster) -> bool:
+    """Whether K4 takes ``cluster`` CTAs a row of L elements keeping k."""
+    from repro_torch.kernels.topk import topk_plan
+    try:
+        topk_plan(1, L, k, cluster)
+    except ValueError:
+        return False
+    return True
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -250,7 +304,8 @@ def main(argv=None) -> int:
     from repro_torch.data import make_glm_data
     from repro_torch.kernels import _build, dequant, quant, scd
     from repro_torch.kernels.scd import scd_solve
-    from repro_torch.kernels.topk import topk_select, topk_select_ref
+    from repro_torch.kernels.topk import (topk_plan, topk_select,
+                                          topk_select_ref)
 
     enc = {c: getattr(quant, f"quantize_pack_{c}") for c in CODECS}
     enc_ref = {c: getattr(quant, f"quantize_pack_{c}_ref") for c in CODECS}
@@ -303,8 +358,19 @@ def main(argv=None) -> int:
         except ValueError:
             pass
     plan = scd.scd_plan(K, m, n_pad, resident)
+    # K2 and K4 at the main path's (K, m) stack, K4 at the path's k
+    k_main = get_codec(f"topk(r={TOPK_R:g})")._k(m)
+    codec_plans = {c: dataclasses.asdict(quant.quant_plan(K, m, BITS[c]))
+                   for c in CODECS}
+    codec_plans["topk"] = dict(k=k_main, **dataclasses.asdict(
+        topk_plan(K, m, k_main)))
+    codec_fits = {c: [cl for cl in CLUSTER_RUNS[1:]
+                      if quant_fits(m, BITS[c], cl)] for c in CODECS}
+    codec_fits["topk"] = [cl for cl in CLUSTER_RUNS[1:]
+                          if topk_fits(m, k_main, cl)]
     phase_done(torch, "clusters", t0, K=K, occupancy=occupancy,
-               fits=fits, plan=dataclasses.asdict(plan))
+               fits=fits, plan=dataclasses.asdict(plan),
+               codec_plans=codec_plans, codec_fits=codec_fits)
     t0 = time.perf_counter()
     p_star = tr.p_star
     phase_done(torch, "p_star", t0, p_star=p_star, p_zero=tr.p_zero)
@@ -344,15 +410,23 @@ def main(argv=None) -> int:
     for i, L in enumerate((1, 2, 3, 4, 5, 1001, 4097)):     # ragged lengths
         cases.append(torch.randn((1 + i % 8, L), generator=g, device=dev))
     payloads = {c: [] for c in CODECS}
+    by_cluster = {}                  # K2 and K4 cases run at each C
     for c in CODECS:
         ok[c], err[c] = True, 0.0
-        for x in cases:
-            pk, sk = enc[c](x)
-            pp, sp = enc_ref[c](x)
-            ok[c] &= bits_equal(torch, pk, pp) and bits_equal(torch, sk, sp)
-            err[c] = max(err[c], max_err(pk, pp), max_err(sk, sp))
-            if x.dim() == 2:
-                payloads[c].append((pk, sk, x.shape[1]))
+        for cl in CLUSTER_RUNS:      # the planned C, then every C that fits
+            runs_c = 0
+            for x in cases:
+                if not quant_fits(x.shape[-1], BITS[c], cl):
+                    continue
+                pk, sk = enc[c](x, cluster=cl)
+                pp, sp = enc_ref[c](x)
+                ok[c] &= (bits_equal(torch, pk, pp)
+                          and bits_equal(torch, sk, sp))
+                err[c] = max(err[c], max_err(pk, pp), max_err(sk, sp))
+                runs_c += 1
+                if x.dim() == 2 and cl is None:
+                    payloads[c].append((pk, sk, x.shape[1]))
+            by_cluster.setdefault(c, {})[str(cl or "plan")] = runs_c
         name = f"decode_{c}"
         ok[name], err[name] = True, 0.0
         for p, s, L in payloads[c]:
@@ -382,13 +456,19 @@ def main(argv=None) -> int:
                 (ties[:, :L].contiguous(), kk),      # ties and +x/-x pairs
                 (negzero[:, :L].contiguous(), kk)]   # -0.0 entries
     ok["topk"], err["topk"] = True, 0.0
-    for x, kk in topk_cases:
-        got, want = topk_select(x, kk), topk_select_ref(x, kk)
-        ok["topk"] &= all(bits_equal(torch, a, b_) for a, b_ in
-                          zip(got, want))
-        err["topk"] = max(err["topk"], max_err(got[0], want[0]),
-                          max_err(got[2], want[2]),
-                          max_err(got[1].long(), want[1].long()))
+    for cl in CLUSTER_RUNS:
+        runs_c = 0
+        for x, kk in topk_cases:
+            if not topk_fits(x.shape[-1], kk, cl):
+                continue
+            got, want = topk_select(x, kk, cluster=cl), topk_select_ref(x, kk)
+            ok["topk"] &= all(bits_equal(torch, a, b_) for a, b_ in
+                              zip(got, want))
+            err["topk"] = max(err["topk"], max_err(got[0], want[0]),
+                              max_err(got[2], want[2]),
+                              max_err(got[1].long(), want[1].long()))
+            runs_c += 1
+        by_cluster.setdefault("topk", {})[str(cl or "plan")] = runs_c
     phase_done(torch, "kernels_vs_plain", t0,
                ok=ok, max_abs_err=err, scd_by_cluster=scd_by_c,
                tolerance={"scd_solve": "rtol 1e-4, atol 1e-5",
@@ -396,7 +476,7 @@ def main(argv=None) -> int:
                quantize_cases=[list(x.shape) for x in cases],
                decode_cases=[[list(p.shape), L]
                              for p, _, L in payloads["int4"]],
-               topk_cases=len(topk_cases),
+               topk_cases=len(topk_cases), cases_by_cluster=by_cluster,
                topk_negative_zeros=int(torch.signbit(negzero).sum()
                                        - (negzero < 0).sum()),
                topk_main_k=[kk for _, kk in topk_cases[:3]])
@@ -525,9 +605,10 @@ def main(argv=None) -> int:
     scd_ms = {str(c): time_ms(torch, lambda c=c: scd_solve(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, cluster=c, **kw), args.reps)
         for c in fits}
-    k_main = get_codec(f"topk(r={TOPK_R:g})")._k(L)
     ms["topk"] = time_ms(torch, lambda: topk_select(dv_k, k_main),
                          4 * args.reps)
+    ms["topk_k_eq_L"] = time_ms(torch, lambda: topk_select(dv_k, L),
+                                args.reps)
     plain["topk"] = time_ms(torch, lambda: topk_select_ref(dv_k, k_main),
                             4 * args.reps)
     library = {"topk": time_ms(torch, lambda: torch.topk(
@@ -540,6 +621,30 @@ def main(argv=None) -> int:
             torch, lambda: dec[c](p, s, L, mean=False), 4 * args.reps)
         plain[f"decode_{c}"] = time_ms(
             torch, lambda: dec_ref[c](p, s, L, mean=False), 4 * args.reps)
+    # the same calls again under the profiler: each kernel's own device
+    # time per launch, without the host's part of the wrapper
+    calls = {"scd_solve": (lambda: scd_solve(
+        tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps),
+        "topk": (lambda: topk_select(dv_k, k_main), 4 * args.reps),
+        "topk_k_eq_L": (lambda: topk_select(dv_k, L), args.reps)}
+    for c in CODECS:
+        p, s, _ = main_payload[c]
+        calls[c] = (lambda c=c: enc[c](dv_k), 4 * args.reps)
+        calls[f"decode_{c}"] = (lambda p=p, s=s, c=c: dec[c](
+            p, s, L, mean=False), 4 * args.reps)
+    dev_ms = {key: device_ms(torch, fn, n, KERNEL_NAMES[key])
+              for key, (fn, n) in calls.items()}
+    # K2 and K4 also at every C that fits the main path's stack
+    ms_by_c, dev_by_c = {}, {}
+    for key in CODECS + ("topk",):
+        for cl in codec_fits[key]:
+            fn = ((lambda cl=cl: topk_select(dv_k, k_main, cluster=cl))
+                  if key == "topk" else
+                  (lambda cl=cl, key=key: enc[key](dv_k, cluster=cl)))
+            ms_by_c.setdefault(key, {})[str(cl)] = time_ms(
+                torch, fn, 4 * args.reps)
+            dev_by_c.setdefault(key, {})[str(cl)] = device_ms(
+                torch, fn, 4 * args.reps, KERNEL_NAMES[key])
     # K1 reads each distinct visited column once (this run's idx), its
     # norm, the index stream, alpha in and out, w, and writes Delta v;
     # a step is a dot and an axpy, 4m operations, plus ~10 scalar ones
@@ -557,19 +662,29 @@ def main(argv=None) -> int:
     # K4 reads the f32 stack and writes k values, k indices and one
     # threshold per row; one magnitude per element
     bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k_main + 4), K * L)
+    bounds["topk_k_eq_L"] = bound_ms(K * 4 * L + K * (8 * L + 4), K * L)
     phase_done(torch, "timing", t0, reps=args.reps,
                distinct_columns=distinct, scd_bytes=scd_bytes,
-               topk_k=k_main, scd_ms_by_cluster=scd_ms,
+               topk_k=k_main, wrapper_ms=ms, device_ms=dev_ms,
+               bound_ms={key: b[0] for key, b in bounds.items()},
+               topk_k_eq_L=dict(k=L, wrapper_ms=ms["topk_k_eq_L"],
+                                device_ms=dev_ms["topk_k_eq_L"],
+                                bound_ms=bounds["topk_k_eq_L"][0]),
+               scd_ms_by_cluster=scd_ms, codec_ms_by_cluster=ms_by_c,
+               codec_device_ms_by_cluster=dev_by_c,
                scd_bound_ratio_by_cluster={
                    c: t / bounds["scd_solve"][0] for c, t in scd_ms.items()})
 
-    # -- 6. a device trace of compressed:int8 rounds ---------------------
-    t0 = time.perf_counter()
-    tr.run(2)                        # p_star and the first rounds, untraced
-    trace = device_trace(torch, lambda: tr.run(5))
-    del tr
-    free(torch)
-    phase_done(torch, "trace", t0, exchange=PATHS[0][0], rounds=5, **trace)
+    # -- 6. device traces of compressed:int8 and ef:topk rounds ----------
+    for ex in (PATHS[0][0], TOPK):
+        t0 = time.perf_counter()
+        if tr is None:
+            tr = CoCoATrainer(dataclasses.replace(cfg, exchange=ex), A, b)
+        tr.run(2)                    # p_star and the first rounds, untraced
+        trace = device_trace(torch, lambda: tr.run(5))
+        tr = None
+        free(torch)
+        phase_done(torch, "trace", t0, exchange=ex, rounds=5, **trace)
 
     src = "src/repro_torch/kernels/csrc/"
     rows = [("scd_solve", "scd_solve", src + "scd.cu",
@@ -590,12 +705,24 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_l, "max_abs_err": err[key],
-            "ms": ms[key], "plain_ms": plain[key], "bound_ms": bounds[key][0],
+            "ms": ms[key], "device_ms": dev_ms[key],
+            "bound_ratio": (dev_ms[key] / bounds[key][0]
+                            if isinstance(dev_ms[key], float)
+                            else "not measured"),
+            "plain_ms": plain[key], "bound_ms": bounds[key][0],
             "bound_by": bounds[key][1], "library_ms": library.get(key),
             "ok": ok[key],
             "paths": paths, "launches_per_round": n_l / n_r})
     kernels[0].update(cluster=plan.cluster, ring=plan.ring, slab=plan.slab,
                       ms_by_cluster=scd_ms)
+    for entry, key in zip(kernels, [r[0] for r in rows]):
+        if key in codec_plans:
+            entry.update(cluster=codec_plans[key]["cluster"],
+                         ms_by_cluster=ms_by_c[key],
+                         device_ms_by_cluster=dev_by_c[key])
+    kernels[-1].update(k=k_main, k_eq_L=dict(
+        k=L, ms=ms["topk_k_eq_L"], device_ms=dev_ms["topk_k_eq_L"],
+        bound_ms=bounds["topk_k_eq_L"][0]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

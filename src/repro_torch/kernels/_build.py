@@ -115,13 +115,21 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+_FUNCTIONS: dict = {}
+
+
 def function(name: str, argtypes: list, restype=ctypes.c_int):
     """One launcher of the library with its C signature declared
     (``c_void_p`` for every pointer and the stream, so that ctypes does
-    not cut a pointer to 32 bits)."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = restype
+    not cut a pointer to 32 bits). Resolved and declared once per name;
+    every later call returns the same object, so a launch pays neither
+    the lookup nor the declaration."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _FUNCTIONS[name] = fn
     return fn
 
 

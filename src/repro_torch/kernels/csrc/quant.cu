@@ -1,5 +1,5 @@
-// K2: absmax quantize of the (K, L) update stack, one CTA per row, for
-// the int8, int4 and int2 codecs.
+// K2: absmax quantize of the (K, L) update stack for the int8, int4 and
+// int2 codecs, one thread-block cluster per row.
 //
 // Replaces the TPU kernels of src/repro/kernels/quant.py, which the
 // reference vmaps over workers; here the K rows go in one launch:
@@ -7,20 +7,20 @@
 //   int4  `_quant_int4_kernel` / `quantize_pack_int4` (pallas_call at :110)
 //   int2  `_quant_int2_kernel` / `quantize_pack_int2` (pallas_call at :130)
 //
-//   pass 1: absmax = max |x| over the L real elements (fabsf/fmaxf: exact
-//           in any order); the block reduction is shared by all three
+//   absmax = max |x| over the L real elements (fabsf/fmaxf: exact in any
+//            order)
 //   scale  int8: absmax/127 + 1e-30   int4: absmax/7.5   int2: absmax*f32(2/3)
 //          (1 for an all-zero row)
-//   pass 2: c = clip(rint(x / scale), -Q, Q)
-//           int8: q[i] = (int8) c
-//           int4: byte j = (c(x[j]) + 8) | (c(x[j + half]) + 8) << 4,
-//                 half = ceil(L/2)                    (split-half pairing)
-//           int2: byte j = OR over r = 0..3 of (c(x[j + r*quarter]) + 2) << 2r,
-//                 quarter = ceil(L/4)              (split-quarter pairing)
-//           an index >= L is the codec's zero pad: it quantizes to the
-//           biased zero code (nibble 8, 2-bit code 2), which is part of
-//           the byte the reference packs (_split_halves/_split_quarters,
-//           src/repro/comm/codec.py:187-203).
+//   c = clip(rint(x / scale), -Q, Q)
+//          int8: q[i] = (int8) c
+//          int4: byte j = (c(x[j]) + 8) | (c(x[j + W]) + 8) << 4,
+//                W = ceil(L/2)                        (split-half pairing)
+//          int2: byte j = OR over r = 0..3 of (c(x[j + r*W]) + 2) << 2r,
+//                W = ceil(L/4)                     (split-quarter pairing)
+//          an index >= L is the codec's zero pad: it quantizes to the
+//          biased zero code (nibble 8, 2-bit code 2), which is part of
+//          the byte the reference packs (_split_halves/_split_quarters,
+//          src/repro/comm/codec.py:187-203).
 //
 // Bit-identical to Int{8,4,2}Codec.encode_ref (src/repro/comm/codec.py:
 // 309-314, 340-349, 385-394; _absmax_scale at :178-184) in eager mode:
@@ -30,18 +30,46 @@
 // `+ 0.0` changes no positive scale, so it is left out. Built with
 // -fmad=false and never with --use_fast_math.
 //
-// What bounds it on an H100: bytes, K*(4L + payload + 4) of them (0.66 /
-// 0.59 / 0.56 MB for int8 / int4 / int2 at K = 8, L = 16384, ~0.2 us at
-// 3.35 TB/s); at that size the launch latency dominates. The design
-// reads the row twice (the second read hits L1/L2) rather than holding
-// it, which keeps the kernel simple; each thread of pass 2 writes whole
-// bytes, so no two threads share an output byte.
+// What bounds it on an H100: bytes, K*(4L + W + 4) of them (0.66 / 0.59 /
+// 0.56 MB for int8 / int4 / int2 at K = 8, L = 16384, ~0.2 us at
+// 3.35 TB/s). At that size it is latency: the one-CTA-a-row design read
+// its 64 KB row twice through one SM and took 4.5-4.7 us on the device
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 5).
+//
+// The design: a cluster of C CTAs per row (cudaLaunchKernelEx, grid K*C;
+// kernels/quant.py::quant_plan picks C). CTA rank r owns the output bytes
+// [min(r*S, W), min((r+1)*S, W)), S a multiple of 4, and reads exactly the
+// elements those bytes pack (for int4 and int2 also the partners W, 2W,
+// 3W further on), so no byte is shared between CTAs. It
+//   1. loads them once into registers, as 16-byte loads when L is a
+//      multiple of 4 * (8 / bits) and x is 16-byte aligned (every part
+//      starts on 16 bytes), element by element otherwise;
+//   2. reduces its absmax over the block;
+//   3. sends it to every CTA of the cluster with st.async (4 bytes into
+//      slot r of each peer's shared memory, completed on the peer's
+//      mbarrier) and waits on its own mbarrier for the C values, so the
+//      row's absmax costs one push and one local wait, not a barrier
+//      round trip and remote reads. The cluster barrier that publishes
+//      the mbarriers' initialisation is split: arrived at before the
+//      load, waited for after it;
+//   4. computes the scale with the reference's formula (the same bits in
+//      every CTA), quantizes from registers and stores whole bytes, four
+//      at a time where the loads were 16-byte ones; rank 0 writes the
+//      row's scale.
+// A CTA whose range is empty still sends its absmax (0) and waits for the
+// others'. No CTA leaves while a peer may still store into it: its
+// mbarrier completes only when all C values have landed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxFloats = 128;       // registers of x a thread may hold
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -50,104 +78,204 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The absmax of one row, reduced over the block; every thread returns it.
-__device__ float row_absmax(const float* __restrict__ xk, int L) {
-  __shared__ float red[kThreads / 32];
-  __shared__ float row_amax;
+// clip(rint(v / s), -qmax, qmax), as an int
+__device__ __forceinline__ int code(float v, float s, float qmax) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -qmax), qmax);
+}
+
+// PER elements to a byte (1: int8, 2: int4, 4: int2); ITEMS groups of
+// four output bytes a thread.
+template <int PER, int ITEMS>
+__global__ void __launch_bounds__(kThreads)
+quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ out,
+             float* __restrict__ scales, int L, int span, int vec) {
+  constexpr int kBits = 8 / PER;
+  __shared__ float warp_amax[kWarps];
+  __shared__ uint32_t peer_amax[kMaxCluster];   // slot r: rank r's absmax
+  __shared__ __align__(8) uint64_t got;         // completes when all C land
+
+  const uint32_t C = cluster::size();
+  const uint32_t rank = cluster::rank();
+  const int k = blockIdx.x / C;
+  const int W = (L + PER - 1) / PER;                 // bytes of a row
+  const int b0 = min((int)rank * span, W);
+  const int b1 = min(b0 + span, W);
+  const float* xk = x + (size_t)k * L;
+  uint8_t* ok = out + (size_t)k * W;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // the mbarrier the peers' absmax values complete on; the rendezvous
+  // that makes it visible to them is waited for only after the load
+  if (threadIdx.x == 0) {
+    cluster::mbar_init(&got, 1);
+    cluster::fence_mbar_init();
+  }
+  cluster::arrive();
+
+  // -- 1. one read of this CTA's elements -------------------------------
+  float v[ITEMS][PER][4];
   float amax = 0.f;
-  for (int i = threadIdx.x; i < L; i += kThreads) amax = fmaxf(amax, fabsf(xk[i]));
-  amax = warp_max(amax);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    amax = warp_max(red[threadIdx.x]);
-    if (threadIdx.x == 0) row_amax = amax;
-  }
-  __syncthreads();
-  return row_amax;
-}
-
-// clip(rint(v / s), -qmax, qmax), as a float
-__device__ __forceinline__ float code(float v, float s, float qmax) {
-  return fminf(fmaxf(rintf(__fdiv_rn(v, s)), -qmax), qmax);
-}
-
-__global__ void __launch_bounds__(kThreads)
-quant_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
-                  float* __restrict__ scales, int L) {
-  const int k = blockIdx.x;
-  const float* xk = x + (size_t)k * L;
-  int8_t* qk = q + (size_t)k * L;
-  const float amax = row_absmax(xk, L);
-  // (float)1e-30 rounds the double literal to f32, as the reference
-  // rounds its Python float
-  const float s = amax > 0.f
-      ? __fadd_rn(__fdiv_rn(amax, 127.0f), (float)1e-30) : 1.0f;
-  if (threadIdx.x == 0) scales[k] = s;
-  for (int i = threadIdx.x; i < L; i += kThreads)
-    qk[i] = (int8_t)code(xk[i], s, 127.0f);
-}
-
-__global__ void __launch_bounds__(kThreads)
-quant_int4_kernel(const float* __restrict__ x, uint8_t* __restrict__ p,
-                  float* __restrict__ scales, int L) {
-  const int k = blockIdx.x;
-  const int half = (L + 1) / 2;
-  const float* xk = x + (size_t)k * L;
-  uint8_t* pk = p + (size_t)k * half;
-  const float amax = row_absmax(xk, L);
-  const float s = amax > 0.f ? __fdiv_rn(amax, 7.5f) : 1.0f;
-  if (threadIdx.x == 0) scales[k] = s;
-  for (int j = threadIdx.x; j < half; j += kThreads) {
-    const int lo = (int)code(xk[j], s, 7.0f) + 8;
-    const int hi = j + half < L ? (int)code(xk[j + half], s, 7.0f) + 8 : 8;
-    pk[j] = (uint8_t)(lo | (hi << 4));
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-quant_int2_kernel(const float* __restrict__ x, uint8_t* __restrict__ p,
-                  float* __restrict__ scales, int L) {
-  const int k = blockIdx.x;
-  const int quarter = (L + 3) / 4;
-  const float* xk = x + (size_t)k * L;
-  uint8_t* pk = p + (size_t)k * quarter;
-  const float amax = row_absmax(xk, L);
-  // (float)(2.0 / 3.0) is INT2_SCALE_MUL rounded to f32, as the
-  // reference rounds its Python float
-  const float s = amax > 0.f ? __fmul_rn(amax, (float)(2.0 / 3.0)) : 1.0f;
-  if (threadIdx.x == 0) scales[k] = s;
-  for (int j = threadIdx.x; j < quarter; j += kThreads) {
-    int byte = 0;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = j + r * quarter;
-      const int c = i < L ? (int)code(xk[i], s, 1.0f) + 2 : 2;
-      byte |= c << (2 * r);
+  for (int it = 0; it < ITEMS; ++it) {
+    const int j = b0 + 4 * ((int)threadIdx.x + it * kThreads);
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      if (vec) {
+        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j < b1) f = *reinterpret_cast<const float4*>(xk + j + r * W);
+        v[it][r][0] = f.x;
+        v[it][r][1] = f.y;
+        v[it][r][2] = f.z;
+        v[it][r][3] = f.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = j + e + r * W;
+          v[it][r][e] = (j + e < b1 && i < L) ? xk[i] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[it][r][e]));
     }
-    pk[j] = (uint8_t)byte;
   }
+
+  // -- 2. the CTA's absmax ----------------------------------------------
+  amax = warp_max(amax);
+  if (lane == 0) warp_amax[warp] = amax;
+  __syncthreads();
+
+  // -- 3. the row's absmax: each CTA sends its own to every peer --------
+  cluster::wait();                 // every peer's mbarrier is initialised
+  if (warp == 0) {
+    amax = warp_max(lane < kWarps ? warp_amax[lane] : 0.f);
+    if (lane < (int)C)
+      cluster::st_async(cluster::peer_addr(&peer_amax[rank], lane),
+                        __float_as_uint(amax),
+                        cluster::peer_addr(&got, lane));
+    if (lane == 0) cluster::mbar_arrive_expect(&got, 4u * C);
+  }
+  cluster::mbar_wait<true>(&got, 0u);
+  float row = 0.f;
+  for (uint32_t q = 0; q < C; ++q)
+    row = fmaxf(row, __uint_as_float(peer_amax[q]));
+
+  // -- 4. the scale, the codes, whole bytes ------------------------------
+  float s, qmax;
+  int bias;
+  if (PER == 1) {
+    // (float)1e-30 rounds the double literal to f32, as the reference
+    // rounds its Python float
+    s = row > 0.f ? __fadd_rn(__fdiv_rn(row, 127.0f), (float)1e-30) : 1.0f;
+    qmax = 127.0f;
+    bias = 0;
+  } else if (PER == 2) {
+    s = row > 0.f ? __fdiv_rn(row, 7.5f) : 1.0f;
+    qmax = 7.0f;
+    bias = 8;
+  } else {
+    // (float)(2.0 / 3.0) is INT2_SCALE_MUL rounded to f32, as the
+    // reference rounds its Python float
+    s = row > 0.f ? __fmul_rn(row, (float)(2.0 / 3.0)) : 1.0f;
+    qmax = 1.0f;
+    bias = 2;
+  }
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int j = b0 + 4 * ((int)threadIdx.x + it * kThreads);
+    if (j >= b1) continue;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t byte = 0u;
+#pragma unroll
+      for (int r = 0; r < PER; ++r)
+        byte |= ((uint32_t)(code(v[it][r][e], s, qmax) + bias) & 0xFFu)
+                << (kBits * r);
+      word |= byte << (8 * e);
+    }
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(ok + j) = word;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j + e < b1) ok[j + e] = (uint8_t)(word >> (8 * e));
+    }
+  }
+  if (rank == 0 && threadIdx.x == 0) scales[k] = s;
+  // no barrier before leaving: a CTA's mbarrier completed only when all
+  // C values had landed, so no peer stores into it any more, and each
+  // peer waits for this CTA's value before it leaves
+}
+
+template <int PER, int ITEMS>
+cudaError_t launch(const float* x, uint8_t* out, float* scales, int K,
+                   int L, int C, int span, int vec, cudaStream_t stream) {
+  cudaError_t e = cluster::allow<quant_kernel<PER, ITEMS>>(0);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster::config(K * C, kThreads, C, 0, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, quant_kernel<PER, ITEMS>, x, out, scales, L,
+                         span, vec);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int PER>
+cudaError_t dispatch(const float* x, uint8_t* out, float* scales, int K,
+                     int L, int C, int span, int vec, cudaStream_t st) {
+  // groups of four bytes a thread, rounded up to a power of two
+  const int items = (span / 4 + kThreads - 1) / kThreads;
+#define QUANT_CASE(N)                                                      \
+  if constexpr (N * PER * 4 <= kMaxFloats) {                               \
+    if (items <= N)                                                        \
+      return launch<PER, N>(x, out, scales, K, L, C, span, vec, st);      \
+  }
+  QUANT_CASE(1)
+  QUANT_CASE(2)
+  QUANT_CASE(4)
+  QUANT_CASE(8)
+  QUANT_CASE(16)
+  QUANT_CASE(32)
+#undef QUANT_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The span a plan must give: ceil(W / C) bytes rounded up to 4.
+int plan_span(int W, int C) {
+  const int s = (W + C - 1) / C;
+  return (s + 3) / 4 * 4;
 }
 
 }  // namespace
 
-extern "C" int quant_int8_launch(const float* x, int8_t* q, float* scales,
-                                 int K, int L, void* stream) {
-  quant_int8_kernel<<<K, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, q, scales, L);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int quant_int4_launch(const float* x, uint8_t* p, float* scales,
-                                 int K, int L, void* stream) {
-  quant_int4_kernel<<<K, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, p, scales, L);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int quant_int2_launch(const float* x, uint8_t* p, float* scales,
-                                 int K, int L, void* stream) {
-  quant_int2_kernel<<<K, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, p, scales, L);
-  return (int)cudaGetLastError();
+// One launch of K clusters of `cluster` CTAs, each CTA `span` output
+// bytes of its row. `span` comes from the Python plan
+// (kernels/quant.py::quant_plan); a plan this side does not reproduce,
+// or one whose CTA would hold more than kMaxFloats elements a thread, is
+// refused with cudaErrorInvalidValue.
+extern "C" int quant_launch(const float* x, void* out, float* scales,
+                            int K, int L, int bits, int cluster, int span,
+                            void* stream) {
+  if (K < 1 || L < 1 || cluster < 1 || cluster > kMaxCluster ||
+      (cluster & (cluster - 1)) != 0 ||
+      (bits != 8 && bits != 4 && bits != 2))
+    return (int)cudaErrorInvalidValue;
+  const int per = 8 / bits;
+  const int W = (L + per - 1) / per;
+  if (span != plan_span(W, cluster)) return (int)cudaErrorInvalidValue;
+  const int vec = (L % (4 * per) == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (bits == 8)
+    e = dispatch<1>(x, o, scales, K, L, cluster, span, vec, st);
+  else if (bits == 4)
+    e = dispatch<2>(x, o, scales, K, L, cluster, span, vec, st);
+  else
+    e = dispatch<4>(x, o, scales, K, L, cluster, span, vec, st);
+  return (int)e;
 }

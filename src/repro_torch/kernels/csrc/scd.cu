@@ -62,7 +62,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace {
+
+using cluster::mbar_arrive_expect;
+using cluster::mbar_init;
+using cluster::mbar_wait;
+using cluster::smem_addr;
+using cluster::st_async;
 
 constexpr int kConsumerWarps = 8;
 constexpr int kConsumers = 32 * kConsumerWarps;
@@ -70,7 +78,6 @@ constexpr int kThreads = kConsumers + 32;       // + one producer warp
 constexpr int kMaxCluster = 16;
 constexpr int kMaxRing = 8;
 constexpr int kMaxItems = 64;                   // slab <= 64 * kConsumers
-constexpr long long kWaitCycles = 1LL << 34;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -78,94 +85,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("{\n\t.reg .b64 st;\n\t"
                "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}\n"
                :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
-                                                   uint32_t bytes) {
-  asm volatile("{\n\t.reg .b64 st;\n\t"
-               "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t a, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n\t.reg .pred p;\n\t"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-               "selp.u32 %0, 1, 0, p;\n\t}\n"
-               : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// The same, acquiring at cluster scope: the bytes behind the phase were
-// stored by the peers of the cluster.
-__device__ __forceinline__ bool mbar_try_cluster(uint32_t a,
-                                                 uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n\t.reg .pred p;\n\t"
-               "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 "
-               "p, [%1], %2;\n\t"
-               "selp.u32 %0, 1, 0, p;\n\t}\n"
-               : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Spin until the phase of `bar` with parity `parity` has completed. A wait
-// that lasts kWaitCycles (seconds; no step takes that long) is a fault of
-// the pipeline: it traps, so that the launch fails instead of hanging.
-template <bool CLUSTER>
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  if (CLUSTER ? mbar_try_cluster(a, parity) : mbar_try(a, parity)) return;
-  const long long t0 = clock64();
-  while (!(CLUSTER ? mbar_try_cluster(a, parity) : mbar_try(a, parity)))
-    if (clock64() - t0 > kWaitCycles) __trap();
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-
-// The shared::cluster address of `p` in the CTA of rank `rank`.
-__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
-  return out;
-}
-
-// Store one float into a peer's shared memory and complete 4 bytes on the
-// peer's mbarrier.
-__device__ __forceinline__ void st_async(uint32_t addr, float v,
-                                         uint32_t bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
-               "[%0], %1, [%2];\n"
-               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
@@ -229,8 +152,8 @@ scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
   uint64_t* empty = full + P;
   uint64_t* red_bar = empty + P;
 
-  const uint32_t C = cluster_size();
-  const uint32_t rank = cluster_rank();
+  const uint32_t C = cluster::size();
+  const uint32_t rank = cluster::rank();
   const int k = blockIdx.x / C;
   const int lo = min((int)rank * slab, m);
   const int len = min(lo + slab, m) - lo;      // this CTA's rows, maybe 0
@@ -246,11 +169,11 @@ scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
     }
     mbar_init(&red_bar[0], 1);
     mbar_init(&red_bar[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    cluster::fence_mbar_init();
   }
   for (int i = tid; i < n_pad; i += kThreads)
     alpha[i] = alpha_in[(size_t)k * n_pad + i];
-  cluster_sync();   // every CTA's barriers exist before any peer uses them
+  cluster::sync();   // every CTA's barriers exist before any peer uses them
 
   if (warp == kConsumerWarps) {
     // ---- producer warp: keep up to P steps of columns in flight --------
@@ -307,10 +230,10 @@ scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
     // lane q < C of warp 0 sends to the CTA of rank q, by step parity
     uint32_t slot0 = 0u, slot1 = 0u, bar0 = 0u, bar1 = 0u;
     if (warp == 0 && lane < (int)C) {
-      slot0 = peer_addr(&slots[rank], lane);
-      slot1 = peer_addr(&slots[kMaxCluster + rank], lane);
-      bar0 = peer_addr(&red_bar[0], lane);
-      bar1 = peer_addr(&red_bar[1], lane);
+      slot0 = cluster::peer_addr(&slots[rank], lane);
+      slot1 = cluster::peer_addr(&slots[kMaxCluster + rank], lane);
+      bar0 = cluster::peer_addr(&red_bar[0], lane);
+      bar1 = cluster::peer_addr(&red_bar[1], lane);
     }
     float r[ITEMS];                             // rho's rows of this thread
 #pragma unroll
@@ -346,7 +269,8 @@ scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
 #pragma unroll
         for (int o = kConsumerWarps / 2; o > 0; o >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane < (int)C) st_async(p ? slot1 : slot0, v, p ? bar1 : bar0);
+        if (lane < (int)C)
+          st_async(p ? slot1 : slot0, __float_as_uint(v), p ? bar1 : bar0);
         if (lane == 0) mbar_arrive_expect(&red_bar[p], 4u * C);
       }
       mbar_wait<true>(&red_bar[p], (uint32_t)((s >> 1) & 1));
@@ -372,7 +296,7 @@ scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
       for (int i = tid; i < n_pad; i += kConsumers)
         alpha_out[(size_t)k * n_pad + i] = alpha[i];
   }
-  cluster_sync();   // no CTA leaves while a peer may still store into it
+  cluster::sync();   // no CTA leaves while a peer may still store into it
 }
 
 template <int ITEMS>
@@ -388,18 +312,7 @@ cudaError_t configure(int cluster, size_t smem) {
 
 cudaLaunchConfig_t config(int K, int cluster, size_t smem,
                           cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(K * cluster), 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return cluster::config(K * cluster, kThreads, cluster, smem, stream, attr);
 }
 
 template <int ITEMS>

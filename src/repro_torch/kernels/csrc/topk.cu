@@ -1,204 +1,501 @@
-// K4: top-k by magnitude of each row of the (K, L) update stack, one CTA
-// per row, for the topk codec's encode.
+// K4: top-k by magnitude of each row of the (K, L) update stack, one
+// thread-block cluster per row, for the topk codec's encode.
 //
 // Replaces the TPU kernel `_topk_kernel` / `topk_select` in
 // src/repro/kernels/topk.py (pallas_call at :83), which the reference
 // vmaps over workers and which runs k argmax+mask sweeps over a row held
-// in VMEM (O(k*L) work). Here the K rows go in one launch, and each CTA:
+// in VMEM (O(k*L) work). Here the K rows go in one launch.
 //
-//   1. writes |x| of its row as uint32 bit patterns (sign bit cleared)
-//      into shared memory: for non-negative floats integer order is float
-//      order, and -0.0 becomes +0.0 as under jnp.abs;
-//   2. finds the k-th largest pattern T by radix select: four 8-bit
-//      passes, each a 256-bin shared histogram (warp-aggregated atomics)
-//      of the patterns that match the digits chosen so far, and a block
-//      scan of the bins from the top;
-//   3. compacts in index order: every element whose pattern is > T, and
-//      the first k - count(> T) elements whose pattern is == T (a
-//      ballot/popc rank over 1024-element chunks), stored as 64-bit keys
-//      (pattern << 32) | (0xFFFFFFFF - index);
-//   4. sorts the k keys descending with a bitonic network in shared
-//      memory, padded to a power of two with 0 (below every real key):
-//      larger magnitude first and, between equal magnitudes, the lower
-//      index first, which is lax.top_k's order;
-//   5. writes x[index] read from device memory as it is (a -0.0 stays
-//      -0.0), the index, and T as a float: the threshold mags[k-1].
-//
-// It selects and copies and does no arithmetic on the values, so it is
+// The order it must give: larger |x| first and, between equal magnitudes,
+// the lower index first (lax.top_k's order). Every element is ranked by
+// the 64-bit key (|x| bits << 32) | (0xFFFFFFFF - index): for
+// non-negative floats integer order is float order, -0.0 has the pattern
+// of +0.0 as under jnp.abs, and the keys of one row are all distinct. It
+// selects and copies and does no arithmetic on the values, so it is
 // bit-identical to TopKCodec.encode_ref (src/repro/comm/codec.py:450-455)
 // and to the port's plain version (a stable descending torch.sort of |x|).
 //
-// Shared memory: 8*pow2(k) bytes of keys, 4L of patterns, 1 KB of
-// histogram and a few counters: 197,776 B at L = k = 16384, so the kernel
-// opts in above 48 KB. The wrapper refuses a row that needs more than the
-// 227 KB one block may use.
-//
 // What bounds it on an H100: bytes, K*(4L + 8k + 4) of them (655,392 B at
-// K = 8, L = 16384, k = 2048, ~0.2 us at 3.35 TB/s). In practice it is
-// the barriers: 12 in the select, 2 per 1024-element chunk in the
-// compaction and log2(kp)*(log2(kp)+1)/2 in the sort (66 at k = 2048), on
-// only K of the 132 SMs. Spreading a row over a thread-block cluster, and
-// a warp-level select for small k, are left for later work.
+// K = 8, L = 16384, k = 2048, ~0.2 us at 3.35 TB/s). The one-CTA-a-row
+// design ran the whole row on 8 of the 132 SMs through 12 barriers of
+// radix select, 2 per 1024-element chunk of compaction and 66 stages of
+// bitonic sort of all k keys, and took 55.7 us on the device (NVIDIA H100
+// 80GB HBM3, 700 W; chip_smoke.py phase 5).
+//
+// The design: a cluster of C CTAs per row (cudaLaunchKernelEx, grid K*C;
+// kernels/topk.py::topk_plan picks C, the slab S and the shared bytes).
+// CTA rank r owns the elements [r*S, min((r+1)*S, L)) of its row, S a
+// multiple of 4. Each CTA
+//   1. loads its slab once (16-byte loads when L is a multiple of 4 and x
+//      is 16-byte aligned) as |x| bit patterns into shared memory;
+//   2. finds T, the k-th largest pattern of the row, by radix select over
+//      the cluster: four 8-bit passes, each a 256-bin histogram of the
+//      slab's patterns that match the digits chosen so far (plain shared
+//      atomics, not warp-private copies: rows whose patterns spread over
+//      all 256 top digits ran no faster than Gaussian rows, whose first
+//      pass falls in one or two bins), sent to every CTA with 16-byte
+//      st.async into slot r of the
+//      peer's buffer of the pass's parity, completed on the peer's
+//      mbarrier. Each CTA waits on its own mbarrier, sums the C slots of
+//      each bin (integers: exact) and scans them from the top, so every
+//      CTA picks the same digit with one push and one local wait a pass.
+//      A buffer of one parity is written again only two passes later,
+//      after its owner has sent the pass between, which it does only
+//      once it has read the buffer. The same slots give each rank's count
+//      above T (the bins above each pass's digit) and equal to T (the
+//      last pass's bin of T), so every CTA knows every rank's survivors
+//      without another exchange;
+//   3. keeps the ties stable across CTAs: of the take_eq elements equal
+//      to T that the row needs, rank r takes the first
+//      min(eq_r, max(0, take_eq - sum of eq over ranks < r)), in index
+//      order; inside the CTA the survivors are placed by a warp scan and a
+//      block scan of packed (gt, eq) counts, four elements a thread, no
+//      atomic counter;
+//   4. sorts its survivors descending into a run in shared memory (up to
+//      512 of them by counting, for each, the survivors above it; more by
+//      a bitonic sort whose stages of stride below 64 stay inside one
+//      warp's blocks and need only __syncwarp), so that a survivor's place
+//      in its CTA's run is its rank there. After one rendezvous (its arrival
+//      split from its wait) each CTA copies the row's k keys from its
+//      peers' runs, in chunks of up to 4096, into its shared memory (over
+//      the slab's patterns, which are no longer needed), and a thread per
+//      (survivor, peer) pair binary-searches the peer's run for the keys
+//      above the survivor's; integer shared atomics add the C counts to
+//      the survivor's own rank. That is its output position: about
+//      (k/C)·C·log2(k/C) steps a CTA where counting every pair took k^2/C
+//      compares;
+//   5. writes vals[pos] = x[index] read from device memory as it is (a
+//      -0.0 stays -0.0) and idxs[pos] = index; rank 0 writes T as a float,
+//      the threshold mags[k-1]. A last rendezvous, arrived at once the
+//      peers' keys are copied and waited for at the end, keeps every CTA
+//      alive until its peers have read its run.
+// A CTA whose slab is empty still sends its (empty) histograms and meets
+// every rendezvous.
+//
+// Shared memory a CTA: max(4S, 8*min(k, 4096) + 4*P) bytes for the
+// patterns and later the gathered keys and the counts, 2 x 8*P of survivor
+// keys (P the power of two at or above min(S, k)), 2*C KB of received
+// histograms, 2 KB of its own and 512 B of scratch (topk_plan in
+// kernels/topk.py computes the same). The plan refuses a row that needs
+// more than the 227 KB a block may use.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBins = 256;
+constexpr int kGather = 4096;         // keys gathered at a time
+constexpr int kMaxCluster = 16;
+constexpr int kMiscWords = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-int pow2_at_least(int k) {
-  int p = 1;
-  while (p < k) p <<= 1;
-  return p;
-}
+struct Layout {
+  int ocap, gcap;                     // own survivor keys, gathered keys
+  long long own, run, recv, hist, misc, total;   // byte offsets, total
+  __host__ __device__ Layout(int slab, int k, int C) {
+    ocap = 2;                         // a power of two, for the sort
+    while (ocap < min(slab, k)) ocap <<= 1;
+    gcap = (min(k, kGather) + 1) / 2 * 2;
+    const long long ranks = 4LL * ((ocap + 3) / 4 * 4);
+    const long long a = 4LL * slab > 8LL * gcap + ranks
+                            ? 4LL * slab : 8LL * gcap + ranks;
+    own = a;                          // the survivors as compacted
+    run = own + 8LL * ocap;           // the survivors sorted, for peers
+    recv = run + 8LL * ocap;          // 2 parities x C peers x kBins
+    hist = recv + 4LL * 2 * C * kBins;
+    misc = hist + 4LL * 2 * kBins;
+    total = misc + 4LL * kMiscWords;
+  }
+};
 
-long long shared_bytes(int L, int k) {
-  return 8LL * pow2_at_least(k) + 4LL * L + 4LL * (kBins + kWarps + 4);
+__device__ __forceinline__ uint32_t warp_incl_scan(uint32_t v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
             int32_t* __restrict__ idxs, float* __restrict__ thr, int L,
-            int k, int kp) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* keys = smem;                          // kp
-  uint32_t* pat = reinterpret_cast<uint32_t*>(keys + kp);   // L
-  uint32_t* hist = pat + L;                                 // kBins
-  uint32_t* warp_tot = hist + kBins;                        // kWarps
-  // misc[0]: the digits of T chosen so far; misc[1]: how many elements
-  // equal to that prefix still have to be taken; misc[2]: keys written
-  uint32_t* misc = warp_tot + kWarps;
-
-  const int row = blockIdx.x;
+            int k, int slab, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t C = cluster::size();
+  const uint32_t rank = cluster::rank();
+  const Layout lay(slab, k, (int)C);
+  uint32_t* pat = reinterpret_cast<uint32_t*>(smem);          // slab
+  unsigned long long* gath = reinterpret_cast<unsigned long long*>(smem);
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(smem + 8LL * lay.gcap);
+  unsigned long long* own =
+      reinterpret_cast<unsigned long long*>(smem + lay.own);
+  unsigned long long* run =
+      reinterpret_cast<unsigned long long*>(smem + lay.run);
+  uint32_t* recv = reinterpret_cast<uint32_t*>(smem + lay.recv);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(smem + lay.hist);
+  uint32_t* misc = reinterpret_cast<uint32_t*>(smem + lay.misc);
+  uint32_t* wtot = misc;              // 2 x kWarps packed (gt, eq) counts
+  uint32_t* stot = misc + 32;         // 8 warps' totals of the bin scan
+  uint32_t* sown = misc + 40;         // the same for the CTA's own bins
+  uint32_t* offs = misc + 48;         // kMaxCluster + 1 survivor offsets
+  // st[0] the digits of T so far, st[1] how many == prefix still needed,
+  // st[2] how many == T this CTA takes
+  uint32_t* st = misc + 72;
+  uint32_t* gtq = misc + 80;          // each rank's count above T
+  uint64_t* got = reinterpret_cast<uint64_t*>(misc + 96);  // 2 parities
+  const int row = blockIdx.x / C;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int lo = min((int)rank * slab, L);
+  const int len = min(lo + slab, L) - lo;          // maybe 0
   const float* xr = x + (size_t)row * L;
 
-  for (int i = tid; i < L; i += kThreads)
-    pat[i] = __float_as_uint(xr[i]) & 0x7FFFFFFFu;
-  for (int j = k + tid; j < kp; j += kThreads) keys[j] = 0ull;
+  // the mbarriers the peers' histograms complete on; the rendezvous that
+  // makes them visible to the peers is waited for just before the first
+  // send, so the load overlaps it
   if (tid == 0) {
-    misc[0] = 0u;
-    misc[1] = (uint32_t)k;
-    misc[2] = 0u;
+    cluster::mbar_init(&got[0], 1);
+    cluster::mbar_init(&got[1], 1);
+    cluster::fence_mbar_init();
   }
+  cluster::arrive();
 
-  // -- 2. radix select of T, the k-th largest pattern ------------------
-  uint32_t mask = 0u;          // the digits of the prefix fixed so far
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = tid; b < kBins; b += kThreads) hist[b] = 0u;
-    __syncthreads();
-    const uint32_t prefix = misc[0];
-    const uint32_t need = misc[1];
-    // the loop bound is the same for every thread, so whole warps
-    // reach the match
-    for (int base = 0; base < L; base += kThreads) {
-      const int i = base + tid;
-      int digit = -1;
-      if (i < L && (pat[i] & mask) == prefix)
-        digit = (int)((pat[i] >> shift) & 0xFFu);
-      const unsigned peers = __match_any_sync(kFull, digit);
-      if (digit >= 0 && lane == __ffs(peers) - 1)
-        atomicAdd(&hist[digit], (uint32_t)__popc(peers));
+  // -- 1. the slab's patterns -------------------------------------------
+  if (vec) {
+    const float4* src = reinterpret_cast<const float4*>(xr + lo);
+    for (int i = tid; 4 * i < len; i += kThreads) {
+      const float4 f = src[i];
+      reinterpret_cast<uint4*>(pat)[i] =
+          make_uint4(__float_as_uint(f.x) & 0x7FFFFFFFu,
+                     __float_as_uint(f.y) & 0x7FFFFFFFu,
+                     __float_as_uint(f.z) & 0x7FFFFFFFu,
+                     __float_as_uint(f.w) & 0x7FFFFFFFu);
     }
-    __syncthreads();
-    // threads 0..255 take the bins from the top (thread t: digit 255-t)
-    // and scan their counts; the thread whose running count first
-    // reaches `need` holds the next digit of T
-    uint32_t c = 0u, incl = 0u;
-    if (tid < kBins) {
-      c = hist[kBins - 1 - tid];
-      incl = c;
+  } else {
+    for (int i = tid; i < len; i += kThreads)
+      pat[i] = __float_as_uint(xr[lo + i]) & 0x7FFFFFFFu;
+  }
+  for (int b = tid; b < 2 * kBins; b += kThreads) hist[b] = 0u;
+  if (tid < kMaxCluster) gtq[tid] = 0u;
+  if (tid == 0) {
+    st[0] = 0u;
+    st[1] = (uint32_t)k;
+  }
+  __syncthreads();
+
+  // -- 2. radix select of T over the cluster ----------------------------
+  uint32_t mask = 0u;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    const int p = pass & 1;
+    uint32_t* h = hist + p * kBins;
+    uint32_t* in = recv + p * (int)C * kBins;
+    const uint32_t prefix = st[0];
+    if (pass > 0) {
+      // the ranks above T's digit of the last pass, in each peer's bins
+      // (stable until this CTA sends this pass's histogram)
+      const int dl = (int)((prefix >> (shift + 8)) & 0xFFu);
+      if (warp < (int)C) {
+        const uint32_t* b = recv + (p ^ 1) * (int)C * kBins + warp * kBins;
+        uint32_t a = 0u;
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t v = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += v;
+        for (int j = 0; j < kBins / 32; ++j) {
+          const int d = lane * (kBins / 32) + j;
+          a += d > dl ? b[d] : 0u;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
+        if (lane == 0) gtq[warp] += a;
       }
-      if (lane == 31) warp_tot[warp] = incl;
+    }
+    for (int i = tid; i < len; i += kThreads) {
+      const uint32_t u = pat[i];
+      if ((u & mask) == prefix) atomicAdd(&h[(u >> shift) & 0xFFu], 1u);
+    }
+    __syncthreads();
+    if (pass == 0) cluster::wait();   // every peer's mbarriers exist
+    // send the histogram to every CTA (slot `rank` of its buffer of this
+    // parity), 16 bytes at a time, completing on its mbarrier
+    for (int t = tid; t < (int)C * (kBins / 4); t += kThreads) {
+      const int q = t / (kBins / 4);
+      const int c4 = t % (kBins / 4);
+      const uint4 v = reinterpret_cast<const uint4*>(h)[c4];
+      cluster::st_async(
+          cluster::peer_addr(in + rank * kBins + 4 * c4, q), v,
+          cluster::peer_addr(&got[p], q));
+    }
+    if (tid == 0) cluster::mbar_arrive_expect(&got[p], 4u * kBins * C);
+    cluster::mbar_wait<true>(&got[p], (uint32_t)((pass >> 1) & 1));
+    const uint32_t need = st[1];
+    // threads 0..255 take the bins from the top (thread t: digit 255-t)
+    const int d = kBins - 1 - tid;
+    uint32_t c = 0u, co = 0u, incl = 0u, inco = 0u;
+    if (tid < kBins) {
+      uint32_t part[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q)
+        part[q] = q < (int)C ? in[q * kBins + d] : 0u;
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q) c += part[q];
+      co = h[d];
+      incl = warp_incl_scan(c, lane);
+      inco = warp_incl_scan(co, lane);
+      if (lane == 31) {
+        stot[warp] = incl;
+        sown[warp] = inco;
+      }
+      hist[(p ^ 1) * kBins + tid] = 0u;   // the next pass's histogram
     }
     __syncthreads();
     if (tid < kBins) {
-      for (int w = 0; w < warp; ++w) incl += warp_tot[w];
+      for (int w = 0; w < warp; ++w) {
+        incl += stot[w];
+        inco += sown[w];
+      }
+      // the bin where the running count from the top first reaches
+      // `need` holds the next digit of T
       if (incl >= need && incl - c < need) {
-        misc[0] = prefix | ((uint32_t)(kBins - 1 - tid) << shift);
-        misc[1] = need - (incl - c);
+        st[0] = prefix | ((uint32_t)d << shift);
+        st[1] = need - (incl - c);
       }
     }
     mask |= 0xFFu << shift;
     __syncthreads();
   }
-  const uint32_t T = misc[0];
-  const uint32_t take_eq = misc[1];      // >= 1
-
-  // -- 3. stable compaction of the k survivors -------------------------
-  uint32_t eq_seen = 0u;                 // == T in earlier chunks
-  for (int base = 0; base < L; base += kThreads) {
-    const int i = base + tid;
-    const uint32_t p = (i < L) ? pat[i] : 0u;
-    const bool gt = i < L && p > T;
-    const bool eq = i < L && p == T;
-    const unsigned ball = __ballot_sync(kFull, eq);
-    if (lane == 0) warp_tot[warp] = (uint32_t)__popc(ball);
-    __syncthreads();
-    uint32_t rank = eq_seen + (uint32_t)__popc(ball & ((1u << lane) - 1u));
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t t = warp_tot[w];
-      if (w < warp) rank += t;
-      eq_seen += t;
+  const uint32_t T = st[0];
+  const uint32_t take_eq = st[1];          // >= 1
+  {
+    // the ranks above T in the last pass (buffer 1: pass 3)
+    const int dl = (int)(T & 0xFFu);
+    if (warp < (int)C) {
+      const uint32_t* b = recv + (int)C * kBins + warp * kBins;
+      uint32_t a = 0u;
+#pragma unroll
+      for (int j = 0; j < kBins / 32; ++j) {
+        const int d = lane * (kBins / 32) + j;
+        a += d > dl ? b[d] : 0u;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
+      if (lane == 0) gtq[warp] += a;
     }
-    if (gt || (eq && rank < take_eq)) {
-      const uint32_t slot = atomicAdd(&misc[2], 1u);
-      keys[slot] = ((unsigned long long)p << 32) | (0xFFFFFFFFu - (uint32_t)i);
-    }
-    __syncthreads();                     // before warp_tot is rewritten
   }
+  __syncthreads();
 
-  // -- 4. bitonic sort of the keys, descending -------------------------
-  for (int size = 2; size <= kp; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int j = tid; j < (kp >> 1); j += kThreads) {
-        const int lo = 2 * j - (j & (stride - 1));
-        const int hi = lo + stride;
-        const unsigned long long a = keys[lo], b = keys[hi];
-        const bool desc = (lo & size) == 0;
-        if (desc ? (a < b) : (a > b)) {
-          keys[lo] = b;
-          keys[hi] = a;
+  // -- 3. this CTA's share of the ties, and its survivors ---------------
+  // every rank's count of == T is its last-pass bin of T's low digit;
+  // lane q of warp 0 works out rank q's share of the ties and survivors,
+  // and their offsets in the row's survivor list
+  if (warp == 0) {
+    uint32_t e = 0u, n = 0u;
+    if (lane < (int)C) e = recv[(int)C * kBins + lane * kBins + (T & 0xFFu)];
+    const uint32_t e_incl = warp_incl_scan(e, lane);
+    const uint32_t before = e_incl - e;
+    const uint32_t left = take_eq > before ? take_eq - before : 0u;
+    const uint32_t take = e < left ? e : left;
+    if (lane < (int)C) n = gtq[lane] + take;
+    const uint32_t n_incl = warp_incl_scan(n, lane);
+    if (lane < (int)C) {
+      offs[lane + 1] = n_incl;
+      if (lane == (int)rank) st[2] = take;
+    }
+    if (lane == 0) offs[0] = 0u;
+  }
+  __syncthreads();
+  const uint32_t take_r = st[2];
+  const uint32_t n_own = offs[rank + 1] - offs[rank];
+
+  uint32_t run_gt = 0u, run_eq = 0u;
+  for (int base = 0, par = 0; base < len;
+       base += 4 * kThreads, par ^= 1) {
+    const int i0 = base + 4 * tid;
+    uint32_t u[4];
+    uint32_t g = 0u, e = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      u[j] = i0 + j < len ? pat[i0 + j] : 0u;
+      g += (i0 + j < len && u[j] > T) ? 1u : 0u;
+      e += (i0 + j < len && u[j] == T) ? 1u : 0u;
+    }
+    // (gt, eq) counts packed in one word: at most 4 * kThreads each
+    const uint32_t mine = g | (e << 16);
+    const uint32_t incl = warp_incl_scan(mine, lane);
+    if (lane == 31) wtot[par * kWarps + warp] = incl;
+    __syncthreads();
+    uint32_t before = incl - mine, total = 0u;
+    for (int w = 0; w < kWarps; ++w) {
+      const uint32_t t = wtot[par * kWarps + w];
+      if (w < warp) before += t;
+      total += t;
+    }
+    uint32_t gb = run_gt + (before & 0xFFFFu);
+    uint32_t eb = run_eq + (before >> 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + j >= len) break;
+      const unsigned long long key =
+          ((unsigned long long)u[j] << 32) |
+          (0xFFFFFFFFu - (uint32_t)(lo + i0 + j));
+      if (u[j] > T) {
+        own[gb + (eb < take_r ? eb : take_r)] = key;
+        ++gb;
+      } else if (u[j] == T) {
+        if (eb < take_r) own[gb + eb] = key;
+        ++eb;
+      }
+    }
+    run_gt += total & 0xFFFFu;
+    run_eq += total >> 16;
+  }
+  // sort the survivors descending into `run`, so that a survivor's place
+  // in the CTA's run is its rank among the CTA's own survivors. Up to
+  // kThreads of them, a thread a survivor counts the keys above its own
+  // (n^2 compares of broadcast reads, no barrier); more take a bitonic
+  // sort in place, padded to a power of two with 0 (below every real
+  // key), and a copy. Both give the same run: the keys are distinct.
+  __syncthreads();
+  if ((int)n_own <= kThreads) {
+    if (tid < (int)n_own) {
+      const unsigned long long key = own[tid];
+      uint32_t above = 0u;
+      int j = 0;
+      for (; j + 8 <= (int)n_own; j += 8) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) above += own[j + u] > key ? 1u : 0u;
+      }
+      for (; j < (int)n_own; ++j) above += own[j] > key ? 1u : 0u;
+      run[above] = key;
+    }
+  } else {
+    int pw = 2;
+    while (pw < (int)n_own) pw <<= 1;
+    for (int i = (int)n_own + tid; i < pw; i += kThreads) own[i] = 0ull;
+    __syncthreads();
+    // A stage of stride < 64 pairs keys inside aligned blocks of 64, and
+    // pair j lies in block j / 32: with pairs dealt out to the warps 32
+    // at a time, each warp keeps the same blocks over those stages and
+    // needs only __syncwarp between them; a wider stride takes the CTA.
+    for (int size = 2; size <= pw; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int j = tid; j < (pw >> 1); j += kThreads) {
+          const int a = 2 * j - (j & (stride - 1));
+          const int b = a + stride;
+          const unsigned long long ka = own[a], kb = own[b];
+          if ((a & size) == 0 ? ka < kb : ka > kb) {
+            own[a] = kb;
+            own[b] = ka;
+          }
+        }
+        if (stride >= 64 || (stride == 1 && size * 2 <= pw &&
+                             size * 2 > 64))
+          __syncthreads();
+        else
+          __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int o = tid; o < (int)n_own; o += kThreads) run[o] = own[o];
+  }
+  __syncthreads();
+  cluster::arrive();                  // this CTA's sorted run is written
+  // the patterns are read for good: their space takes the counts
+  for (int o = tid; o < (int)n_own; o += kThreads) cnt[o] = (uint32_t)o;
+
+  // -- 4. rank against the other CTAs' sorted runs -----------------------
+  cluster::wait();
+  for (int c0 = 0; c0 < k; c0 += lay.gcap) {
+    const int n = min(lay.gcap, k - c0);
+    // up to four remote reads in flight a thread
+    for (int g0 = tid; g0 < n; g0 += 4 * kThreads) {
+      unsigned long long v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int g = g0 + u * kThreads;
+        v[u] = 0ull;
+        if (g < n) {
+          const uint32_t gg = (uint32_t)(c0 + g);
+          int q = 0;
+          while (q + 1 < (int)C && offs[q + 1] <= gg) ++q;
+          v[u] = cluster::ld_u64(cluster::peer_addr(&run[gg - offs[q]], q));
         }
       }
-      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (g0 + u * kThreads < n) gath[g0 + u * kThreads] = v[u];
     }
+    __syncthreads();
+    if (c0 + lay.gcap >= k) cluster::arrive();   // done with the peers' keys
+    // one (survivor, peer) pair a thread: a binary search for the number
+    // of keys above the survivor's in the part of the peer's descending
+    // run that this chunk holds
+    for (int w = tid; w < (int)n_own * (int)C; w += kThreads) {
+      const int o = w % (int)n_own;
+      const int q = w / (int)n_own;
+      if (q == (int)rank) continue;
+      const int s0 = max((int)offs[q], c0) - c0;
+      const int s1 = min((int)offs[q + 1], c0 + n) - c0;
+      if (s0 >= s1) continue;
+      const unsigned long long key = run[o];
+      int lo = s0, len = s1 - s0;
+      while (len > 0) {
+        const int half = len >> 1;
+        if (gath[lo + half] > key) {
+          lo += half + 1;
+          len -= half + 1;
+        } else {
+          len = half;
+        }
+      }
+      if (lo > s0) atomicAdd(&cnt[o], (uint32_t)(lo - s0));
+    }
+    __syncthreads();
   }
 
-  // -- 5. read out -----------------------------------------------------
-  for (int j = tid; j < k; j += kThreads) {
-    const uint32_t i = 0xFFFFFFFFu - (uint32_t)(keys[j] & 0xFFFFFFFFull);
-    vals[(size_t)row * k + j] = xr[i];
-    idxs[(size_t)row * k + j] = (int32_t)i;
+  // -- 5. read out --------------------------------------------------------
+  for (int o = tid; o < (int)n_own; o += kThreads) {
+    const uint32_t pos = cnt[o];
+    const uint32_t i = 0xFFFFFFFFu - (uint32_t)(run[o] & 0xFFFFFFFFull);
+    vals[(size_t)row * k + pos] = xr[i];
+    idxs[(size_t)row * k + pos] = (int32_t)i;
   }
-  if (tid == 0) thr[row] = __uint_as_float(T);
+  if (rank == 0 && tid == 0) thr[row] = __uint_as_float(T);
+  cluster::wait();    // no CTA leaves while a peer may still read its keys
+}
+
+// The slab a plan must give: ceil(L / cluster) rounded up to 4.
+int plan_slab(int L, int cluster) {
+  const int s = (L + cluster - 1) / cluster;
+  return (s + 3) / 4 * 4;
 }
 
 }  // namespace
 
-// Dynamic shared memory one CTA needs for a row of length L and k kept
-// entries. The wrapper checks it against the 227 KB a block may use.
-extern "C" long long topk_shared_bytes(int L, int k) {
-  return shared_bytes(L, k);
-}
-
+// One launch of K clusters of `cluster` CTAs. `slab` and `smem` come from
+// the Python plan (kernels/topk.py::topk_plan); a plan this side does not
+// reproduce is refused with cudaErrorInvalidValue.
 extern "C" int topk_launch(const float* x, float* vals, int32_t* idxs,
-                           float* thr, int K, int L, int k, void* stream) {
-  if (K < 1 || L < 1 || k < 1 || k > L) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)shared_bytes(L, k);
-  cudaError_t e = cudaFuncSetAttribute(
-      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                           float* thr, int K, int L, int k, int cluster,
+                           int slab, long long smem, void* stream) {
+  if (K < 1 || L < 1 || k < 1 || k > L || cluster < 1 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+      slab != plan_slab(L, cluster) ||
+      smem != Layout(slab, k, cluster).total)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cluster::allow<topk_kernel>((size_t)smem);
   if (e != cudaSuccess) return (int)e;
-  topk_kernel<<<K, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, vals, idxs, thr, L, k, pow2_at_least(k));
+  const int vec = (L % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg =
+      cluster::config(K * cluster, kThreads, cluster, (size_t)smem,
+                      static_cast<cudaStream_t>(stream), attr);
+  e = cudaLaunchKernelEx(&cfg, topk_kernel, x, vals, idxs, thr, L, k, slab,
+                         vec);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """K2: absmax quantize of the (K, L) update stack for the int8, int4 and
-int2 codecs, as hand-written CUDA kernels (``csrc/quant.cu``), one CTA
-per row.
+int2 codecs, as one hand-written CUDA kernel in three widths
+(``csrc/quant.cu``), a thread-block cluster per row.
 
 Replaces the TPU kernels of ``repro.kernels.quant``, which the reference
 runs once per worker under ``vmap``; here the K rows go in one launch:
@@ -17,8 +17,12 @@ runs once per worker under ``vmap``; here the K rows go in one launch:
     with ``i + q``, ``i + 2q``, ``i + 3q``, ``q = ceil(L/4)``).
 
 Bound on the H100: bytes, K*(4L + payload + 4) of them; at the main
-path's K = 8, L = 16384 that is 0.56-0.66 MB, and the launch latency
-dominates.
+path's K = 8, L = 16384 that is 0.56-0.66 MB (about 0.2 us), and latency
+dominates. Each row is a cluster of C CTAs: CTA rank r packs the output
+bytes ``[r*span, (r+1)*span)`` (cut at the row's byte count) from the
+elements they pair, read once into registers, and each CTA pushes its
+absmax to every peer's shared memory (``st.async``), so the row's absmax
+costs one push and one local wait. ``quant_plan`` picks C.
 
 The plain versions ``quantize_pack_int{8,4,2}_ref`` are the port's
 copies of ``Int{8,4,2}Codec.encode_ref`` run op by op, and each kernel is
@@ -29,12 +33,13 @@ reciprocal instead, which is not the IEEE quotient the reference takes.
 a multiply, so its jitted int4 scale can sit one ulp from the eager one;
 the port holds the eager reference.)
 
-Each wrapper takes the plain version for a CPU tensor and launches its
+Each wrapper takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; its ``.launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -43,6 +48,63 @@ from repro_torch.comm.codec import (INT2_QMAX, INT2_SCALE_MUL, INT4_QMAX,
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LAUNCH = [_P, _P, _P] + [_I] * 5 + [_P]
+
+CLUSTERS = (16, 8, 4, 2, 1)      # cluster sizes, largest first
+THREADS = 256                    # a CTA (csrc/quant.cu kThreads)
+# elements a CTA reads at most: 128 registers of x a thread
+SLAB_MAX = 128 * THREADS
+# elements a CTA should read before a wider cluster pays: the row's
+# absmax costs a push to every peer, and 16 CTAs of 1024 elements ran
+# slower than 8 of 2048 on an H100
+SLAB_MIN = 2048
+
+
+@dataclass(frozen=True)
+class QuantPlan:
+    cluster: int        # C, CTAs per row
+    span: int           # output bytes per CTA, a multiple of 4
+    slab: int           # elements a CTA reads: span * (8 // bits)
+
+
+def byte_span(n_bytes: int, cluster: int) -> int:
+    """ceil(n_bytes / cluster) rounded up to 4, so that every CTA but the
+    last stores whole 4-byte words."""
+    span = -(-n_bytes // cluster)
+    return -(-span // 4) * 4
+
+
+def quant_plan(K: int, L: int, bits: int, cluster: int | None = None
+               ) -> QuantPlan:
+    """C and the bytes and elements of one CTA for K rows of L elements
+    at ``bits`` bits a code.
+
+    Without ``cluster``: the largest C of ``CLUSTERS`` whose CTAs each
+    read at least ``SLAB_MIN`` elements (C = 1 for a short row). With
+    ``cluster``: that C. Raises ``ValueError`` with the numbers when a
+    CTA would read more than ``SLAB_MAX`` elements.
+    """
+    if K < 1 or L < 1:
+        raise ValueError(f"quant_plan: empty stack K={K}, L={L}")
+    if bits not in (8, 4, 2):
+        raise ValueError(f"quant_plan: bits must be 8, 4 or 2, got {bits}")
+    if cluster is not None and cluster not in CLUSTERS:
+        raise ValueError(f"quant_plan: cluster must be one of {CLUSTERS}, "
+                         f"got {cluster}")
+    per = 8 // bits
+    W = -(-L // per)
+    if cluster is None:
+        cluster = next((c for c in CLUSTERS
+                        if byte_span(W, c) * per >= SLAB_MIN), 1)
+    span = byte_span(W, cluster)
+    plan = QuantPlan(cluster, span, span * per)
+    if plan.slab > SLAB_MAX:
+        raise ValueError(
+            f"quantize_pack_int{bits}: a row of L={L} at C={cluster} CTAs "
+            f"gives each CTA {plan.slab} elements; a CTA holds at most "
+            f"{SLAB_MAX} ({SLAB_MAX // THREADS} registers a thread), so a "
+            f"row may have at most {SLAB_MAX * CLUSTERS[0]} elements")
+    return plan
 
 
 def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -118,56 +180,58 @@ def quantize_pack_int2_ref(x: torch.Tensor
     return _out(x, packed.to(torch.uint8), scale)
 
 
-def _launch(x: torch.Tensor, what: str, launcher: str, dtype: torch.dtype,
-            per_byte: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Validate ``x``, allocate the payload and scales, launch
-    ``launcher`` on the current stream and raise if it was refused."""
+def _launch(x: torch.Tensor, what: str, bits: int, dtype: torch.dtype,
+            cluster: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Validate ``x``, plan, allocate the payload and scales, launch the
+    kernel on the current stream and raise if it was refused."""
     _build.require_cuda(x, what)
     rows = _rows(x, what)
     K, L = rows.shape
     _build.require(rows, "x", dtype=torch.float32, shape=(K, L),
                    device=x.device)
-    fn = _build.function(launcher, [_P, _P, _P, _I, _I, _P])
-    payload = torch.empty((K, -(-L // per_byte)), dtype=dtype,
+    plan = quant_plan(K, L, bits, cluster)
+    fn = _build.function("quant_launch", _LAUNCH)
+    payload = torch.empty((K, -(-L // (8 // bits))), dtype=dtype,
                           device=x.device)
     scale = torch.empty((K,), dtype=torch.float32, device=x.device)
     err = fn(rows.data_ptr(), payload.data_ptr(), scale.data_ptr(), K, L,
-             _build.stream_ptr(x.device))
-    _build.check_launch(err, launcher)
+             bits, plan.cluster, plan.span, _build.stream_ptr(x.device))
+    _build.check_launch(err, "quant_launch")
     return _out(x, payload, scale)
 
 
-def quantize_pack_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_pack_int8(x: torch.Tensor, cluster: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 encode of a (L,) update or a (K, L) stack of them, through
     K2 on the card (the plain version on the CPU); bit-identical to
     ``Int8Codec.encode_ref``."""
     if x.device.type == "cpu":
         return quantize_pack_int8_ref(x)
-    out = _launch(x, "quantize_pack_int8", "quant_int8_launch", torch.int8, 1)
+    out = _launch(x, "quantize_pack_int8", 8, torch.int8, cluster)
     quantize_pack_int8.launches += 1
     return out
 
 
-def quantize_pack_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_pack_int4(x: torch.Tensor, cluster: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """int4 encode of a (L,) update or a (K, L) stack of them, through
     K2's int4 kernel on the card (the plain version on the CPU);
     bit-identical to the eager ``Int4Codec.encode_ref``."""
     if x.device.type == "cpu":
         return quantize_pack_int4_ref(x)
-    out = _launch(x, "quantize_pack_int4", "quant_int4_launch", torch.uint8,
-                  2)
+    out = _launch(x, "quantize_pack_int4", 4, torch.uint8, cluster)
     quantize_pack_int4.launches += 1
     return out
 
 
-def quantize_pack_int2(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_pack_int2(x: torch.Tensor, cluster: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """int2 encode of a (L,) update or a (K, L) stack of them, through
     K2's int2 kernel on the card (the plain version on the CPU);
     bit-identical to ``Int2Codec.encode_ref``."""
     if x.device.type == "cpu":
         return quantize_pack_int2_ref(x)
-    out = _launch(x, "quantize_pack_int2", "quant_int2_launch", torch.uint8,
-                  4)
+    out = _launch(x, "quantize_pack_int2", 2, torch.uint8, cluster)
     quantize_pack_int2.launches += 1
     return out
 

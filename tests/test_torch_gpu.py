@@ -16,7 +16,7 @@ from repro_torch.core.solvers import scd_steps
 from repro_torch.kernels import dequant, quant
 from repro_torch.kernels.dequant import decode_reduce_int8, decode_reduce_int8_ref
 from repro_torch.kernels.quant import quantize_pack_int8, quantize_pack_int8_ref
-from repro_torch.kernels import _build, scd
+from repro_torch.kernels import _build, scd, topk
 from repro_torch.kernels.scd import scd_solve
 from repro_torch.kernels.topk import topk_select, topk_select_ref
 
@@ -362,20 +362,32 @@ def test_topk_kernel_refuses_what_it_cannot_take(cuda):
         topk_select(x.double(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         topk_select(torch.randn((64, 2), device=cuda).t(), 4)
+    # a row of 60000 fits a cluster of 16 slabs now; one of 10^6 needs
+    # more than 227 KB a CTA even at C = 16, and one of 20000 keeping
+    # all 20000 more than 227 KB at C = 1
     with pytest.raises(ValueError, match="shared memory"):
-        topk_select(torch.zeros((1, 60000), device=cuda), 1)
+        topk_select(torch.zeros((1, 1_000_000), device=cuda), 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk_select(torch.zeros((1, 20000), device=cuda), 20000, cluster=1)
 
 
 def test_topk_launch_failure_raises(cuda):
     """A launch the runtime refuses (here zero rows) comes back as a
     RuntimeError, not as a silent no-op."""
     fn = _build.function("topk_launch", [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                         + [ctypes.c_int] * 5 + [ctypes.c_longlong,
+                                                 ctypes.c_void_p])
     out = torch.empty(4, device=cuda)
-    err = fn(out.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(),
-             0, 4, 1, _build.stream_ptr(cuda))
-    with pytest.raises(RuntimeError, match="topk_launch"):
-        _build.check_launch(err, "topk_launch")
+    plan = topk.topk_plan(1, 4, 1)
+    ptrs = [out.data_ptr()] * 4
+    # zero rows, then a plan the C side does not reproduce (slab, bytes)
+    for K, slab, smem in ((0, plan.slab, plan.shared_bytes),
+                          (1, plan.slab + 4, plan.shared_bytes),
+                          (1, plan.slab, plan.shared_bytes + 16)):
+        err = fn(*ptrs, K, 4, 1, plan.cluster, slab, smem,
+                 _build.stream_ptr(cuda))
+        with pytest.raises(RuntimeError, match="topk_launch"):
+            _build.check_launch(err, "topk_launch")
 
 
 def test_build_failure_raises(cuda, tmp_path, monkeypatch):
@@ -411,3 +423,172 @@ def test_ef_topk_encode_with_state_card_matches_cpu(cuda):
         assert _bits(st_g.cpu()).equal(_bits(st_c))
         for reduce in (codec.decode_stacked_sum, codec.decode_stacked_mean):
             assert _bits(reduce(p_g, L).cpu()).equal(_bits(reduce(p_c, L)))
+
+
+# -- K2 and K4 as clusters of C CTAs a row ---------------------------------
+
+CODEC_CLUSTERS = [None, 16, 8, 4, 2, 1]
+WIDTHS = {"int8": 8, "int4": 4, "int2": 2}
+
+
+def _quant_lengths(cluster):
+    """Lengths that straddle the CTAs' byte ranges (C*s +- 1 at the span
+    s the plan gives), leave some CTAs of a 16-cluster empty (1, 2, 3, 5),
+    are odd or not a multiple of 4, and the main path's 16384."""
+    c = cluster or 16
+    return sorted({1, 2, 3, 5, 7, 6, 10, 4 * c - 1, 4 * c + 1,
+                   1024 * c - 1, 1024 * c, 1024 * c + 1, 4097, 16384})
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_quant_cluster_kernel_bit_identical(cuda, name, cluster):
+    enc = getattr(quant, f"quantize_pack_{name}")
+    ref = getattr(quant, f"quantize_pack_{name}_ref")
+    for L in _quant_lengths(cluster):
+        g = torch.Generator(device=cuda).manual_seed(L)
+        x = torch.randn((3, L), generator=g, device=cuda)
+        x[1] *= 1e-6
+        x[2, :] = 0.0                                   # an all-zero row
+        x[2, L // 2] = -2.5                             # one nonzero
+        before = enc.launches
+        pk, sk = enc(x, cluster=cluster)
+        assert enc.launches == before + 1
+        pp, sp = ref(x)
+        assert pk.dtype == pp.dtype and pk.equal(pp), (L, cluster)
+        assert _bits(sk).equal(_bits(sp)), (L, cluster)
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_quant_cluster_kernel_unaligned_rows(cuda, name, cluster):
+    """x 4 bytes off a 16-byte boundary: the element-by-element loads."""
+    enc = getattr(quant, f"quantize_pack_{name}")
+    buf = torch.randn(2 * 4096 + 1, device=cuda)
+    x = buf[1:].view(2, 4096)
+    assert x.data_ptr() % 16 == 4
+    pk, sk = enc(x, cluster=cluster)
+    pp, sp = getattr(quant, f"quantize_pack_{name}_ref")(x)
+    assert pk.equal(pp) and _bits(sk).equal(_bits(sp))
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_quant_cluster_kernel_main_shape_plans_a_cluster(cuda, name):
+    plan = quant.quant_plan(8, 16384, WIDTHS[name])
+    assert plan.cluster > 1
+    x = torch.randn((8, 16384), device=cuda)
+    enc = getattr(quant, f"quantize_pack_{name}")
+    first, second = enc(x), enc(x)                  # two launches
+    assert first[0].equal(second[0])
+    assert _bits(first[1]).equal(_bits(second[1]))
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_quant_cluster_kernel_refuses_a_row_over_its_registers(cuda, name):
+    enc = getattr(quant, f"quantize_pack_{name}")
+    before = enc.launches
+    with pytest.raises(ValueError, match="at most"):
+        enc(torch.zeros((1, 16 * quant.SLAB_MAX + 1), device=cuda))
+    with pytest.raises(ValueError, match="at most"):
+        enc(torch.zeros((1, quant.SLAB_MAX + 4), device=cuda), cluster=1)
+    assert enc.launches == before
+
+
+def _topk_check(x, k, cluster):
+    """K4 at ``cluster`` against the plain version, or, where that cluster
+    does not fit, a ValueError and no launch."""
+    before = topk_select.launches
+    try:
+        topk.topk_plan(1, x.shape[-1], k, cluster)
+    except ValueError:
+        with pytest.raises(ValueError, match="shared memory"):
+            topk_select(x, k, cluster=cluster)
+        assert topk_select.launches == before
+        return
+    got = topk_select(x, k, cluster=cluster)
+    assert topk_select.launches == before + 1
+    _assert_topk_equal(got, topk_select_ref(x, k))
+
+
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+@pytest.mark.parametrize("kind", ["normal", "zeros", "equal", "pm",
+                                  "ties", "negzero"])
+def test_topk_cluster_kernel_bit_identical(cuda, cluster, kind):
+    """Lengths that straddle the slabs (C*s +- 1) and leave CTAs empty
+    (1, 2, 3, 5); rows whose ties straddle the CTAs (all equal, all
+    zero, +x/-x pairs, integers in [-3, 3]) and -0.0 entries; k in
+    {1, ceil(L/8), L}."""
+    c = cluster or 16
+    for L in sorted({1, 2, 3, 5, 4 * c - 1, 4 * c + 1, 1024 * c - 1,
+                     1024 * c + 1, 4097}):
+        g = torch.Generator(device=cuda).manual_seed(L)
+        if kind == "equal":
+            x = torch.full((2, L), 1.5, device=cuda)
+        elif kind == "pm":             # +1.5 and -1.5 alternating
+            x = torch.full((2, L), 1.5, device=cuda)
+            x[:, 1::2] = -1.5
+        else:
+            x = torch.stack([_topk_row(kind, L, g, cuda) for _ in range(2)])
+        for k in sorted({1, -(-L // 8), L}):
+            _topk_check(x, k, cluster)
+
+
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_topk_cluster_kernel_zero_rows_take_the_first_indices(cuda, cluster):
+    x = torch.zeros((3, 4097), device=cuda)
+    for k in (1, 513, 4097):
+        vals, idx, thr = topk_select(x, k, cluster=cluster)
+        assert idx.equal(torch.arange(k, device=cuda, dtype=torch.int32)
+                         .expand(3, k))
+        assert bool((thr == 0).all()) and bool((vals == 0).all())
+
+
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_topk_cluster_kernel_beyond_one_block(cuda, cluster):
+    """L = 60000 was refused while a row had to fit one CTA's shared
+    memory; the slabs of a cluster hold it now."""
+    g = torch.Generator(device=cuda).manual_seed(60000)
+    x = torch.randn((2, 60000), generator=g, device=cuda)
+    x[1] = torch.randint(-3, 4, (60000,), generator=g, device=cuda).float()
+    for k in (1, 7500, 60000):
+        _topk_check(x, k, cluster)
+    assert topk.topk_plan(2, 60000, 7500).cluster == 16
+
+
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_topk_cluster_kernel_two_launches_bit_identical(cuda, cluster):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((8, 16384), generator=g, device=cuda)
+    for k in (2048, 16384):
+        try:
+            topk.topk_plan(8, 16384, k, cluster)
+        except ValueError:
+            continue
+        first = topk_select(x, k, cluster=cluster)
+        second = topk_select(x, k, cluster=cluster)
+        _assert_topk_equal(first, second)
+        _assert_topk_equal(first, topk_select_ref(x, k))
+
+
+def test_topk_cluster_kernel_main_shape_plans_a_cluster(cuda):
+    plan = topk.topk_plan(8, 16384, 2048)
+    assert plan.cluster > 1
+    x = torch.randn((8, 16384), device=cuda)
+    before = topk_select.launches
+    topk_select(x, 2048)
+    assert topk_select.launches == before + 1
+    assert topk.topk_plan(8, 1001, 126).cluster == 1
+
+
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_cluster_kernels_count_one_launch_per_stack(cuda, cluster):
+    x = torch.randn((8, 4097), device=cuda)
+    wrappers = [getattr(quant, f"quantize_pack_{n}") for n in WIDTHS]
+    before = [w.launches for w in wrappers] + [topk_select.launches]
+    for w in wrappers:
+        w(x, cluster=cluster)
+        w(x.cpu(), cluster=cluster)                      # plain versions
+    topk_select(x, 513, cluster=cluster)
+    topk_select(x.cpu(), 513, cluster=cluster)
+    after = [w.launches for w in wrappers] + [topk_select.launches]
+    assert after == [n + 1 for n in before]

@@ -1,0 +1,270 @@
+"""The launch plans of K2 (``repro_torch.kernels.quant.quant_plan``) and K4
+(``repro_torch.kernels.topk.topk_plan``), which are pure Python, the
+launcher cache of ``repro_torch.kernels._build``, and the two wrappers on
+CPU tensors, which take their plain versions whatever cluster is asked
+for and match the reference's encodes bit for bit."""
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from repro.comm.codec import get_codec as get_codec_ref
+from repro_torch.kernels import _build, quant, topk
+from repro_torch.kernels.quant import QuantPlan, quant_plan
+from repro_torch.kernels.topk import TopkPlan, topk_plan, topk_select
+
+LENGTHS = [1, 2, 3, 5, 7, 31, 1001, 1023, 1024, 1025, 4097, 16383, 16384,
+           16385, 60000]
+CLUSTERS = [None, 16, 8, 4, 2, 1]
+WIDTHS = [8, 4, 2]
+
+
+def cta_ranges(L, bits, plan):
+    """For each CTA rank, as csrc/quant.cu computes them: the output bytes
+    it packs, [r*span, (r+1)*span) cut at the row's W bytes, and the
+    element ranges it reads (one for int8, the two halves' for int4, the
+    four quarters' for int2, cut at L: an index >= L is the zero pad)."""
+    per = 8 // bits
+    W = -(-L // per)
+    out = []
+    for r in range(plan.cluster):
+        b0 = min(r * plan.span, W)
+        b1 = min(b0 + plan.span, W)
+        out.append((range(b0, b1), [range(min(b0 + p * W, L),
+                                          min(b1 + p * W, L))
+                                    for p in range(per)]))
+    return out
+
+
+def _quant_fitting(bits, cluster):
+    """The lengths K2 takes at ``cluster``; a forced C whose CTAs would
+    hold too many elements raises instead."""
+    out = []
+    for L in LENGTHS:
+        try:
+            quant_plan(1, L, bits, cluster)
+        except ValueError as exc:
+            assert cluster is not None and "at most" in str(exc)
+            continue
+        out.append(L)
+    assert out
+    return out
+
+
+# -- K2 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", WIDTHS)
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_quant_byte_ranges_cover_each_byte_once(bits, cluster):
+    for L in _quant_fitting(bits, cluster):
+        plan = quant_plan(8, L, bits, cluster)
+        W = -(-L // (8 // bits))
+        assert plan.span % 4 == 0 and plan.slab == plan.span * (8 // bits)
+        ranges = cta_ranges(L, bits, plan)
+        assert len(ranges) == plan.cluster
+        written = [j for out, _ in ranges for j in out]
+        assert written == list(range(W))             # each byte once, in order
+        read = sorted(i for _, parts in ranges for part in parts
+                      for i in part)
+        assert read == list(range(L))                # each element once
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_quant_pairing_partners_lie_in_the_ctas_reads(bits, cluster):
+    """Byte j packs elements j, j + W, ... (split-half, split-quarter);
+    every one of them below L is read by the CTA that writes byte j."""
+    per = 8 // bits
+    for L in _quant_fitting(bits, cluster):
+        plan = quant_plan(3, L, bits, cluster)
+        W = -(-L // per)
+        for out, parts in cta_ranges(L, bits, plan):
+            reads = {i for part in parts for i in part}
+            for j in out:
+                partners = {j + p * W for p in range(per)}
+                assert {i for i in partners if i < L} <= reads
+
+
+@pytest.mark.parametrize("bits", WIDTHS)
+def test_quant_plan_at_the_main_path_shape(bits):
+    plan = quant_plan(8, 16384, bits)
+    per = 8 // bits
+    assert plan == QuantPlan(cluster=8, span=2048 // per, slab=2048)
+
+
+@pytest.mark.parametrize("bits", WIDTHS)
+@pytest.mark.parametrize("L", [1, 5, 1001, 1023, 2000, 4000])
+def test_quant_plan_takes_one_cta_for_a_short_row(bits, L):
+    assert quant_plan(8, L, bits).cluster == 1
+
+
+@pytest.mark.parametrize("bits", WIDTHS)
+def test_quant_plan_takes_the_widest_cluster_with_a_full_slab(bits):
+    for L in LENGTHS:
+        plan = quant_plan(1, L, bits)
+        assert plan.slab >= quant.SLAB_MIN or plan.cluster == 1
+        wider = [c for c in quant.CLUSTERS if c > plan.cluster]
+        assert all(quant_plan(1, L, bits, c).slab < quant.SLAB_MIN
+                   for c in wider)
+
+
+@pytest.mark.parametrize("bits", WIDTHS)
+def test_quant_plan_raises_with_the_numbers(bits):
+    L = 16 * quant.SLAB_MAX + 1
+    with pytest.raises(ValueError, match=f"a row of L={L} at C=16") as exc:
+        quant_plan(1, L, bits)
+    assert str(quant.SLAB_MAX) in str(exc.value)
+    with pytest.raises(ValueError, match="at C=1 CTAs"):
+        quant_plan(1, quant.SLAB_MAX + 4, bits, cluster=1)
+    assert quant_plan(1, quant.SLAB_MAX, bits, cluster=1).slab <= \
+        quant.SLAB_MAX
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        quant_plan(1, 64, bits, cluster=3)
+    with pytest.raises(ValueError, match="empty stack"):
+        quant_plan(0, 64, bits)
+
+
+# -- K4 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_topk_slabs_cover_the_row_exactly(cluster):
+    for L in LENGTHS:
+        try:
+            plan = topk_plan(2, L, 1, cluster)
+        except ValueError as exc:        # 60000 patterns in one CTA
+            assert cluster == 1 and "shared memory" in str(exc)
+            continue
+        S = plan.slab
+        assert S % 4 == 0 and S - -(-L // plan.cluster) < 4
+        bounds = [(min(r * S, L), min((r + 1) * S, L))
+                  for r in range(plan.cluster)]
+        assert [i for lo, hi in bounds for i in range(lo, hi)] == \
+            list(range(L))
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("ratio", [1, 8, 125])
+def test_topk_plan_shared_bytes_fit(cluster, ratio):
+    for L in LENGTHS:
+        k = -(-L // ratio)
+        try:
+            plan = topk_plan(8, L, k, cluster)
+        except ValueError as exc:
+            assert cluster is not None and "shared memory" in str(exc)
+            continue
+        assert plan.shared_bytes <= topk.SHARED_LIMIT
+        assert plan.shared_bytes == topk.shared_bytes(plan.slab, k,
+                                                      plan.cluster)
+
+
+def test_topk_shared_bytes_layout():
+    # the main path: patterns 8 KB (the gathered 2048 keys and 2048
+    # counts overlay them: 24 KB), 2048 survivor slots twice (compacted
+    # and sorted), 8 peers' 1 KB histograms in two parities, its own two,
+    # 512 B of scratch
+    assert topk.shared_bytes(2048, 2048, 8) == (
+        8 * 2048 + 4 * 2048 + 2 * 8 * 2048 + 2 * 8 * 1024 + 2048 + 512)
+    # one CTA holding a 4097 row and keeping all of it: 4096 keys
+    # gathered at a time, the survivor slots a power of two (8192)
+    assert topk.shared_bytes(4100, 4097, 1) == (
+        8 * 4096 + 4 * 8192 + 2 * 8 * 8192 + 2 * 1024 + 2048 + 512)
+    assert topk.shared_bytes(4, 1, 1) == 32 + 2 * 16 + 2048 + 2048 + 512
+
+
+def test_topk_plan_at_the_main_path_shape():
+    plan = topk_plan(8, 16384, 2048)
+    assert plan == TopkPlan(cluster=8, slab=2048,
+                            shared_bytes=topk.shared_bytes(2048, 2048, 8))
+    assert topk_plan(8, 16384, 16384).cluster == 8
+
+
+@pytest.mark.parametrize("L,k", [(1, 1), (5, 3), (1001, 126), (2000, 2000),
+                                 (4000, 500)])
+def test_topk_plan_takes_one_cta_for_a_short_row(L, k):
+    assert topk_plan(8, L, k).cluster == 1
+
+
+@pytest.mark.parametrize("L,k,cluster", [
+    (1_000_000, 1, None),             # a slab of 62500 patterns at C = 16
+    (20000, 20000, 1),                # 20000 survivor keys in one CTA
+    (300000, 300000, 16),             # 18752 survivor keys a CTA
+])
+def test_topk_plan_raises_with_the_numbers(L, k, cluster):
+    with pytest.raises(ValueError, match="shared memory") as exc:
+        topk_plan(1, L, k, cluster)
+    msg = str(exc.value)
+    assert f"L={L}" in msg and f"k={k}" in msg
+    assert str(topk.SHARED_LIMIT) in msg
+
+
+def test_topk_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        topk_plan(1, 64, 4, cluster=32)
+    with pytest.raises(ValueError, match="1 <= k <= L"):
+        topk_plan(1, 64, 65)
+    with pytest.raises(ValueError, match="empty stack"):
+        topk_plan(1, 0, 1)
+
+
+def test_topk_plan_admits_rows_past_the_one_cta_limit():
+    """The one-CTA design refused L = 60000; its slabs fit now."""
+    for k in (1, 7500, 60000):
+        plan = topk_plan(2, 60000, k)
+        assert plan.cluster == 16 and plan.shared_bytes <= topk.SHARED_LIMIT
+
+
+# -- the launcher cache -----------------------------------------------------
+
+def test_launcher_is_resolved_once(monkeypatch):
+    looked_up = []
+
+    class Lib:
+        def __getattr__(self, name):
+            looked_up.append(name)
+            return types.SimpleNamespace(argtypes=None, restype=None)
+
+    monkeypatch.setattr(_build, "library", lambda: Lib())
+    monkeypatch.setattr(_build, "_FUNCTIONS", {})
+    first = _build.function("quant_launch", quant._LAUNCH)
+    for _ in range(3):
+        assert _build.function("quant_launch", quant._LAUNCH) is first
+    assert first.argtypes == quant._LAUNCH
+    assert _build.function("topk_launch", topk._LAUNCH).argtypes == \
+        topk._LAUNCH
+    assert looked_up == ["quant_launch", "topk_launch"]
+
+
+# -- the wrappers on CPU tensors ------------------------------------------
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int2"])
+@pytest.mark.parametrize("cluster", [None, 16, 1])
+def test_quantize_on_cpu_is_the_reference_encode(name, cluster):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 1001)).astype(np.float32)
+    enc = getattr(quant, f"quantize_pack_{name}")
+    before = enc.launches
+    payload, scale = enc(torch.tensor(x), cluster=cluster)
+    assert enc.launches == before                     # no kernel launched
+    ref = get_codec_ref(name)
+    for k in range(3):
+        p_r, s_r = ref.encode_ref(jnp.asarray(x[k]))
+        np.testing.assert_array_equal(payload[k].numpy(), np.asarray(p_r))
+        assert scale[k].numpy().view(np.int32) == \
+            np.asarray(s_r, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("cluster", [None, 16, 1])
+def test_topk_select_on_cpu_is_lax_top_k(cluster):
+    rng = np.random.default_rng(4)
+    x = rng.integers(-3, 4, (3, 1001)).astype(np.float32)   # heavy ties
+    before = topk_select.launches
+    vals, idx, thr = topk_select(torch.tensor(x), 126, cluster=cluster)
+    assert topk_select.launches == before
+    mags, order = lax.top_k(jnp.abs(jnp.asarray(x)), 126)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(order))
+    np.testing.assert_array_equal(vals.numpy(),
+                                  np.take_along_axis(x, np.asarray(order), 1))
+    np.testing.assert_array_equal(thr.numpy(), np.asarray(mags)[:, -1])
