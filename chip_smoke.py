@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--m 16384] [--n 32768] [--density 0.15]
                           [--K 8] [--rounds 100] [--eps 1e-3] [--seed 42]
+                          [--long-m 350000] [--long-n 1024]
+                          [--long-rounds 30]
 
 Phases, each ending in ``torch.cuda.synchronize()`` and printing one
 JSON line:
@@ -21,7 +23,17 @@ JSON line:
      ragged lengths and on edge cases (all zeros, one nonzero, scales
      1e-6 and 1e6; for K4 k in {1, ceil(L/8), L}, heavy ties, +x/-x
      pairs and -0.0 entries), K2 and K4 at the planned C and at every
-     C that fits each case;
+     C that fits each case; then each kernel at the shapes its first
+     designs refused, on random inputs made on the card (K1 at
+     (K 8, m 350,000, n_pad 128, H 128), its slab of rho streamed and
+     held in shared memory (C = 8), at (K 8, m 262,148, n_pad 128, H 64)
+     forced to C = 4, the slab in device memory, and at (K 2, m 4096,
+     n_pad 65,536, H 256), alpha in device memory; K2 and K3 at
+     (8, 1,048,579), K2 streaming, and at (8, 350,000), K2 in registers
+     at C = 16, each width; K4 at (8, 350,000) with k = 43,750,
+     (1, 10^6) with k = 1 and (2, 200,003) with k = L, in its
+     device-memory forms, and at the main path's stack forced into the
+     device-memory form);
   3. the main paths: CoCoA ridge with ``solver="scd_kernel"`` on the
      virtual driver, K workers batched into each launch, under
      ``compressed:int8``, ``compressed:ef:int4`` (the error-feedback
@@ -41,6 +53,12 @@ JSON line:
      index stream must agree round by round at rtol 1e-4; the codes (for
      topk, the selected indices) that differ between the two runs are
      counted and printed;
+  4b. the long-row path: webspam's row count (``--long-m`` 350,000
+     examples, ``--long-n`` 1024 features, H = n_local = 128) under
+     ``compressed:int8`` and ``compressed:ef:topk(r=0.125)`` for up to
+     ``--long-rounds`` rounds each, each kernel of the path once a
+     round, and the first 3 rounds held against the plain SCD on the
+     same index stream at rtol 1e-4;
   5. timing at the main path's shapes, for every kernel two times: the
      wrapper's time per call by CUDA events around back-to-back calls
      (host work included when the host launches slower than the device
@@ -49,7 +67,9 @@ JSON line:
      time the card could take, the plain version's time by events and,
      for K4, ``torch.topk`` of the magnitudes (the library call that
      computes the same selection; the port never calls it). K1, K2 and
-     K4 also for every C that fits, K4 also at k = L;
+     K4 also for every C that fits, K4 also at k = L and in its
+     device-memory form; then every kernel at the long-row path's shapes
+     (its round-1 inputs and Δv), K4 also at C = 16, 8 and 4;
   6. device traces: ``torch.profiler`` over 5 rounds of
      ``compressed:int8`` and of ``compressed:ef:topk(r=0.125)`` (after 2
      untraced ones each), each kernel's device time by name and the
@@ -87,6 +107,15 @@ PATHS = (("compressed:int8", "int8"), ("compressed:ef:int4", "int4"),
          ("compressed:ef:int2", "int2"), (TOPK, "topk"),
          (f"{TOPK}/stale:k=2/drop:1@5-9", "topk"))
 CHECKED = ("compressed:int8", "compressed:ef:int4", TOPK)     # phase 4
+# the long-row path (phase 4b), and the shapes phase 2 adds for each
+# kernel, which its first designs refused (and the long-row path's own
+# K2 shape, in registers at C = 16): K1 (K, m, n_pad, H, forced C or
+# None), K2 and K3 (K, L), K4 ((K, L), k)
+LONG_PATHS = (("compressed:int8", "int8"), (TOPK, "topk"))
+SCD_LONG = ((8, 350000, 128, 128, None), (8, 262148, 128, 64, 4),
+            (2, 4096, 65536, 256, None))
+QUANT_LONG = ((8, 1048579), (8, 350000))
+TOPK_LONG = (((8, 350000), 43750), ((1, 1000000), 1), ((2, 200003), 200003))
 CODECS = ("int8", "int4", "int2")
 BITS = {"int8": 8, "int4": 4, "int2": 2}
 # K2 and K4 run at the planned C (None) and at every C forced
@@ -95,11 +124,12 @@ CLUSTER_RUNS = (None, 16, 8, 4, 2, 1)
 # reports it (a substring of the demangled name)
 KERNEL_NAMES = {"scd_solve": "scd_kernel", "topk": "topk_kernel",
                 "topk_k_eq_L": "topk_kernel",
+                "topk_device_form": "topk_kernel",
                 "int8": "quant_kernel<1,", "int4": "quant_kernel<2,",
                 "int2": "quant_kernel<4,",
-                "decode_int8": "dequant_int8_kernel",
-                "decode_int4": "dequant_packed_kernel",
-                "decode_int2": "dequant_packed_kernel"}
+                "decode_int8": "dequant_kernel<8,",
+                "decode_int4": "dequant_kernel<4,",
+                "decode_int2": "dequant_kernel<2,"}
 
 
 def emit(**kw) -> None:
@@ -184,6 +214,34 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_bounds(idx, n_pad: int, m: int, k: int):
+    """Each kernel's bound at one shape: K1 on the (K, H) index stream
+    ``idx`` over K blocks of n_pad columns of m rows, K2 and K3 on a
+    (K, m) stack and its payloads, K4 on that stack keeping k. Returns
+    the bounds by kernel key, the distinct columns and K1's bytes."""
+    import torch
+    K, H = idx.shape
+    # K1 reads each distinct visited column once (this run's idx), its
+    # norm, the index stream, alpha in and out, w, and writes Delta v;
+    # a step is a dot and an axpy, 4m operations, plus ~10 scalar ones
+    distinct = int(torch.unique(idx.long()
+                                + torch.arange(K, device=idx.device)[:, None]
+                                * n_pad).numel())
+    scd_bytes = 4 * (distinct * (m + 1) + K * H + 2 * K * n_pad + m + K * m)
+    bounds = {"scd_solve": bound_ms(scd_bytes, K * H * (4 * m + 10))}
+    L = m
+    for c, per in (("int8", 1), ("int4", 2), ("int2", 4)):
+        wire = -(-L // per)
+        # quantize reads the f32 stack, writes the payload and scales;
+        # decode reads the payload and scales, writes the (L,) f32 sum
+        bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
+        bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
+    # K4 reads the f32 stack and writes k values, k indices and one
+    # threshold per row; one magnitude per element
+    bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k + 4), K * L)
+    return bounds, distinct, scd_bytes
 
 
 def free(torch) -> None:
@@ -288,6 +346,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--reps", type=int, default=50,
                     help="timed launches per kernel")
+    ap.add_argument("--long-m", type=int, default=350000,
+                    help="examples of the long-row path (webspam's)")
+    ap.add_argument("--long-n", type=int, default=1024)
+    ap.add_argument("--long-rounds", type=int, default=30)
     args = ap.parse_args(argv)
 
     import torch
@@ -302,7 +364,7 @@ def main(argv=None) -> int:
     from repro_torch.core import CoCoAConfig, CoCoATrainer
     from repro_torch.core.solvers import scd_steps
     from repro_torch.data import make_glm_data
-    from repro_torch.kernels import _build, dequant, quant, scd
+    from repro_torch.kernels import _build, dequant, quant, scd, topk
     from repro_torch.kernels.scd import scd_solve
     from repro_torch.kernels.topk import (topk_plan, topk_select,
                                           topk_select_ref)
@@ -362,8 +424,9 @@ def main(argv=None) -> int:
     k_main = get_codec(f"topk(r={TOPK_R:g})")._k(m)
     codec_plans = {c: dataclasses.asdict(quant.quant_plan(K, m, BITS[c]))
                    for c in CODECS}
-    codec_plans["topk"] = dict(k=k_main, **dataclasses.asdict(
-        topk_plan(K, m, k_main)))
+    codec_plans["topk"] = dict(k=k_main, **dataclasses.asdict(topk_plan(
+        K, m, k_main, max_active_clusters=lambda p: topk.max_active_clusters(
+            dev, p))))
     codec_fits = {c: [cl for cl in CLUSTER_RUNS[1:]
                       if quant_fits(m, BITS[c], cl)] for c in CODECS}
     codec_fits["topk"] = [cl for cl in CLUSTER_RUNS[1:]
@@ -485,26 +548,122 @@ def main(argv=None) -> int:
                          "version (see the kernels_vs_plain line)")
     main_payload = {c: payloads[c][0] for c in CODECS}      # from dv_k
 
+    # -- 2b. each kernel at the shapes its first designs refused --------
+    t0 = time.perf_counter()
+    gl = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    long_ok, long_err, long_plans = {}, {}, {}
+    for K_, m_, n_, H_, cl_ in SCD_LONG:
+        A_T = torch.randn((K_, n_, m_), generator=gl, device=dev)
+        A_T[:, -1] = 0.0                                  # a zero column
+        args_ = (A_T, torch.sum(A_T * A_T, dim=2),
+                 torch.randn((K_, n_), generator=gl, device=dev) * 0.1,
+                 torch.randn((m_,), generator=gl, device=dev),
+                 torch.randint(0, n_, (K_, H_), generator=gl, device=dev,
+                               dtype=torch.int32))
+        kw_ = dict(sigma=float(K_), lam=args.lam, eta=1.0)
+        dv_c, al_c = scd_solve(*args_, cluster=cl_, **kw_)
+        dv_p, al_p = scd_steps(*args_, **kw_)
+        name = (f"scd_solve {K_}x{m_}, n_pad {n_}, H {H_}"
+                + (f", C {cl_}" if cl_ else ""))
+        long_plans[name] = dataclasses.asdict(scd_solve.last_plan)
+        long_ok[name] = (torch.allclose(dv_c, dv_p, rtol=1e-4, atol=1e-5)
+                         and torch.allclose(al_c, al_p, rtol=1e-4, atol=1e-5))
+        long_err[name] = max(max_err(dv_c, dv_p), max_err(al_c, al_p))
+        err["scd_solve"] = max(err["scd_solve"], long_err[name])
+        del A_T, args_, dv_c, al_c, dv_p, al_p
+        free(torch)
+    for shape in QUANT_LONG:
+        x = torch.randn(shape, generator=gl, device=dev)
+        x[1] *= 1e-6
+        for c in CODECS:
+            pk, sk = enc[c](x)
+            pp, sp = enc_ref[c](x)
+            name = f"quantize_pack_{c} {shape}"
+            long_plans[name] = dataclasses.asdict(
+                quant.quant_plan(*shape, BITS[c]))
+            long_ok[name] = (bits_equal(torch, pk, pp)
+                             and bits_equal(torch, sk, sp))
+            long_err[name] = max(max_err(pk, pp), max_err(sk, sp))
+            err[c] = max(err[c], long_err[name])
+            for mean in (False, True):
+                out_k = dec[c](pk, sk, shape[1], mean=mean)
+                out_p = dec_ref[c](pk, sk, shape[1], mean=mean)
+                name = f"decode_reduce_{c} {shape} mean={mean}"
+                long_ok[name] = bits_equal(torch, out_k, out_p)
+                long_err[name] = max_err(out_k, out_p)
+                err[f"decode_{c}"] = max(err[f"decode_{c}"], long_err[name])
+        del x, pk, sk, pp, sp, out_k, out_p
+    for (K_, L_), kk in TOPK_LONG:
+        x = torch.randn((K_, L_), generator=gl, device=dev)
+        if K_ > 1:                       # a row of ties and +x/-x pairs
+            x[-1] = torch.randint(-3, 4, (L_,), generator=gl,
+                                  device=dev).float()
+        got, want = topk_select(x, kk), topk_select_ref(x, kk)
+        name = f"topk_select {K_}x{L_}, k {kk}"
+        long_plans[name] = dataclasses.asdict(topk_select.last_plan)
+        long_ok[name] = all(bits_equal(torch, a, b_)
+                            for a, b_ in zip(got, want))
+        long_err[name] = max(max_err(got[0], want[0]),
+                             max_err(got[2], want[2]),
+                             max_err(got[1].long(), want[1].long()))
+        err["topk"] = max(err["topk"], long_err[name])
+        del x, got, want
+    # the main path's stack in K4's device-memory form, which phase 5
+    # times against the shared form the plan takes there
+    for kk in (k_main, m):
+        got = topk_select(dv_k, kk, survivors="device")
+        want = topk_select_ref(dv_k, kk)
+        name = f"topk_select {K}x{m}, k {kk}, survivors in device memory"
+        long_plans[name] = dataclasses.asdict(topk_select.last_plan)
+        long_ok[name] = all(bits_equal(torch, a, b_)
+                            for a, b_ in zip(got, want))
+        long_err[name] = max(max_err(got[0], want[0]),
+                             max_err(got[2], want[2]),
+                             max_err(got[1].long(), want[1].long()))
+        err["topk"] = max(err["topk"], long_err[name])
+        del got, want
+    free(torch)
+    phase_done(torch, "kernels_vs_plain_long", t0, ok=long_ok,
+               max_abs_err=long_err, plans=long_plans,
+               tolerance={"scd_solve": "rtol 1e-4, atol 1e-5",
+                          "quantize, decode and topk": "bit-identical"})
+    if not all(long_ok.values()):
+        raise SystemExit("chip_smoke: a kernel disagrees with its plain "
+                         "version at a long shape (see the "
+                         "kernels_vs_plain_long line)")
+
     # -- 3. the main paths ----------------------------------------------
     counters = ([scd_solve] + list(enc.values()) + list(dec.values())
                 + [topk_select])
-    runs = {}
-    for ex, c in PATHS:
-        if tr is None:
-            tr = CoCoATrainer(dataclasses.replace(cfg, exchange=ex), A, b)
+
+    def plans_of(tr, c):
+        """The plans K1 and the path's codec kernels took on ``tr``."""
+        K_, _, m_ = tr.A_T.shape
+        out = {"scd_solve": dataclasses.asdict(scd_solve.last_plan)}
+        if c == "topk":
+            out["topk_select"] = dataclasses.asdict(topk_select.last_plan)
+        else:
+            out[f"quantize_pack_{c}"] = dataclasses.asdict(
+                quant.quant_plan(K_, m_, BITS[c]))
+        return out
+
+    def drive(tr, ex, c, rounds, n_feat, line):
+        """Run one path on its own trainer with every launch counter set
+        to 0 just before and read just after; K1 and the path's codec
+        kernels must launch once a round and no other kernel at all."""
         path_p_star = tr.p_star  # solved outside the path's peak memory
         held = torch.cuda.memory_allocated()
         for fn in counters:
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hist = tr.run(args.rounds, target_eps=args.eps)
+        hist = tr.run(rounds, target_eps=args.eps)
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counters}
         n_rounds = len(hist.rounds)
         r2e = hist.rounds_to(args.eps)
         sec = np.array(hist.seconds)
-        phase_done(torch, "main_path", t0, exchange=ex, rounds=n_rounds,
+        phase_done(torch, line, t0, exchange=ex, rounds=n_rounds,
                    rounds_to_eps=r2e if r2e is not None else "not reached",
                    eps=args.eps, p_star=path_p_star,
                    final_subopt=hist.subopt[-1],
@@ -519,7 +678,7 @@ def main(argv=None) -> int:
                        if "drop:" in ex else "every round the same"),
                    memory_allocated_before=held,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   launches=launches)
+                   launches=launches, plans=plans_of(tr, c))
         want = {fn.__name__: 0 for fn in counters}
         own = (("topk_select",) if c == "topk"
                else (f"quantize_pack_{c}", f"decode_reduce_{c}"))
@@ -530,11 +689,17 @@ def main(argv=None) -> int:
                              f" rounds) and no other kernel, got {launches}")
         if not (np.all(np.isfinite(hist.primal))
                 and np.all(np.isfinite(tr.alpha_final))
-                and tr.alpha_final.shape == (args.n,)
+                and tr.alpha_final.shape == (n_feat,)
                 and hist.subopt[-1] < 1.0):
             raise SystemExit(f"chip_smoke: the {ex} path's output is not "
                              f"finite, not of shape (n,), or made no progress")
-        runs[ex] = dict(primal=hist.primal, rounds=n_rounds, launches=launches)
+        return dict(primal=hist.primal, rounds=n_rounds, launches=launches)
+
+    runs = {}
+    for ex, c in PATHS:
+        if tr is None:
+            tr = CoCoATrainer(dataclasses.replace(cfg, exchange=ex), A, b)
+        runs[ex] = drive(tr, ex, c, args.rounds, args.n, "main_path")
         tr = None
         free(torch)
 
@@ -591,6 +756,38 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: the whole-path check failed (see the "
                          "whole_path line: primal_rel and codes_differ)")
 
+    # -- 4b. the long-row path: webspam's row count ---------------------
+    t0 = time.perf_counter()
+    AL, bL, _ = make_glm_data(m=args.long_m, n=args.long_n,
+                              density=args.density, zipf_a=1.1,
+                              seed=args.seed)
+    cfgL = dataclasses.replace(cfg, H=-(-args.long_n // args.K),
+                               exchange=LONG_PATHS[0][0])
+    phase_done(torch, "long_setup", t0, m=args.long_m, n=args.long_n,
+               K=args.K, H=cfgL.H, density=args.density)
+    long_runs = {}
+    for ex, c in LONG_PATHS:
+        trL = CoCoATrainer(dataclasses.replace(cfgL, exchange=ex), AL, bL)
+        long_runs[ex] = drive(trL, ex, c, args.long_rounds, args.long_n,
+                              "long_row_path")
+        del trL
+        free(torch)
+        # the first rounds again with the plain SCD on the same index
+        # stream (the dot's sum order differs, hence rtol 1e-4)
+        t0 = time.perf_counter()
+        trP = CoCoATrainer(dataclasses.replace(cfgL, exchange=ex,
+                                               solver="scd_ref"), AL, bL)
+        primal = trP.run(n_chk).primal
+        del trP
+        free(torch)
+        want = long_runs[ex]["primal"][:n_chk]
+        rel = (np.abs(np.array(primal) - want) / np.abs(want)).tolist()
+        phase_done(torch, "long_row_plain_vs_kernel", t0, exchange=ex,
+                   primal_rel=rel, tolerance="rtol 1e-4")
+        if max(rel) > 1e-4:
+            raise SystemExit(f"chip_smoke: the long-row path under {ex} "
+                             f"left the plain SCD's primal by {max(rel)}")
+
     # -- 5. timing at the main path's shapes ----------------------------
     t0 = time.perf_counter()
     tr = CoCoATrainer(cfg, A, b)                 # K1's inputs again
@@ -609,6 +806,8 @@ def main(argv=None) -> int:
                          4 * args.reps)
     ms["topk_k_eq_L"] = time_ms(torch, lambda: topk_select(dv_k, L),
                                 args.reps)
+    ms["topk_device_form"] = time_ms(torch, lambda: topk_select(
+        dv_k, k_main, survivors="device"), 4 * args.reps)
     plain["topk"] = time_ms(torch, lambda: topk_select_ref(dv_k, k_main),
                             4 * args.reps)
     library = {"topk": time_ms(torch, lambda: torch.topk(
@@ -626,7 +825,10 @@ def main(argv=None) -> int:
     calls = {"scd_solve": (lambda: scd_solve(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps),
         "topk": (lambda: topk_select(dv_k, k_main), 4 * args.reps),
-        "topk_k_eq_L": (lambda: topk_select(dv_k, L), args.reps)}
+        "topk_k_eq_L": (lambda: topk_select(dv_k, L), args.reps),
+        "topk_device_form": (lambda: topk_select(dv_k, k_main,
+                                                 survivors="device"),
+                             4 * args.reps)}
     for c in CODECS:
         p, s, _ = main_payload[c]
         calls[c] = (lambda c=c: enc[c](dv_k), 4 * args.reps)
@@ -645,24 +847,8 @@ def main(argv=None) -> int:
                 torch, fn, 4 * args.reps)
             dev_by_c.setdefault(key, {})[str(cl)] = device_ms(
                 torch, fn, 4 * args.reps, KERNEL_NAMES[key])
-    # K1 reads each distinct visited column once (this run's idx), its
-    # norm, the index stream, alpha in and out, w, and writes Delta v;
-    # a step is a dot and an axpy, 4m operations, plus ~10 scalar ones
-    distinct = int(torch.unique(idx1.long()
-                                + torch.arange(K, device=dev)[:, None]
-                                * n_pad).numel())
-    scd_bytes = 4 * (distinct * (m + 1) + K * H + 2 * K * n_pad + m + K * m)
-    bounds = {"scd_solve": bound_ms(scd_bytes, K * H * (4 * m + 10))}
-    for c, per in (("int8", 1), ("int4", 2), ("int2", 4)):
-        wire = -(-L // per)
-        # quantize reads the f32 stack, writes the payload and scales;
-        # decode reads the payload and scales, writes the (L,) f32 sum
-        bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
-        bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
-    # K4 reads the f32 stack and writes k values, k indices and one
-    # threshold per row; one magnitude per element
-    bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k_main + 4), K * L)
-    bounds["topk_k_eq_L"] = bound_ms(K * 4 * L + K * (8 * L + 4), K * L)
+    bounds, distinct, scd_bytes = kernel_bounds(idx1, n_pad, m, k_main)
+    bounds["topk_k_eq_L"] = kernel_bounds(idx1, n_pad, m, L)[0]["topk"]
     phase_done(torch, "timing", t0, reps=args.reps,
                distinct_columns=distinct, scd_bytes=scd_bytes,
                topk_k=k_main, wrapper_ms=ms, device_ms=dev_ms,
@@ -670,10 +856,84 @@ def main(argv=None) -> int:
                topk_k_eq_L=dict(k=L, wrapper_ms=ms["topk_k_eq_L"],
                                 device_ms=dev_ms["topk_k_eq_L"],
                                 bound_ms=bounds["topk_k_eq_L"][0]),
+               topk_device_form=dict(
+                   k=k_main, wrapper_ms=ms["topk_device_form"],
+                   device_ms=dev_ms["topk_device_form"],
+                   shared_form_device_ms=dev_ms["topk"]),
                scd_ms_by_cluster=scd_ms, codec_ms_by_cluster=ms_by_c,
                codec_device_ms_by_cluster=dev_by_c,
                scd_bound_ratio_by_cluster={
                    c: t / bounds["scd_solve"][0] for c, t in scd_ms.items()})
+
+    # the same kernels at the long-row path's shapes: K1 on its round-1
+    # inputs, K2, K3 and K4 on its round-1 Delta v stack
+    t0 = time.perf_counter()
+    trL = CoCoATrainer(cfgL, AL, bL)
+    alphaL, wL = trL.init_state()
+    idxL = trL.index_source(1)
+    KL, n_padL, mL = trL.A_T.shape
+    kwL = dict(sigma=cfgL.sigma_val, lam=cfgL.lam, eta=cfgL.eta)
+    dvL, _ = scd_solve(trL.A_T, trL.col_sq, alphaL, wL, idxL, **kwL)
+    kL = get_codec(f"topk(r={TOPK_R:g})")._k(mL)
+    long_calls = {
+        "scd_solve": (lambda: scd_solve(trL.A_T, trL.col_sq, alphaL, wL,
+                                        idxL, **kwL), args.reps),
+        "topk": (lambda: topk_select(dvL, kL), args.reps)}
+    long_plain = {
+        "scd_solve": lambda: scd_steps(trL.A_T, trL.col_sq, alphaL, wL,
+                                       idxL, **kwL),
+        "topk": lambda: topk_select_ref(dvL, kL)}
+    same = {}                # K2 and K3 on the path's own Delta v
+    for c in CODECS:
+        pL, sL = enc[c](dvL)
+        pP, sP = enc_ref[c](dvL)
+        same[c] = bits_equal(torch, pL, pP) and bits_equal(torch, sL, sP)
+        same[f"decode_{c}"] = bits_equal(
+            torch, dec[c](pL, sL, mL, mean=False),
+            dec_ref[c](pL, sL, mL, mean=False))
+        long_calls[c] = (lambda c=c: enc[c](dvL), args.reps)
+        long_plain[c] = lambda c=c: enc_ref[c](dvL)
+        long_calls[f"decode_{c}"] = (lambda c=c, p=pL, s=sL: dec[c](
+            p, s, mL, mean=False), args.reps)
+        long_plain[f"decode_{c}"] = lambda c=c, p=pL, s=sL: dec_ref[c](
+            p, s, mL, mean=False)
+    long_ms = {key: time_ms(torch, fn, n)
+               for key, (fn, n) in long_calls.items()}
+    long_dev = {key: device_ms(torch, fn, n, KERNEL_NAMES[key])
+                for key, (fn, n) in long_calls.items()}
+    long_plain_ms = {key: time_ms(torch, fn, 3, warmup=1)
+                     for key, fn in long_plain.items()}
+    long_library = {"topk": time_ms(torch, lambda: torch.topk(
+        dvL.abs(), kL, dim=1, sorted=True), args.reps)}
+    # K4's plan at the long row (the widest C whose clusters are all
+    # resident), and its device time when C is forced
+    topk_select(dvL, kL)
+    topk_long_plan = dataclasses.asdict(topk_select.last_plan)
+    topk_long_by_c = {str(cl): device_ms(
+        torch, lambda cl=cl: topk_select(dvL, kL, cluster=cl), args.reps,
+        "topk_kernel") for cl in (16, 8, 4)}
+    long_bounds, long_distinct, long_scd_bytes = kernel_bounds(
+        idxL, n_padL, mL, kL)
+    long_row = {key: dict(
+        shape=([KL, mL, n_padL, cfgL.H] if key == "scd_solve" else
+               [KL, mL, kL] if key == "topk" else [KL, mL]),
+        ms=long_ms[key], device_ms=long_dev[key],
+        bound_ms=long_bounds[key][0], bound_by=long_bounds[key][1],
+        bound_ratio=(long_dev[key] / long_bounds[key][0]
+                     if isinstance(long_dev[key], float) else "not measured"),
+        plain_ms=long_plain_ms[key], library_ms=long_library.get(key))
+        for key in long_calls}
+    phase_done(torch, "timing_long", t0, reps=args.reps,
+               distinct_columns=long_distinct, scd_bytes=long_scd_bytes,
+               topk_k=kL, kernels=long_row, topk_plan=topk_long_plan,
+               topk_device_ms_by_cluster=topk_long_by_c,
+               bit_identical_to_plain=same)
+    if not all(same.values()):
+        raise SystemExit("chip_smoke: K2 or K3 disagrees with its plain "
+                         "version on the long-row path's Delta v (see the "
+                         "timing_long line)")
+    del trL, alphaL, wL, idxL, dvL, long_calls, long_plain
+    free(torch)
 
     # -- 6. device traces of compressed:int8 and ef:topk rounds ----------
     for ex in (PATHS[0][0], TOPK):
@@ -723,6 +983,8 @@ def main(argv=None) -> int:
     kernels[-1].update(k=k_main, k_eq_L=dict(
         k=L, ms=ms["topk_k_eq_L"], device_ms=dev_ms["topk_k_eq_L"],
         bound_ms=bounds["topk_k_eq_L"][0]))
+    for entry, key in zip(kernels, [r[0] for r in rows]):
+        entry["long_row"] = long_row[key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

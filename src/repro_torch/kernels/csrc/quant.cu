@@ -83,13 +83,68 @@ __device__ __forceinline__ int code(float v, float s, float qmax) {
   return (int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -qmax), qmax);
 }
 
+// The group of four output bytes at byte j of a row (j a multiple of 4,
+// j < b1): the 4*PER elements they pack, element j + e + r*W in v[r][e],
+// the zero pad (an index >= L) and bytes at or past b1 read as 0.
+template <int PER>
+__device__ __forceinline__ void load_group(const float* __restrict__ xk,
+                                           int j, int W, int L, int b1,
+                                           int vec, float (&v)[PER][4]) {
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const float* part = xk + (size_t)r * W;
+    if (vec) {
+      const float4 f = *reinterpret_cast<const float4*>(part + j);
+      v[r][0] = f.x;
+      v[r][1] = f.y;
+      v[r][2] = f.z;
+      v[r][3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long i = (long long)r * W + j + e;
+        v[r][e] = (j + e < b1 && i < L) ? part[j + e] : 0.f;
+      }
+    }
+  }
+}
+
+// Quantize a group and store its bytes (a 4-byte word where the loads
+// were 16-byte ones, else byte by byte up to b1).
+template <int PER>
+__device__ __forceinline__ void store_group(uint8_t* __restrict__ ok, int j,
+                                            int b1, int vec,
+                                            const float (&v)[PER][4],
+                                            float s, float qmax, int bias) {
+  constexpr int kBits = 8 / PER;
+  uint32_t word = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t byte = 0u;
+#pragma unroll
+    for (int r = 0; r < PER; ++r)
+      byte |= ((uint32_t)(code(v[r][e], s, qmax) + bias) & 0xFFu)
+              << (kBits * r);
+    word |= byte << (8 * e);
+  }
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(ok + j) = word;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j + e < b1) ok[j + e] = (uint8_t)(word >> (8 * e));
+  }
+}
+
 // PER elements to a byte (1: int8, 2: int4, 4: int2); ITEMS groups of
-// four output bytes a thread.
+// four output bytes a thread held in registers, or 0: the CTA's range
+// streamed twice, an absmax pass and a quantize pass that reads the
+// elements again (an L2 hit), for a range past kMaxFloats elements a
+// thread.
 template <int PER, int ITEMS>
 __global__ void __launch_bounds__(kThreads)
 quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ out,
              float* __restrict__ scales, int L, int span, int vec) {
-  constexpr int kBits = 8 / PER;
   __shared__ float warp_amax[kWarps];
   __shared__ uint32_t peer_amax[kMaxCluster];   // slot r: rank r's absmax
   __shared__ __align__(8) uint64_t got;         // completes when all C land
@@ -97,13 +152,14 @@ quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ out,
   const uint32_t C = cluster::size();
   const uint32_t rank = cluster::rank();
   const int k = blockIdx.x / C;
-  const int W = (L + PER - 1) / PER;                 // bytes of a row
-  const int b0 = min((int)rank * span, W);
-  const int b1 = min(b0 + span, W);
+  const int W = (int)(((long long)L + PER - 1) / PER);   // bytes of a row
+  const int b0 = (int)min((long long)rank * span, (long long)W);
+  const int b1 = (int)min((long long)b0 + span, (long long)W);
   const float* xk = x + (size_t)k * L;
   uint8_t* ok = out + (size_t)k * W;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  constexpr int kStep = 4 * kThreads;               // bytes a CTA pass
 
   // the mbarrier the peers' absmax values complete on; the rendezvous
   // that makes it visible to them is waited for only after the load
@@ -114,29 +170,33 @@ quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ out,
   cluster::arrive();
 
   // -- 1. one read of this CTA's elements -------------------------------
-  float v[ITEMS][PER][4];
+  constexpr int kGroups = ITEMS > 0 ? ITEMS : 1;
+  float v[kGroups][PER][4];
   float amax = 0.f;
+  if constexpr (ITEMS > 0) {
 #pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int j = b0 + 4 * ((int)threadIdx.x + it * kThreads);
-#pragma unroll
-    for (int r = 0; r < PER; ++r) {
-      if (vec) {
-        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (j < b1) f = *reinterpret_cast<const float4*>(xk + j + r * W);
-        v[it][r][0] = f.x;
-        v[it][r][1] = f.y;
-        v[it][r][2] = f.z;
-        v[it][r][3] = f.w;
+    for (int it = 0; it < ITEMS; ++it) {
+      const int j = b0 + 4 * ((int)threadIdx.x + it * kThreads);
+      if (j < b1) {
+        load_group<PER>(xk, j, W, L, b1, vec, v[it]);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = j + e + r * W;
-          v[it][r][e] = (j + e < b1 && i < L) ? xk[i] : 0.f;
-        }
+        for (int r = 0; r < PER; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[it][r][e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[it][r][e]));
+      for (int r = 0; r < PER; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[it][r][e]));
+    }
+  } else {
+    for (long long j = b0 + 4LL * threadIdx.x; j < b1; j += kStep) {
+      load_group<PER>(xk, (int)j, W, L, b1, vec, v[0]);
+#pragma unroll
+      for (int r = 0; r < PER; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[0][r][e]));
     }
   }
 
@@ -180,26 +240,16 @@ quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ out,
     qmax = 1.0f;
     bias = 2;
   }
+  if constexpr (ITEMS > 0) {
 #pragma unroll
-  for (int it = 0; it < ITEMS; ++it) {
-    const int j = b0 + 4 * ((int)threadIdx.x + it * kThreads);
-    if (j >= b1) continue;
-    uint32_t word = 0u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t byte = 0u;
-#pragma unroll
-      for (int r = 0; r < PER; ++r)
-        byte |= ((uint32_t)(code(v[it][r][e], s, qmax) + bias) & 0xFFu)
-                << (kBits * r);
-      word |= byte << (8 * e);
+    for (int it = 0; it < ITEMS; ++it) {
+      const int j = b0 + 4 * ((int)threadIdx.x + it * kThreads);
+      if (j < b1) store_group<PER>(ok, j, b1, vec, v[it], s, qmax, bias);
     }
-    if (vec) {
-      *reinterpret_cast<uint32_t*>(ok + j) = word;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (j + e < b1) ok[j + e] = (uint8_t)(word >> (8 * e));
+  } else {
+    for (long long j = b0 + 4LL * threadIdx.x; j < b1; j += kStep) {
+      load_group<PER>(xk, (int)j, W, L, b1, vec, v[0]);
+      store_group<PER>(ok, (int)j, b1, vec, v[0], s, qmax, bias);
     }
   }
   if (rank == 0 && threadIdx.x == 0) scales[k] = s;
@@ -222,11 +272,17 @@ cudaError_t launch(const float* x, uint8_t* out, float* scales, int K,
   return cudaGetLastError();
 }
 
+// ITEMS groups of four bytes a thread, rounded up to a power of two;
+// a span past kMaxFloats elements a thread takes the streaming form
+// (`stream`, which the plan sets and this side checks).
 template <int PER>
 cudaError_t dispatch(const float* x, uint8_t* out, float* scales, int K,
-                     int L, int C, int span, int vec, cudaStream_t st) {
-  // groups of four bytes a thread, rounded up to a power of two
+                     int L, int C, int span, int stream, int vec,
+                     cudaStream_t st) {
   const int items = (span / 4 + kThreads - 1) / kThreads;
+  if (stream != (items * PER * 4 > kMaxFloats)) return cudaErrorInvalidValue;
+  if (stream)
+    return launch<PER, 0>(x, out, scales, K, L, C, span, vec, st);
 #define QUANT_CASE(N)                                                      \
   if constexpr (N * PER * 4 <= kMaxFloats) {                               \
     if (items <= N)                                                        \
@@ -244,38 +300,38 @@ cudaError_t dispatch(const float* x, uint8_t* out, float* scales, int K,
 
 // The span a plan must give: ceil(W / C) bytes rounded up to 4.
 int plan_span(int W, int C) {
-  const int s = (W + C - 1) / C;
-  return (s + 3) / 4 * 4;
+  const long long s = ((long long)W + C - 1) / C;
+  return (int)((s + 3) / 4 * 4);
 }
 
 }  // namespace
 
 // One launch of K clusters of `cluster` CTAs, each CTA `span` output
-// bytes of its row. `span` comes from the Python plan
-// (kernels/quant.py::quant_plan); a plan this side does not reproduce,
-// or one whose CTA would hold more than kMaxFloats elements a thread, is
-// refused with cudaErrorInvalidValue.
+// bytes of its row, held in registers or (`stream`) read twice. `span`
+// and `stream` come from the Python plan (kernels/quant.py::quant_plan);
+// a plan this side does not reproduce is refused with
+// cudaErrorInvalidValue.
 extern "C" int quant_launch(const float* x, void* out, float* scales,
                             int K, int L, int bits, int cluster, int span,
-                            void* stream) {
+                            int stream, void* stream_ptr) {
   if (K < 1 || L < 1 || cluster < 1 || cluster > kMaxCluster ||
       (cluster & (cluster - 1)) != 0 ||
       (bits != 8 && bits != 4 && bits != 2))
     return (int)cudaErrorInvalidValue;
   const int per = 8 / bits;
-  const int W = (L + per - 1) / per;
+  const int W = (int)(((long long)L + per - 1) / per);
   if (span != plan_span(W, cluster)) return (int)cudaErrorInvalidValue;
   const int vec = (L % (4 * per) == 0) &&
                   (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(out) % 4 == 0);
   uint8_t* o = static_cast<uint8_t*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t e;
   if (bits == 8)
-    e = dispatch<1>(x, o, scales, K, L, cluster, span, vec, st);
+    e = dispatch<1>(x, o, scales, K, L, cluster, span, stream, vec, st);
   else if (bits == 4)
-    e = dispatch<2>(x, o, scales, K, L, cluster, span, vec, st);
+    e = dispatch<2>(x, o, scales, K, L, cluster, span, stream, vec, st);
   else
-    e = dispatch<4>(x, o, scales, K, L, cluster, span, vec, st);
+    e = dispatch<4>(x, o, scales, K, L, cluster, span, stream, vec, st);
   return (int)e;
 }

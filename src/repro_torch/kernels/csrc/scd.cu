@@ -47,6 +47,33 @@
 //   shared memory and applies the same update; rank 0 writes alpha_out,
 //   and each CTA writes its slab of delta_v.
 //
+// The variants for what does not fit that layout (kernels/scd.py::
+// scd_plan takes them only where no C of it fits):
+// - rho streamed (scd_kernel_streamed, a __global__ function of its own
+//   built from device helpers; the register form keeps its own body), for
+//   slabs past the 64 rows a consumer thread holds in registers
+//   (m > 262,144 at C = 16; webspam's m = 350,000). The producer streams each step's column slab through
+//   the ring twice, in stages of kStageRows rows: once for the dot,
+//   which the consumers sum over the stages before the one rendezvous a
+//   step, and once more for the update (from L2: the first pass copied it
+//   a moment before), so both passes read the column from shared memory
+//   and nothing on the step's path waits on a plain load. Thread t owns
+//   the rows t, t+256, ... of the slab in both passes, as in the register
+//   form, so no barrier orders rho's rows. rho's slab lives in shared
+//   memory where it fits beside a ring of at least 2 stages (kRhoShared;
+//   at m = 350,000 a slab of 43,752 rows at C = 8 takes 175 KB and
+//   leaves 3 stages), else (kRhoDevice) in delta_v's own rows in device
+//   memory, which are written with (rho - w) / sigma at the end.
+// - alpha in device memory, for an alpha block past the shared memory
+//   a CTA has left (n_pad >= 55,995 at m = 16,384). Every CTA already
+//   applies the same alpha update, so each keeps a private copy in a
+//   scratch block the wrapper allocates (K*C rows of n_pad); no CTA reads
+//   another's copy, so nothing needs coherence across CTAs. Each warp
+//   writes the step's z itself before it reads alpha again (as in shared
+//   memory), and the consumers' named barrier orders the warps' writes.
+//   Where alpha lives is a template parameter, so the shared copy stays
+//   a shared-memory access.
+//
 // Alignment: the 1-D bulk copy (cp.async.bulk) needs 16-byte addresses and
 // a size that is a multiple of 16 B. S is a multiple of 4 floats, so when
 // m is a multiple of 4 (and A_T 16-byte aligned) every slab, the last
@@ -78,6 +105,10 @@ constexpr int kThreads = kConsumers + 32;       // + one producer warp
 constexpr int kMaxCluster = 16;
 constexpr int kMaxRing = 8;
 constexpr int kMaxItems = 64;                   // slab <= 64 * kConsumers
+constexpr int kStageRows = 4096;                // a streamed stage, at most
+
+// where rho's slab lives
+enum Rho { kRegisters = 0, kRhoShared = 1, kRhoDevice = 2 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -115,17 +146,21 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
 }
 
-// Shared memory of one CTA, in 4-byte words and then 8-byte mbarriers.
-// scd_shared_bytes() and the Python plan compute the same total.
+// Shared memory of one CTA, in 4-byte words and then 8-byte mbarriers:
+// P stages of `stage` rows, `n_alpha` floats of alpha (0 when alpha lives
+// in device memory) and `n_rho` of rho (the slab when rho's slab lives in
+// shared memory, else 0). scd_shared_bytes() and the Python plan compute
+// the same total.
 struct Layout {
-  int ring, coef, red, slots, alpha, jdx, bars;
-  __host__ __device__ Layout(int slab, int P, int n_pad) {
-    ring = 0;                          // P * slab floats (16 B aligned)
-    coef = ring + P * slab;            // P x (csq, sigma*csq, denom, thr)
+  int ring, coef, red, slots, alpha, rho, jdx, bars;
+  __host__ __device__ Layout(int stage, int P, int n_alpha, int n_rho) {
+    ring = 0;                          // P * stage floats (16 B aligned)
+    coef = ring + P * stage;           // P x (csq, sigma*csq, denom, thr)
     red = coef + 4 * P;                // 2 x kConsumerWarps partials
     slots = red + 2 * kConsumerWarps;  // 2 x kMaxCluster CTA partials
-    alpha = slots + 2 * kMaxCluster;   // n_pad floats
-    jdx = alpha + n_pad;               // P indices
+    alpha = slots + 2 * kMaxCluster;   // n_alpha floats
+    rho = alpha + n_alpha;             // n_rho floats
+    jdx = rho + n_rho;                 // P indices
     bars = (jdx + P + 1) / 2 * 2;      // 8 B aligned: full P, empty P, red 2
   }
   __host__ __device__ long long bytes(int P) const {
@@ -133,17 +168,157 @@ struct Layout {
   }
 };
 
-template <int ITEMS>
+// The barriers and the worker's alpha block, before any peer uses them.
+__device__ __forceinline__ void setup(uint64_t* full, uint64_t* empty,
+                                      uint64_t* red_bar, float* alpha,
+                                      const float* alpha_k, int n_pad,
+                                      int P, int aligned, int tid) {
+  if (tid == 0) {
+    for (int st = 0; st < P; ++st) {
+      mbar_init(&full[st], aligned ? 1 : 33);
+      mbar_init(&empty[st], kConsumerWarps);
+    }
+    mbar_init(&red_bar[0], 1);
+    mbar_init(&red_bar[1], 1);
+    cluster::fence_mbar_init();
+  }
+  for (int i = tid; i < n_pad; i += kThreads) alpha[i] = alpha_k[i];
+  cluster::sync();   // every CTA's barriers exist before any peer uses them
+}
+
+// What the step s = base + lane needs of its column alone, computed by
+// the producer warp 32 steps at a time, off the step's chain: the index
+// (an index outside the block traps before any copy is issued) and the
+// column's norm, sigma*||c||^2, the denominator and the soft threshold.
+struct Column {
+  int j;
+  float cs, scsq, denom, thr;
+};
+
+__device__ __forceinline__ Column column(const int32_t* idx_k,
+                                         const float* csq_k, int s, int H,
+                                         int n_pad, float sigma,
+                                         float lam_eta, float lam_l1) {
+  Column c;
+  c.j = 0;
+  c.cs = 0.f;
+  if (s < H) {
+    c.j = idx_k[s];
+    if (c.j < 0 || c.j >= n_pad) __trap();
+    c.cs = csq_k[c.j];
+  }
+  c.scsq = sigma * c.cs;
+  c.denom = c.scsq + lam_eta;
+  c.thr = lam_l1 / c.denom;
+  return c;
+}
+
+// Lane u's index, and its scalars in `cf`, in every lane of the warp.
+__device__ __forceinline__ int from_lane(const Column& c, int u,
+                                         float4& cf) {
+  cf.x = __shfl_sync(0xffffffffu, c.cs, u);
+  cf.y = __shfl_sync(0xffffffffu, c.scsq, u);
+  cf.z = __shfl_sync(0xffffffffu, c.denom, u);
+  cf.w = __shfl_sync(0xffffffffu, c.thr, u);
+  return __shfl_sync(0xffffffffu, c.j, u);
+}
+
+// The producer warp fills stage `st` with `len` floats of the column at
+// `src` and the step's index and scalars, completing them on full[st].
+__device__ __forceinline__ void fill(float* dst, const float* src, int len,
+                                     int st, int jj, float4 cf, int aligned,
+                                     int lane, uint64_t* full,
+                                     int32_t* j_ring, float* coef_ring) {
+  if (aligned) {
+    if (lane == 0) {
+      j_ring[st] = jj;
+      reinterpret_cast<float4*>(coef_ring)[st] = cf;
+      mbar_arrive_expect(&full[st], 4u * (uint32_t)len);
+      if (len > 0) bulk_copy(dst, src, 4u * (uint32_t)len, &full[st]);
+    }
+  } else {
+    for (int i = lane; i < len; i += 32) copy4(dst + i, src + i);
+    copy4_arrive(&full[st]);
+    if (lane == 0) {
+      j_ring[st] = jj;
+      reinterpret_cast<float4*>(coef_ring)[st] = cf;
+      mbar_arrive(&full[st]);
+    }
+  }
+  __syncwarp();
+}
+
+// Where lane q < C of warp 0 sends the CTA's partial: slot `rank` of the
+// CTA of rank q, and its barrier, by step parity.
+struct Peers {
+  uint32_t slot0, slot1, bar0, bar1;
+};
+
+__device__ __forceinline__ Peers peers(float* slots, uint64_t* red_bar,
+                                       uint32_t rank, uint32_t C, int warp,
+                                       int lane) {
+  Peers q = {0u, 0u, 0u, 0u};
+  if (warp == 0 && lane < (int)C) {
+    q.slot0 = cluster::peer_addr(&slots[rank], lane);
+    q.slot1 = cluster::peer_addr(&slots[kMaxCluster + rank], lane);
+    q.bar0 = cluster::peer_addr(&red_bar[0], lane);
+    q.bar1 = cluster::peer_addr(&red_bar[1], lane);
+  }
+  return q;
+}
+
+// Step s's rendezvous: this thread's partial dot `part` summed over the
+// warp, the CTA and then the cluster's CTAs in rank order, and the new
+// alpha_j from it (a = the old one, cf the column's scalars). Every
+// consumer thread of every CTA computes the same z.
+__device__ __forceinline__ float step_z(float part, float a, float4 cf,
+                                        int s, float* red, float* slots,
+                                        uint64_t* red_bar, const Peers& q,
+                                        uint32_t C, int warp, int lane) {
+  const int p = s & 1;
+  part = warp_sum(part);
+  if (lane == 0) red[p * kConsumerWarps + warp] = part;
+  consumers_sync();
+  if (warp == 0) {
+    // each group of 8 lanes sums the 8 warp partials in the same
+    // butterfly order, so every sending lane holds the CTA's partial
+    float v = red[p * kConsumerWarps + (lane & (kConsumerWarps - 1))];
+#pragma unroll
+    for (int o = kConsumerWarps / 2; o > 0; o >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane < (int)C)
+      st_async(p ? q.slot1 : q.slot0, __float_as_uint(v),
+               p ? q.bar1 : q.bar0);
+    if (lane == 0) mbar_arrive_expect(&red_bar[p], 4u * C);
+  }
+  mbar_wait<true>(&red_bar[p], (uint32_t)((s >> 1) & 1));
+  float dot = 0.f;
+  for (uint32_t r = 0; r < C; ++r) dot += slots[p * kMaxCluster + r];
+  const float z_tilde = (cf.y * a - dot) / cf.z;
+  const float sgn = z_tilde > 0.f ? 1.f : (z_tilde < 0.f ? -1.f : 0.f);
+  const float z = sgn * fmaxf(fabsf(z_tilde) - cf.w, 0.f);
+  return cf.x > 0.f ? z : a;                  // zero (padded) column: no-op
+}
+
+// The register form: ITEMS rows of rho a consumer thread holds in
+// registers, one ring stage a step holding the step's column slab; alpha
+// in shared memory, or (ALPHA_DEV) this CTA's copy in alpha_priv. Its
+// body is written out as it was before the streamed forms existed, not
+// built from the helpers above, which only the streamed forms use.
+template <int ITEMS, bool ALPHA_DEV>
 __global__ void __launch_bounds__(kThreads, 1)
 scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
            const float* __restrict__ alpha_in, const float* __restrict__ w,
            const int32_t* __restrict__ idx, float* __restrict__ alpha_out,
-           float* __restrict__ delta_v, int n_pad, int m, int H, int slab,
-           int P, int aligned, float sigma, float lam_eta, float lam_l1) {
+           float* __restrict__ delta_v, float* alpha_priv, int n_pad, int m,
+           int H, int slab, int P, int aligned, float sigma, float lam_eta,
+           float lam_l1) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(slab, P, n_pad);
+  const Layout L(slab, P, ALPHA_DEV ? 0 : n_pad, 0);
   float* ring = smem + L.ring;
-  float* alpha = smem + L.alpha;
+  // the worker's alpha block: in shared memory, or this CTA's own copy
+  float* alpha = ALPHA_DEV ? alpha_priv + (size_t)blockIdx.x * n_pad
+                           : smem + L.alpha;
   float* red = smem + L.red;
   float* slots = smem + L.slots;
   float* coef_ring = smem + L.coef;
@@ -299,13 +474,136 @@ scd_kernel(const float* __restrict__ A_T, const float* __restrict__ col_sq,
   cluster::sync();   // no CTA leaves while a peer may still store into it
 }
 
-template <int ITEMS>
+// The streamed forms: rho's slab in shared memory (RHO == kRhoShared) or
+// in delta_v's rows (kRhoDevice), each step's column slab passed through
+// the ring twice in stages of `stage` rows; alpha as in scd_kernel.
+template <int RHO, bool ALPHA_DEV>
+__global__ void __launch_bounds__(kThreads, 1)
+scd_kernel_streamed(const float* __restrict__ A_T,
+                    const float* __restrict__ col_sq,
+                    const float* __restrict__ alpha_in,
+                    const float* __restrict__ w,
+                    const int32_t* __restrict__ idx,
+                    float* __restrict__ alpha_out, float* delta_v,
+                    float* alpha_priv, int n_pad, int m, int H, int slab,
+                    int stage, int P, int aligned, float sigma,
+                    float lam_eta, float lam_l1) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(stage, P, ALPHA_DEV ? 0 : n_pad,
+                 RHO == kRhoShared ? slab : 0);
+  float* ring = smem + L.ring;
+  float* red = smem + L.red;
+  float* slots = smem + L.slots;
+  float* coef_ring = smem + L.coef;
+  int32_t* j_ring = reinterpret_cast<int32_t*>(smem + L.jdx);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + P;
+  uint64_t* red_bar = empty + P;
+  float* alpha = ALPHA_DEV ? alpha_priv + (size_t)blockIdx.x * n_pad
+                           : smem + L.alpha;
+
+  const uint32_t C = cluster::size();
+  const uint32_t rank = cluster::rank();
+  const int k = blockIdx.x / C;
+  const int lo = (int)min((long long)rank * slab, (long long)m);
+  const int len = (int)min((long long)lo + slab, (long long)m) - lo;
+  const int chunks = max(1, (len + stage - 1) / stage);   // stages a pass
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float* A_k = A_T + (size_t)k * n_pad * m;
+
+  setup(full, empty, red_bar, alpha, alpha_in + (size_t)k * n_pad, n_pad, P,
+        aligned, tid);
+
+  if (warp == kConsumerWarps) {
+    // ---- producer warp: `chunks` stages a pass, two passes a step ------
+    const float* csq_k = col_sq + (size_t)k * n_pad;
+    const int32_t* idx_k = idx + (size_t)k * H;
+    for (int base = 0; base < H; base += 32) {
+      const Column col = column(idx_k, csq_k, base + lane, H, n_pad, sigma,
+                                lam_eta, lam_l1);
+      const int n = min(32, H - base);
+      for (int u = 0; u < n; ++u) {
+        const int t = base + u;
+        float4 cf;
+        const int jj = from_lane(col, u, cf);
+        for (int c = 0; c < 2 * chunks; ++c) {
+          const int g = 2 * t * chunks + c;
+          const int st = g % P;
+          const int clo = (c % chunks) * stage;
+          if (g >= P)
+            mbar_wait<false>(&empty[st], (uint32_t)((g / P - 1) & 1));
+          fill(ring + (size_t)st * stage, A_k + (size_t)jj * m + lo + clo,
+               max(0, min(stage, len - clo)), st, jj, cf, aligned, lane,
+               full, j_ring, coef_ring);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warps: the H steps -----------------------------------
+    const Peers q = peers(slots, red_bar, rank, C, warp, lane);
+    float* rho = RHO == kRhoShared ? smem + L.rho
+                                   : delta_v + (size_t)k * m + lo;
+    for (int i = tid; i < len; i += kConsumers) rho[i] = w[lo + i];
+    for (int s = 0; s < H; ++s) {
+      int j = 0;
+      float4 cf = make_float4(0.f, 0.f, 0.f, 0.f);
+      float part = 0.f;
+      // the dot pass: `chunks` stages, the dot goes on over them
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int g = 2 * s * chunks + ch;
+        const int st = g % P;
+        mbar_wait<false>(&full[st], (uint32_t)((g / P) & 1));
+        if (ch == 0) {
+          j = j_ring[st];
+          cf = reinterpret_cast<const float4*>(coef_ring)[st];
+        }
+        const float* col = ring + (size_t)st * stage;
+        const int clo = ch * stage;
+        const int clen = min(stage, len - clo);
+        for (int i = tid; i < clen; i += kConsumers)
+          part += rho[clo + i] * col[i];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
+      const float a = alpha[j];
+      const float z = step_z(part, a, cf, s, red, slots, red_bar, q, C,
+                             warp, lane);
+      if (lane == 0) alpha[j] = z;              // same value in every warp
+      __syncwarp();
+      const float mv = sigma * (z - a);
+      // the update pass: the same stages of the column again
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int g = (2 * s + 1) * chunks + ch;
+        const int st = g % P;
+        mbar_wait<false>(&full[st], (uint32_t)((g / P) & 1));
+        const float* col = ring + (size_t)st * stage;
+        const int clo = ch * stage;
+        const int clen = min(stage, len - clo);
+        for (int i = tid; i < clen; i += kConsumers)
+          rho[clo + i] = rho[clo + i] + mv * col[i];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
+    }
+    float* dv = delta_v + (size_t)k * m + lo;
+    for (int i = tid; i < len; i += kConsumers)
+      dv[i] = (rho[i] - w[lo + i]) / sigma;
+    consumers_sync();
+    if (rank == 0)
+      for (int i = tid; i < n_pad; i += kConsumers)
+        alpha_out[(size_t)k * n_pad + i] = alpha[i];
+  }
+  cluster::sync();   // no CTA leaves while a peer may still store into it
+}
+
+template <auto Kernel>
 cudaError_t configure(int cluster, size_t smem) {
   cudaError_t e = cudaFuncSetAttribute(
-      scd_kernel<ITEMS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(scd_kernel<ITEMS>,
+  return cudaFuncSetAttribute(Kernel,
                               cudaFuncAttributeNonPortableClusterSizeAllowed,
                               cluster > 8 ? 1 : 0);
 }
@@ -315,95 +613,73 @@ cudaLaunchConfig_t config(int K, int cluster, size_t smem,
   return cluster::config(K * cluster, kThreads, cluster, smem, stream, attr);
 }
 
-template <int ITEMS>
-cudaError_t launch(const float* A_T, const float* col_sq,
-                   const float* alpha_in, const float* w, const int32_t* idx,
-                   float* alpha_out, float* delta_v, int K, int n_pad, int m,
-                   int H, int cluster, int slab, int ring, int aligned,
-                   float sigma, float lam_eta, float lam_l1, size_t smem,
-                   cudaStream_t stream) {
-  cudaError_t e = configure<ITEMS>(cluster, smem);
+template <auto Kernel, typename... Args>
+cudaError_t launch(int K, int cluster, size_t smem, cudaStream_t stream,
+                   Args... args) {
+  cudaError_t e = configure<Kernel>(cluster, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config(K, cluster, smem, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, scd_kernel<ITEMS>, A_T, col_sq, alpha_in, w,
-                         idx, alpha_out, delta_v, n_pad, m, H, slab, ring,
-                         aligned, sigma, lam_eta, lam_l1);
+  e = cudaLaunchKernelEx(&cfg, Kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <int ITEMS>
+template <auto Kernel>
 cudaError_t occupancy(int cluster, size_t smem, int* out) {
-  cudaError_t e = configure<ITEMS>(cluster, smem);
+  cudaError_t e = configure<Kernel>(cluster, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = config(1, cluster, smem, 0, attr);
-  return cudaOccupancyMaxActiveClusters(out, scd_kernel<ITEMS>, &cfg);
+  return cudaOccupancyMaxActiveClusters(out, Kernel, &cfg);
 }
 
 // The slab a plan must give: ceil(m / cluster) rounded up to 4 floats.
 int plan_slab(int m, int cluster) {
-  const int s = (m + cluster - 1) / cluster;
-  return (s + 3) / 4 * 4;
+  const long long s = ((long long)m + cluster - 1) / cluster;
+  return (int)((s + 3) / 4 * 4);
 }
 
-bool plan_ok(int m, int n_pad, int cluster, int slab, int ring) {
+// The stage a plan must give: the slab when rho is in registers (which
+// holds at most kMaxItems rows a consumer thread); streamed, at most
+// kStageRows rows of it.
+bool plan_ok(int m, int n_pad, int cluster, int slab, int stage, int ring,
+             int rho) {
+  const bool stage_ok =
+      rho == kRegisters
+          ? (stage == slab && slab <= kMaxItems * kConsumers)
+          : (rho == kRhoShared || rho == kRhoDevice) &&
+                stage == min(slab, kStageRows);
   return (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
-          cluster == 16) && slab == plan_slab(m, cluster) &&
-         slab <= kMaxItems * kConsumers && ring >= 2 && ring <= kMaxRing &&
-         n_pad >= 1;
+          cluster == 16) && slab == plan_slab(m, cluster) && stage_ok &&
+         ring >= 2 && ring <= kMaxRing && n_pad >= 1;
 }
 
-}  // namespace
-
-// Dynamic shared memory one CTA needs: the ring of `ring` column slabs,
-// the worker's alpha block, the partials, the stage scalars
-// and the mbarriers. kernels/scd.py computes the same number.
-extern "C" long long scd_shared_bytes(int slab, int ring, int n_pad) {
-  return Layout(slab, ring, n_pad).bytes(ring);
-}
-
-// How many clusters of `cluster` CTAs with `smem` bytes each can be
-// resident on this device at once (cudaOccupancyMaxActiveClusters).
-extern "C" int scd_max_active_clusters(int cluster, int slab, long long smem,
-                                       int* out) {
+// The kernel instance for the plan: the streamed form for rho in shared
+// or device memory, else the register form with the rows a thread rounded
+// up to a power of two.
+template <bool ALPHA_DEV>
+cudaError_t dispatch(const float* A_T, const float* col_sq,
+                     const float* alpha_in, const float* w,
+                     const int32_t* idx, float* alpha_out, float* delta_v,
+                     float* alpha_priv, int K, int n_pad, int m, int H,
+                     int cluster, int slab, int stage, int ring, int rho,
+                     int aligned, float sigma, float lam_eta, float lam_l1,
+                     size_t smem, cudaStream_t st) {
+#define SCD_ARGS                                                            \
+  K, cluster, smem, st, A_T, col_sq, alpha_in, w, idx, alpha_out, delta_v, \
+      alpha_priv, n_pad, m, H, slab
+  if (rho == kRhoShared)
+    return launch<scd_kernel_streamed<kRhoShared, ALPHA_DEV>>(
+        SCD_ARGS, stage, ring, aligned, sigma, lam_eta, lam_l1);
+  if (rho == kRhoDevice)
+    return launch<scd_kernel_streamed<kRhoDevice, ALPHA_DEV>>(
+        SCD_ARGS, stage, ring, aligned, sigma, lam_eta, lam_l1);
   const int items = (slab + kConsumers - 1) / kConsumers;
-#define SCD_OCC(N) \
-  if (items <= N) return (int)occupancy<N>(cluster, (size_t)smem, out);
-  SCD_OCC(1)
-  SCD_OCC(2)
-  SCD_OCC(4)
-  SCD_OCC(8)
-  SCD_OCC(16)
-  SCD_OCC(32)
-  SCD_OCC(64)
-#undef SCD_OCC
-  return (int)cudaErrorInvalidValue;
-}
-
-// One launch of K clusters of `cluster` CTAs. `slab`, `ring` and `smem`
-// come from the Python plan; a plan this side does not reproduce is
-// refused with cudaErrorInvalidValue.
-extern "C" int scd_launch(const float* A_T, const float* col_sq,
-                          const float* alpha_in, const float* w,
-                          const int32_t* idx, float* alpha_out,
-                          float* delta_v, int K, int n_pad, int m, int H,
-                          int cluster, int slab, int ring, long long smem,
-                          float sigma, float lam_eta, float lam_l1,
-                          void* stream) {
-  if (K < 1 || m < 1 || !plan_ok(m, n_pad, cluster, slab, ring) ||
-      smem != scd_shared_bytes(slab, ring, n_pad))
-    return (int)cudaErrorInvalidValue;
-  const int aligned = (m % 4 == 0) &&
-                      (reinterpret_cast<uintptr_t>(A_T) % 16 == 0);
-  const int items = (slab + kConsumers - 1) / kConsumers;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SCD_CASE(N)                                                         \
   if (items <= N)                                                           \
-    return (int)launch<N>(A_T, col_sq, alpha_in, w, idx, alpha_out,         \
-                          delta_v, K, n_pad, m, H, cluster, slab, ring,     \
-                          aligned, sigma, lam_eta, lam_l1, (size_t)smem, st);
+    return launch<scd_kernel<N, ALPHA_DEV>>(SCD_ARGS, ring, aligned, sigma, \
+                                            lam_eta, lam_l1);
   SCD_CASE(1)
   SCD_CASE(2)
   SCD_CASE(4)
@@ -412,5 +688,87 @@ extern "C" int scd_launch(const float* A_T, const float* col_sq,
   SCD_CASE(32)
   SCD_CASE(64)
 #undef SCD_CASE
-  return (int)cudaErrorInvalidValue;
+#undef SCD_ARGS
+  return cudaErrorInvalidValue;
+}
+
+template <bool ALPHA_DEV>
+cudaError_t occupancy_of(int cluster, int slab, int rho, size_t smem,
+                         int* out) {
+  if (rho == kRhoShared)
+    return occupancy<scd_kernel_streamed<kRhoShared, ALPHA_DEV>>(cluster,
+                                                                 smem, out);
+  if (rho == kRhoDevice)
+    return occupancy<scd_kernel_streamed<kRhoDevice, ALPHA_DEV>>(cluster,
+                                                                 smem, out);
+  const int items = (slab + kConsumers - 1) / kConsumers;
+#define SCD_OCC(N) \
+  if (items <= N)  \
+    return occupancy<scd_kernel<N, ALPHA_DEV>>(cluster, smem, out);
+  SCD_OCC(1)
+  SCD_OCC(2)
+  SCD_OCC(4)
+  SCD_OCC(8)
+  SCD_OCC(16)
+  SCD_OCC(32)
+  SCD_OCC(64)
+#undef SCD_OCC
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Dynamic shared memory one CTA needs: the ring of `ring` stages of
+// `stage` rows, `n_alpha` floats of alpha (the worker's block, or 0 when
+// alpha lives in device memory), `n_rho` of rho (the slab when it lives in
+// shared memory, else 0), the partials, the stage scalars and the
+// mbarriers. kernels/scd.py computes the same number.
+extern "C" long long scd_shared_bytes(int stage, int ring, int n_alpha,
+                                      int n_rho) {
+  return Layout(stage, ring, n_alpha, n_rho).bytes(ring);
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes each can be
+// resident on this device at once (cudaOccupancyMaxActiveClusters), for
+// the kernel that holds a slab of `slab` rows where `rho` says (0
+// registers, 1 shared memory, 2 device memory) and alpha in shared or
+// (`alpha_dev`) device memory.
+extern "C" int scd_max_active_clusters(int cluster, int slab, int rho,
+                                       int alpha_dev, long long smem,
+                                       int* out) {
+  const size_t sm = (size_t)smem;
+  if (alpha_dev) return occupancy_of<true>(cluster, slab, rho, sm, out);
+  return occupancy_of<false>(cluster, slab, rho, sm, out);
+}
+
+// One launch of K clusters of `cluster` CTAs. `slab`, `stage`, `ring`,
+// `rho` and `smem` come from the Python plan, and `alpha_priv` is its
+// scratch for alpha in device memory (K*cluster rows of n_pad) or null; a
+// plan this side does not reproduce is refused with
+// cudaErrorInvalidValue.
+extern "C" int scd_launch(const float* A_T, const float* col_sq,
+                          const float* alpha_in, const float* w,
+                          const int32_t* idx, float* alpha_out,
+                          float* delta_v, float* alpha_priv, int K,
+                          int n_pad, int m, int H, int cluster, int slab,
+                          int stage, int ring, int rho, long long smem,
+                          float sigma, float lam_eta, float lam_l1,
+                          void* stream) {
+  if (K < 1 || m < 1 ||
+      !plan_ok(m, n_pad, cluster, slab, stage, ring, rho) ||
+      smem != scd_shared_bytes(stage, ring, alpha_priv ? 0 : n_pad,
+                               rho == kRhoShared ? slab : 0))
+    return (int)cudaErrorInvalidValue;
+  const int aligned = (m % 4 == 0) &&
+                      (reinterpret_cast<uintptr_t>(A_T) % 16 == 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (alpha_priv)
+    return (int)dispatch<true>(A_T, col_sq, alpha_in, w, idx, alpha_out,
+                               delta_v, alpha_priv, K, n_pad, m, H, cluster,
+                               slab, stage, ring, rho, aligned, sigma,
+                               lam_eta, lam_l1, (size_t)smem, st);
+  return (int)dispatch<false>(A_T, col_sq, alpha_in, w, idx, alpha_out,
+                              delta_v, alpha_priv, K, n_pad, m, H, cluster,
+                              slab, stage, ring, rho, aligned, sigma,
+                              lam_eta, lam_l1, (size_t)smem, st);
 }

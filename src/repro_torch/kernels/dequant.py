@@ -10,15 +10,19 @@ Replaces the TPU kernels of ``repro.kernels.dequant``:
   * ``decode_reduce_int2`` — ``pallas_call`` at ``:165``, body
     ``_dec2_kernel``: (K, ceil(L/4)) packed 2-bit codes, code − 2.
 
-A 1-D grid over the payload's bytes; each thread adds its byte's 1, 2 or
-4 elements over the K workers in order k = 0..K-1 and, for the mean,
+Each thread owns 16 outputs on long rows (4 on short ones, so that the
+main path's rows spread over the SMs), the consecutive payload bytes of
+every row that pack them, loads the K rows' bytes 8 rows at a time, all
+in flight before the adds (as one load a row where the row stride
+allows), and adds each output over the K workers in order k = 0..K-1
+and, for the mean,
 multiplies by the f32-rounded 1/K — the reduction-order contract of
 ``decode_reduce_ref`` (``src/repro/comm/codec.py:247-260``), so each
 kernel is bit-identical to it. No (K, L) f32 stack is ever formed.
 
 Bound on the H100: bytes, K*(payload + 4) + 4L of them; at the main
 path's K = 8, L = 16384 that is 0.10-0.20 MB, and the launch latency
-dominates.
+dominates; at L = 350,000 it is 2.1-4.2 MB (0.63-1.25 us).
 
 The plain versions ``decode_reduce_int{8,4,2}_ref`` replay the same op
 sequence in eager PyTorch, one op at a time, so nothing can fuse the

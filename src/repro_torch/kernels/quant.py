@@ -22,7 +22,10 @@ dominates. Each row is a cluster of C CTAs: CTA rank r packs the output
 bytes ``[r*span, (r+1)*span)`` (cut at the row's byte count) from the
 elements they pair, read once into registers, and each CTA pushes its
 absmax to every peer's shared memory (``st.async``), so the row's absmax
-costs one push and one local wait. ``quant_plan`` picks C.
+costs one push and one local wait. ``quant_plan`` picks C, and, for a
+CTA past 128 elements a thread (a row past 524,288 at C = 16), the
+streaming form, which reads the CTA's elements twice: an absmax pass,
+then a quantize pass whose reads are mostly L2 hits.
 
 The plain versions ``quantize_pack_int{8,4,2}_ref`` are the port's
 copies of ``Int{8,4,2}Codec.encode_ref`` run op by op, and each kernel is
@@ -48,12 +51,15 @@ from repro_torch.comm.codec import (INT2_QMAX, INT2_SCALE_MUL, INT4_QMAX,
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_LAUNCH = [_P, _P, _P] + [_I] * 5 + [_P]
+_LAUNCH = [_P, _P, _P] + [_I] * 6 + [_P]
 
 CLUSTERS = (16, 8, 4, 2, 1)      # cluster sizes, largest first
 THREADS = 256                    # a CTA (csrc/quant.cu kThreads)
-# elements a CTA reads at most: 128 registers of x a thread
+# elements a CTA holds in registers at most (128 a thread); past it the
+# CTA streams its elements twice
 SLAB_MAX = 128 * THREADS
+# the kernel indexes a row with int32
+INDEX_MAX = 2**31 - 1
 # elements a CTA should read before a wider cluster pays: the row's
 # absmax costs a push to every peer, and 16 CTAs of 1024 elements ran
 # slower than 8 of 2048 on an H100
@@ -65,6 +71,7 @@ class QuantPlan:
     cluster: int        # C, CTAs per row
     span: int           # output bytes per CTA, a multiple of 4
     slab: int           # elements a CTA reads: span * (8 // bits)
+    variant: str = "registers"   # or "stream": past SLAB_MAX, read twice
 
 
 def byte_span(n_bytes: int, cluster: int) -> int:
@@ -76,13 +83,14 @@ def byte_span(n_bytes: int, cluster: int) -> int:
 
 def quant_plan(K: int, L: int, bits: int, cluster: int | None = None
                ) -> QuantPlan:
-    """C and the bytes and elements of one CTA for K rows of L elements
-    at ``bits`` bits a code.
+    """C, the bytes and elements of one CTA and its variant for K rows of
+    L elements at ``bits`` bits a code.
 
     Without ``cluster``: the largest C of ``CLUSTERS`` whose CTAs each
     read at least ``SLAB_MIN`` elements (C = 1 for a short row). With
-    ``cluster``: that C. Raises ``ValueError`` with the numbers when a
-    CTA would read more than ``SLAB_MAX`` elements.
+    ``cluster``: that C. A CTA of at most ``SLAB_MAX`` elements holds
+    them in registers; a larger one streams them twice. Raises
+    ``ValueError`` with the numbers when L passes int32.
     """
     if K < 1 or L < 1:
         raise ValueError(f"quant_plan: empty stack K={K}, L={L}")
@@ -91,20 +99,18 @@ def quant_plan(K: int, L: int, bits: int, cluster: int | None = None
     if cluster is not None and cluster not in CLUSTERS:
         raise ValueError(f"quant_plan: cluster must be one of {CLUSTERS}, "
                          f"got {cluster}")
+    if L > INDEX_MAX:
+        raise ValueError(f"quantize_pack_int{bits}: a row of L={L} is past "
+                         f"the kernel's int32 indices (at most {INDEX_MAX})")
     per = 8 // bits
     W = -(-L // per)
     if cluster is None:
         cluster = next((c for c in CLUSTERS
                         if byte_span(W, c) * per >= SLAB_MIN), 1)
     span = byte_span(W, cluster)
-    plan = QuantPlan(cluster, span, span * per)
-    if plan.slab > SLAB_MAX:
-        raise ValueError(
-            f"quantize_pack_int{bits}: a row of L={L} at C={cluster} CTAs "
-            f"gives each CTA {plan.slab} elements; a CTA holds at most "
-            f"{SLAB_MAX} ({SLAB_MAX // THREADS} registers a thread), so a "
-            f"row may have at most {SLAB_MAX * CLUSTERS[0]} elements")
-    return plan
+    slab = span * per
+    return QuantPlan(cluster, span, slab,
+                     "registers" if slab <= SLAB_MAX else "stream")
 
 
 def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -195,7 +201,8 @@ def _launch(x: torch.Tensor, what: str, bits: int, dtype: torch.dtype,
                           device=x.device)
     scale = torch.empty((K,), dtype=torch.float32, device=x.device)
     err = fn(rows.data_ptr(), payload.data_ptr(), scale.data_ptr(), K, L,
-             bits, plan.cluster, plan.span, _build.stream_ptr(x.device))
+             bits, plan.cluster, plan.span, int(plan.variant == "stream"),
+             _build.stream_ptr(x.device))
     _build.check_launch(err, "quant_launch")
     return _out(x, payload, scale)
 

@@ -12,11 +12,23 @@ the CTAs push into each other's shared memory, a stable choice of the
 ties across the slabs, and the order from each CTA's sorted survivors
 ranked against its peers' by binary search (a survivor's position is
 the number of the row's survivors ranked above it); ``csrc/topk.cu``
-says how. ``topk_plan`` picks C, the slab and the shared bytes.
+says how. ``topk_plan`` picks C, the slab and the shared bytes: the
+widest C whose K clusters are all resident at once
+(``cudaOccupancyMaxActiveClusters``, asked once per process and plan).
 
 Bound on the H100: bytes, K*(4L + 8k + 4) of them; at the main path's
 K = 8, L = 16384, k = 2048 that is 655,392 B (0.2 us at 3.35 TB/s); the
 four passes' exchanges, the local sort and the searches dominate.
+
+Where a CTA would need more than the 227 KB of shared memory a block may
+use (past about 6k survivors, or a slab past about 56k elements), the
+plan moves the survivors, their sorted run and their counts to a scratch
+block the wrapper allocates (``scratch_words`` 8-byte words a CTA), and
+where that is not enough the slab's patterns as well, which are then
+read again from ``x`` on each pass; ``csrc/topk.cu`` says how. The
+shared form stays where it fits: forced into the device form, the main
+path's stack took 24.4 us on an H100 against the shared form's 18.3-18.5
+(PERF.md).
 
 The plain version ``topk_select_ref`` is a stable descending
 ``torch.sort`` of ``|x|``: it keeps ``lax.top_k``'s order (ties to the
@@ -28,7 +40,9 @@ counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -41,14 +55,18 @@ CLUSTERS = (16, 8, 4, 2, 1)      # cluster sizes, largest first
 # pushes a histogram to every peer, and 16 CTAs of 1024 elements ran
 # slower than 8 of 2048 on an H100
 SLAB_MIN = 2048
-# the kernel's shape (csrc/topk.cu): keys gathered at a time, histogram
-# bins, scratch words
+# the kernel's shape (csrc/topk.cu): keys gathered at a time, keys of
+# the device form's sort tile, histogram bins, scratch words
 GATHER = 4096
+TILE = 8192
 BINS = 256
 MISC_WORDS = 128
+# the kernel indexes a row with int32, and a CTA sorts at most 2^30 keys
+INDEX_MAX = 2**31 - 1
+SURVIVORS_MAX = 2**30
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_LAUNCH = [_P] * 4 + [_I] * 5 + [_LL, _P]
+_LAUNCH = [_P] * 4 + [_I] * 5 + [_LL, _P, _I, _P]
 
 
 @dataclass(frozen=True)
@@ -56,6 +74,13 @@ class TopkPlan:
     cluster: int        # C, CTAs per row
     slab: int           # elements of the row per CTA (a multiple of 4)
     shared_bytes: int   # dynamic shared memory per CTA
+    survivors: str = "shared"   # or "device": in a scratch block
+    patterns: str = "shared"    # or "device": read again from x
+    scratch_words: int = 0      # 8-byte words of device scratch a CTA
+
+    @property
+    def variant(self) -> str:
+        return f"survivors in {self.survivors}, patterns in {self.patterns}"
 
 
 def slab_len(L: int, cluster: int) -> int:
@@ -65,28 +90,81 @@ def slab_len(L: int, cluster: int) -> int:
     return -(-n // 4) * 4
 
 
-def shared_bytes(slab: int, k: int, cluster: int) -> int:
-    """What ``Layout`` in ``csrc/topk.cu`` computes: the slab's patterns,
-    overlaid later by up to ``GATHER`` gathered keys and one count a
-    survivor; the CTA's survivor keys as compacted and as sorted (a power
-    of two of them, for the sort); the histograms received from the
-    ``cluster`` CTAs, two parities; its own two histograms; the
-    scratch."""
-    own = max(2, 1 << (min(slab, k) - 1).bit_length())   # a power of two
+def _survivor_slots(slab: int, k: int) -> int:
+    """The power of two at or above min(slab, k) (at least 2): a CTA's
+    survivor slots, for the sort."""
+    return max(2, 1 << (min(slab, k) - 1).bit_length())
+
+
+def shared_bytes(slab: int, k: int, cluster: int,
+                 survivors: str = "shared", patterns: str = "shared"
+                 ) -> int:
+    """What ``Layout`` in ``csrc/topk.cu`` computes. Shared form: the
+    slab's patterns, overlaid later by up to ``GATHER`` gathered keys and
+    one count a survivor; the CTA's survivor keys as compacted and as
+    sorted (a power of two of them, for the sort); the histograms
+    received from the ``cluster`` CTAs, two parities; its own two
+    histograms; the scratch. Survivors in device memory: the patterns
+    (none when they too are in device memory), overlaid later by a count
+    for each of up to ``TILE`` survivors, then a sort tile of up to
+    ``TILE`` keys, the histograms and the scratch.
+    """
+    own = _survivor_slots(slab, k)
     gathered = -(-min(k, GATHER) // 2) * 2
-    first = max(4 * slab, 8 * gathered + 4 * (-(-own // 4) * 4))
-    return (first + 2 * 8 * own + 4 * 2 * cluster * BINS + 4 * 2 * BINS
+    if survivors == "device":
+        tile = min(own, TILE)
+        pats = 4 * slab if patterns == "shared" else 0
+        first = max(pats, 4 * (-(-tile // 4) * 4)) + 8 * tile
+    else:
+        first = max(4 * slab, 8 * gathered + 4 * (-(-own // 4) * 4))
+        first += 2 * 8 * own
+    return (first + 4 * 2 * cluster * BINS + 4 * 2 * BINS
             + 4 * MISC_WORDS)
 
 
-def topk_plan(K: int, L: int, k: int, cluster: int | None = None
-              ) -> TopkPlan:
-    """C, slab and shared bytes for K rows of L elements keeping k.
+def _plan_at(L: int, k: int, cluster: int, survivors: str | None
+             ) -> TopkPlan:
+    """The form and layout of a CTA at ``cluster`` CTAs a row: the first
+    form that fits (of those with the survivors where ``survivors`` says,
+    if it says)."""
+    slab = slab_len(L, cluster)
+    if min(slab, k) > SURVIVORS_MAX:
+        raise ValueError(f"topk_select: a row of L={L} keeping k={k} at "
+                         f"C={cluster} CTAs gives a CTA up to "
+                         f"{min(slab, k)} survivors to sort; at most "
+                         f"{SURVIVORS_MAX}")
+    own = _survivor_slots(slab, k)
+    forms = [(s, p) for s, p in (("shared", "shared"), ("device", "shared"),
+                                 ("device", "device"))
+             if survivors in (None, s)]
+    for surv, patterns in forms:
+        smem = shared_bytes(slab, k, cluster, surv, patterns)
+        if smem <= SHARED_LIMIT:
+            break
+    else:
+        raise ValueError(f"topk_select: a row of L={L} keeping k={k} at "
+                         f"C={cluster} CTAs needs {smem} B of shared memory "
+                         f"a CTA with its survivors in shared memory; at "
+                         f"most {SHARED_LIMIT}")
+    return TopkPlan(cluster, slab, smem, surv, patterns,
+                    2 * own + own // 2 if surv == "device" else 0)
+
+
+def topk_plan(K: int, L: int, k: int, cluster: int | None = None,
+              max_active_clusters: Callable[[TopkPlan], int] | None = None,
+              survivors: str | None = None) -> TopkPlan:
+    """C, slab, shared bytes and form for K rows of L elements keeping k.
 
     Without ``cluster``: the largest C of ``CLUSTERS`` whose slab holds
-    at least ``SLAB_MIN`` elements (C = 1 for a short row). With
-    ``cluster``: that C. Raises ``ValueError`` with the numbers when a
-    CTA would need more than the 227 KB of shared memory a block may use.
+    at least ``SLAB_MIN`` elements (C = 1 for a short row) and whose K
+    clusters are all resident at once, as ``max_active_clusters(plan)``
+    says (clusters past that wait for a second wave); where no C's are,
+    the narrowest. None counts every cluster as resident (the pure plan).
+    With ``cluster``: that C. The shared form where its CTA fits the
+    227 KB of shared memory a block may use, else the survivors in device
+    memory, else the patterns too; ``survivors="device"`` forces the
+    device-memory forms (for timing them against the shared form). Raises ``ValueError`` with the numbers
+    when L passes int32 or a CTA would sort more than 2^30 survivors.
     """
     if K < 1 or L < 1:
         raise ValueError(f"topk_plan: empty stack K={K}, L={L}")
@@ -95,19 +173,40 @@ def topk_plan(K: int, L: int, k: int, cluster: int | None = None
     if cluster is not None and cluster not in CLUSTERS:
         raise ValueError(f"topk_plan: cluster must be one of {CLUSTERS}, "
                          f"got {cluster}")
-    if cluster is None:
-        cluster = next((c for c in CLUSTERS
-                        if slab_len(L, c) >= SLAB_MIN), 1)
-    slab = slab_len(L, cluster)
-    plan = TopkPlan(cluster, slab, shared_bytes(slab, k, cluster))
-    if plan.shared_bytes > SHARED_LIMIT:
-        raise ValueError(
-            f"topk_select: a row of L={L} keeping k={k} at C={cluster} "
-            f"CTAs needs {plan.shared_bytes} bytes of shared memory a CTA "
-            f"(a slab of {slab}: 4 B a pattern, 8 B a survivor key, up "
-            f"to {GATHER} gathered keys); one block may use at most "
-            f"{SHARED_LIMIT} (227 KB)")
+    if survivors not in (None, "shared", "device"):
+        raise ValueError(f"topk_plan: survivors must be 'shared' or "
+                         f"'device', got {survivors!r}")
+    if L > INDEX_MAX:
+        raise ValueError(f"topk_select: a row of L={L} keeping k={k} is "
+                         f"past the kernel's int32 indices (at most "
+                         f"{INDEX_MAX})")
+    if cluster is not None:
+        return _plan_at(L, k, cluster, survivors)
+    wide = [c for c in CLUSTERS if slab_len(L, c) >= SLAB_MIN] or [1]
+    for c in wide:
+        plan = _plan_at(L, k, c, survivors)
+        if max_active_clusters is None or max_active_clusters(plan) >= K:
+            break
     return plan
+
+
+@functools.cache
+def _max_active_clusters(device: int, cluster: int, dev: int,
+                         smem: int) -> int:
+    fn = _build.function("topk_max_active_clusters", [_I, _I, _LL, _P])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(cluster, dev, smem, ctypes.byref(out))
+    _build.check_launch(err, "topk_max_active_clusters")
+    return out.value
+
+
+def max_active_clusters(device: torch.device, plan: TopkPlan) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for ``plan`` on ``device``,
+    asked once per process for each plan."""
+    return _max_active_clusters(device.index or 0, plan.cluster,
+                                int(plan.survivors == "device"),
+                                plan.shared_bytes)
 
 
 def _rows(x: torch.Tensor, k: int, what: str) -> torch.Tensor:
@@ -139,12 +238,14 @@ def topk_select_ref(x: torch.Tensor, k: int
                 mags[:, k - 1])
 
 
-def topk_select(x: torch.Tensor, k: int, cluster: int | None = None
+def topk_select(x: torch.Tensor, k: int, cluster: int | None = None,
+                survivors: str | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k by magnitude of a (L,) update or a (K, L) stack of them,
     through K4 on the card (the plain version on the CPU); bit-identical
-    to ``TopKCodec.encode_ref``. ``cluster`` forces the CTAs a row (for
-    tests and timing); None plans it."""
+    to ``TopKCodec.encode_ref``. ``cluster`` forces the CTAs a row and
+    ``survivors`` where the survivors live (for tests and timing); None
+    plans them."""
     if x.device.type == "cpu":
         return topk_select_ref(x, k)
     _build.require_cuda(x, "topk_select")
@@ -152,17 +253,25 @@ def topk_select(x: torch.Tensor, k: int, cluster: int | None = None
     K, L = rows.shape
     _build.require(rows, "x", dtype=torch.float32, shape=(K, L),
                    device=x.device)
-    plan = topk_plan(K, L, k, cluster)
+    plan = topk_plan(K, L, k, cluster,
+                     lambda p: max_active_clusters(x.device, p), survivors)
     fn = _build.function("topk_launch", _LAUNCH)
     vals = torch.empty((K, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((K, k), dtype=torch.int32, device=x.device)
     thr = torch.empty((K,), dtype=torch.float32, device=x.device)
+    # survivors, runs and counts in device memory: a block a CTA
+    scratch = (torch.empty((K * plan.cluster, plan.scratch_words),
+                           dtype=torch.int64, device=x.device)
+               if plan.survivors == "device" else None)
     err = fn(rows.data_ptr(), vals.data_ptr(), idx.data_ptr(), thr.data_ptr(),
              K, L, k, plan.cluster, plan.slab, plan.shared_bytes,
-             _build.stream_ptr(x.device))
+             None if scratch is None else scratch.data_ptr(),
+             int(plan.patterns == "device"), _build.stream_ptr(x.device))
     _build.check_launch(err, "topk_launch")
     topk_select.launches += 1
+    topk_select.last_plan = plan
     return _out(x, vals, idx, thr)
 
 
 topk_select.launches = 0
+topk_select.last_plan = None

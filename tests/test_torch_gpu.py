@@ -167,18 +167,19 @@ def test_scd_kernel_refuses_what_it_cannot_take(cuda):
     strided_w = torch.zeros(128, device=cuda)[::2]      # (64,), stride 2
     with pytest.raises(ValueError, match="contiguous"):
         scd_solve(A_T, col_sq, alpha, strided_w, idx, **kw)
-    # above the new limits: alpha alone over 227 KB, and a slab over the
-    # 16384 rows a CTA holds even at C = 16
-    n_big = 60000
-    with pytest.raises(ValueError, match="shared memory"):
-        scd_solve(torch.zeros((1, n_big, 64), device=cuda),
-                  torch.zeros((1, n_big), device=cuda),
-                  torch.zeros((1, n_big), device=cuda), w,
-                  torch.zeros((1, 4), dtype=torch.int32, device=cuda), **kw)
-    m_big = 300000
-    with pytest.raises(ValueError, match="a slab of 18752 rows"):
-        scd_solve(torch.zeros((1, 8, m_big), device=cuda), col_sq, alpha,
-                  torch.zeros(m_big, device=cuda), idx, **kw)
+    # alpha past shared memory and slabs past the registers run now (the
+    # device-memory variants); what is left is residency: more workers
+    # than the card holds clusters of any size and variant at once
+    before = scd_solve.launches
+    K_big = 4096
+    with pytest.raises(ValueError, match=f"clusters resident, {K_big} "
+                                         f"needed"):
+        scd_solve(torch.zeros((K_big, 8, 64), device=cuda),
+                  torch.zeros((K_big, 8), device=cuda),
+                  torch.zeros((K_big, 8), device=cuda), w,
+                  torch.zeros((K_big, 4), dtype=torch.int32, device=cuda),
+                  **kw)
+    assert scd_solve.launches == before
 
 
 def test_scd_launch_refuses_a_plan_it_does_not_reproduce(cuda):
@@ -187,14 +188,20 @@ def test_scd_launch_refuses_a_plan_it_does_not_reproduce(cuda):
     A_T, col_sq, alpha, w, idx = _scd_inputs(1, 64, 8, 4, seed=3, dev=cuda)
     out = torch.empty((1, 64), device=cuda)
     plan = scd.scd_layout(64, 8, 2)
-    fn = _build.function("scd_launch", [ctypes.c_void_p] * 7
-                         + [ctypes.c_int] * 7 + [ctypes.c_longlong]
-                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    fn = _build.function("scd_launch", scd._LAUNCH)
     ptrs = [t.data_ptr() for t in (A_T, col_sq, alpha, w, idx, out, out)]
-    for slab, smem in ((plan.slab, plan.shared_bytes + 8),
-                       (plan.slab + 4, plan.shared_bytes)):
-        err = fn(*ptrs, 1, 8, 64, 4, 2, slab, plan.ring, smem, 1.0, 1.0,
-                 0.0, _build.stream_ptr(cuda))
+    priv = torch.empty((2, 8), device=cuda)
+    # shared bytes, slab, a stage other than the slab (rho in registers),
+    # rho streamed with a stage past its slab, alpha in device memory
+    # with the shared bytes of alpha in shared memory
+    for slab, stage, rho_dev, alpha_priv, smem in (
+            (plan.slab, plan.slab, 0, None, plan.shared_bytes + 8),
+            (plan.slab + 4, plan.slab + 4, 0, None, plan.shared_bytes),
+            (plan.slab, plan.slab - 4, 0, None, plan.shared_bytes),
+            (plan.slab, scd.STAGE_ROWS, 2, None, plan.shared_bytes),
+            (plan.slab, plan.slab, 0, priv.data_ptr(), plan.shared_bytes)):
+        err = fn(*ptrs, alpha_priv, 1, 8, 64, 4, 2, slab, stage, plan.ring,
+                 rho_dev, smem, 1.0, 1.0, 0.0, _build.stream_ptr(cuda))
         with pytest.raises(RuntimeError, match="scd_launch"):
             _build.check_launch(err, "scd_launch")
 
@@ -362,29 +369,33 @@ def test_topk_kernel_refuses_what_it_cannot_take(cuda):
         topk_select(x.double(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         topk_select(torch.randn((64, 2), device=cuda).t(), 4)
-    # a row of 60000 fits a cluster of 16 slabs now; one of 10^6 needs
-    # more than 227 KB a CTA even at C = 16, and one of 20000 keeping
-    # all 20000 more than 227 KB at C = 1
-    with pytest.raises(ValueError, match="shared memory"):
-        topk_select(torch.zeros((1, 1_000_000), device=cuda), 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        topk_select(torch.zeros((1, 20000), device=cuda), 20000, cluster=1)
+    with pytest.raises(ValueError, match="1 <= k <= L"):
+        topk_select(x, 65)
+    # rows that need more than 227 KB a CTA run now in the device-memory
+    # form (a row of 10^6 at k = 1, 20000 keeping all 20000 at C = 1);
+    # what is left is the kernel's int32 row index
+    before = topk_select.launches
+    with pytest.raises(ValueError, match="int32"):
+        topk_select(torch.empty((1, topk.INDEX_MAX + 1), device=cuda), 1)
+    assert topk_select.launches == before
 
 
 def test_topk_launch_failure_raises(cuda):
     """A launch the runtime refuses (here zero rows) comes back as a
     RuntimeError, not as a silent no-op."""
-    fn = _build.function("topk_launch", [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 5 + [ctypes.c_longlong,
-                                                 ctypes.c_void_p])
+    fn = _build.function("topk_launch", topk._LAUNCH)
     out = torch.empty(4, device=cuda)
+    scratch = torch.empty(8, dtype=torch.int64, device=cuda)
     plan = topk.topk_plan(1, 4, 1)
     ptrs = [out.data_ptr()] * 4
-    # zero rows, then a plan the C side does not reproduce (slab, bytes)
-    for K, slab, smem in ((0, plan.slab, plan.shared_bytes),
-                          (1, plan.slab + 4, plan.shared_bytes),
-                          (1, plan.slab, plan.shared_bytes + 16)):
-        err = fn(*ptrs, K, 4, 1, plan.cluster, slab, smem,
+    # zero rows, then a plan the C side does not reproduce (slab, bytes;
+    # the device form with the shared form's bytes)
+    for K, slab, smem, scr in (
+            (0, plan.slab, plan.shared_bytes, None),
+            (1, plan.slab + 4, plan.shared_bytes, None),
+            (1, plan.slab, plan.shared_bytes + 16, None),
+            (1, plan.slab, plan.shared_bytes, scratch.data_ptr())):
+        err = fn(*ptrs, K, 4, 1, plan.cluster, slab, smem, scr, 0,
                  _build.stream_ptr(cuda))
         with pytest.raises(RuntimeError, match="topk_launch"):
             _build.check_launch(err, "topk_launch")
@@ -485,12 +496,22 @@ def test_quant_cluster_kernel_main_shape_plans_a_cluster(cuda, name):
 
 @pytest.mark.parametrize("name", list(WIDTHS))
 def test_quant_cluster_kernel_refuses_a_row_over_its_registers(cuda, name):
+    """A row over the registers of 16 CTAs (or of one) streams now; what
+    is refused is a row past the kernel's int32 index."""
     enc = getattr(quant, f"quantize_pack_{name}")
+    ref = getattr(quant, f"quantize_pack_{name}_ref")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for L, cluster in ((16 * quant.SLAB_MAX + 1, None),
+                       (quant.SLAB_MAX + 4, 1)):
+        x = torch.randn((1, L), generator=g, device=cuda)
+        assert quant.quant_plan(1, L, WIDTHS[name], cluster).variant == \
+            "stream"
+        pk, sk = enc(x, cluster=cluster)
+        pp, sp = ref(x)
+        assert pk.equal(pp) and _bits(sk).equal(_bits(sp))
     before = enc.launches
-    with pytest.raises(ValueError, match="at most"):
-        enc(torch.zeros((1, 16 * quant.SLAB_MAX + 1), device=cuda))
-    with pytest.raises(ValueError, match="at most"):
-        enc(torch.zeros((1, quant.SLAB_MAX + 4), device=cuda), cluster=1)
+    with pytest.raises(ValueError, match="int32"):
+        enc(torch.empty((1, quant.INDEX_MAX + 1), device=cuda))
     assert enc.launches == before
 
 
@@ -592,3 +613,228 @@ def test_cluster_kernels_count_one_launch_per_stack(cuda, cluster):
     topk_select(x.cpu(), 513, cluster=cluster)
     after = [w.launches for w in wrappers] + [topk_select.launches]
     assert after == [n + 1 for n in before]
+
+
+# -- long rows: the device-memory variants of K1, K2 and K4 ----------------
+
+def _scd_inputs_on_card(K, m, n, H, seed, dev):
+    """``_scd_inputs`` made on the card, for shapes whose host copy would
+    take long to make: the same kinds of values, a torch generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A_T = torch.randn((K, n, m), generator=g, device=dev)
+    A_T[:, -1] = 0.0                                    # a zero column
+    col_sq = torch.sum(A_T * A_T, dim=2)
+    alpha = torch.randn((K, n), generator=g, device=dev) * 0.1
+    w = torch.randn((m,), generator=g, device=dev)
+    idx = torch.randint(0, n, (K, H), generator=g, device=dev,
+                        dtype=torch.int32)
+    return [A_T, col_sq, alpha, w, idx]
+
+
+@pytest.mark.parametrize("m", [262148, 262147])
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_long_rows_streamed(cuda, m, cluster):
+    """m just past the 262,144 rows that 16 CTAs hold in registers:
+    every C streams rho's slab, in shared memory at C = 8 and 16 and in
+    device memory at C = 1, 2 and 4 (slabs past what shared memory holds
+    beside two stages), with 16-byte copies at m = 262,148 and 4-byte
+    ones at 262,147."""
+    args = _scd_inputs_on_card(2, m, 8, 50, seed=m, dev=cuda)
+    out = _check_scd(args, dict(sigma=2.0, lam=1.0, eta=0.7), cluster)
+    assert out is not None
+    plan = scd_solve.last_plan
+    assert plan.rho == ("shared" if plan.cluster >= 8 else "device")
+    assert plan.alpha == "shared"
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_scd_kernel_long_alpha_in_device_memory(cuda, cluster):
+    """n_pad = 56,000 at m = 16,384: alpha past the shared memory a CTA
+    has left beside the ring; each CTA keeps its own copy in device
+    memory."""
+    args = _scd_inputs_on_card(1, 16384, 56000, 256, seed=56, dev=cuda)
+    out = _check_scd(args, dict(sigma=1.0, lam=1.0, eta=1.0), cluster)
+    assert out is not None
+    assert scd_solve.last_plan.alpha == "device"
+    assert scd_solve.last_plan.rho == "registers"
+
+
+@pytest.mark.parametrize("cluster", [None, 16, 2])
+def test_scd_kernel_long_alpha_repeated_index(cuda, cluster):
+    """Repeated and alternating indices inside the ring window with alpha
+    in device memory: each step reads the latest alpha_j."""
+    A_T, col_sq, alpha, w, _ = _scd_inputs_on_card(2, 64, 60000, 1,
+                                                   seed=60, dev=cuda)
+    kw = dict(sigma=2.0, lam=0.5, eta=0.8)
+    zero = 60000 - 1                                    # the zero column
+    for row in ([3, 3, zero, 3, zero, zero], [3] * 20, [3, 5] * 10,
+                [zero, 3] * 9):
+        idx = torch.tensor([row] * 2, dtype=torch.int32, device=cuda)
+        out = _check_scd((A_T, col_sq, alpha, w, idx), kw, cluster,
+                         dict(rtol=1e-5, atol=1e-6))
+        assert scd_solve.last_plan.alpha == "device"
+        assert out[1][:, zero].equal(alpha[:, zero])
+
+
+@pytest.mark.parametrize("m,n,rho", [(16388, 60000, "shared"),
+                                     (60000, 58000, "device")])
+def test_scd_kernel_long_rows_and_alpha_in_device_memory(cuda, m, n, rho):
+    """alpha in device memory beside a streamed slab: one CTA a worker
+    over 16,388 rows (held in shared memory) and an alpha block of
+    60,000, and over 60,000 rows (in device memory) and 58,000."""
+    args = _scd_inputs_on_card(1, m, n, 32, seed=7, dev=cuda)
+    _check_scd(args, dict(sigma=1.0, lam=1.0, eta=0.9), 1)
+    assert (scd_solve.last_plan.rho, scd_solve.last_plan.alpha) == \
+        (rho, "device")
+
+
+@pytest.mark.parametrize("shape,cluster", [((2, 262148, 8, 50), None),
+                                           ((2, 262148, 8, 50), 2),
+                                           ((1, 16384, 56000, 64), None)])
+def test_scd_kernel_long_variants_two_launches_bit_identical(cuda, shape,
+                                                             cluster):
+    K, m, n, H = shape
+    args = _scd_inputs_on_card(K, m, n, H, seed=1, dev=cuda)
+    kw = dict(sigma=float(K), lam=1.0, eta=1.0, cluster=cluster)
+    dv1, a1 = scd_solve(*args, **kw)
+    dv2, a2 = scd_solve(*args, **kw)
+    assert scd_solve.last_plan.variant != "rho in registers, alpha in shared"
+    assert _bits(dv1).equal(_bits(dv2)) and _bits(a1).equal(_bits(a2))
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+def test_quant_kernel_long_rows_stream(cuda, name, cluster):
+    """L = 524,291, just past the 524,288 elements 16 CTAs hold in
+    registers: the CTAs stream their elements twice, bit-identical; also
+    4 bytes off a 16-byte boundary (element-by-element loads)."""
+    enc = getattr(quant, f"quantize_pack_{name}")
+    ref = getattr(quant, f"quantize_pack_{name}_ref")
+    L = 524291
+    g = torch.Generator(device=cuda).manual_seed(L)
+    x = torch.randn((3, L), generator=g, device=cuda)
+    x[1] *= 1e-6
+    x[2] = 0.0
+    x[2, L - 1] = -2.5                          # one nonzero, in the pad's byte
+    assert quant.quant_plan(3, L, WIDTHS[name]).variant == "stream"
+    pk, sk = enc(x, cluster=cluster)
+    pp, sp = ref(x)
+    assert pk.equal(pp) and _bits(sk).equal(_bits(sp))
+    buf = torch.randn(2 * 524288 + 1, generator=g, device=cuda)
+    xu = buf[1:].view(2, 524288)
+    pk, sk = enc(xu, cluster=cluster)
+    pp, sp = ref(xu)
+    assert pk.equal(pp) and _bits(sk).equal(_bits(sp))
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_quant_kernel_long_rows_two_launches_bit_identical(cuda, name):
+    enc = getattr(quant, f"quantize_pack_{name}")
+    x = torch.randn((8, 1048579), device=cuda)
+    first, second = enc(x), enc(x)
+    assert first[0].equal(second[0])
+    assert _bits(first[1]).equal(_bits(second[1]))
+
+
+@pytest.mark.parametrize("L,k", [(131075, 16385), (409603, 4097)])
+@pytest.mark.parametrize("cluster", CODEC_CLUSTERS)
+@pytest.mark.parametrize("kind", ["normal", "ties", "negzero"])
+def test_topk_kernel_long_rows_device_form(cuda, L, k, cluster, kind):
+    """Just past what the shared form holds (L = 131,075 with k =
+    16,385, and 409,603 with k = 4097): the survivors in device memory,
+    and at the narrower C the patterns as well, bit-identical, at every
+    C."""
+    g = torch.Generator(device=cuda).manual_seed(L + k)
+    x = torch.stack([_topk_row(kind, L, g, cuda) for _ in range(2)])
+    plan = topk.topk_plan(2, L, k, cluster)
+    if cluster is None:
+        assert plan.survivors == "device"
+    _topk_check(x, k, cluster)
+
+
+@pytest.mark.parametrize("L,k", [(8 * 8192 + 5, 8 * 8192 + 5),
+                                 (350000, 43750), (1000000, 1)])
+def test_topk_kernel_long_rows_large_k(cuda, L, k):
+    """A CTA with more survivors than the sort tile (the bitonic
+    network over device memory, at C = 1), webspam's ef:topk row, and a
+    row of 10^6 keeping one; at C = 1 the patterns are read from x."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn((2, L), generator=g, device=cuda)
+    x[1] = torch.randint(-3, 4, (L,), generator=g, device=cuda).float()
+    assert topk.topk_plan(2, L, k, 1).patterns == "device"
+    for cluster in (None, 1):
+        _topk_check(x, k, cluster)
+
+
+@pytest.mark.parametrize("L,k", [(131075, 16385), (350000, 43750)])
+def test_topk_kernel_long_rows_two_launches_bit_identical(cuda, L, k):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((8, L), generator=g, device=cuda)
+    first, second = topk_select(x, k), topk_select(x, k)
+    _assert_topk_equal(first, second)
+    _assert_topk_equal(first, topk_select_ref(x, k))
+
+
+@pytest.mark.parametrize("k", [1, 2048, 16384])
+def test_topk_kernel_device_form_at_the_main_shape(cuda, k):
+    """The main path's stack forced into the device-memory form (which
+    the timing holds against the shared form): bit-identical, and twice
+    the same."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn((8, 16384), generator=g, device=cuda)
+    x[7] = torch.randint(-3, 4, (16384,), generator=g, device=cuda).float()
+    first = topk_select(x, k, survivors="device")
+    assert topk_select.last_plan.survivors == "device"
+    _assert_topk_equal(first, topk_select(x, k, survivors="device"))
+    _assert_topk_equal(first, topk_select_ref(x, k))
+
+
+@pytest.mark.parametrize("L,k", [(16384, 2048), (350000, 43750),
+                                 (1000000, 1)])
+def test_topk_plan_on_the_card_takes_resident_clusters(cuda, L, k):
+    """The planned C is the widest whose 8 clusters the card holds at
+    once (webspam's row: not C = 16 at 188 KB a CTA)."""
+    x = torch.randn((8, L), device=cuda)
+    topk_select(x, k)
+    plan = topk_select.last_plan
+    assert topk.max_active_clusters(x.device, plan) >= 8
+    for wider in topk.CLUSTERS:
+        if wider <= plan.cluster:
+            break
+        p = topk.topk_plan(8, L, k, wider)
+        if p.slab >= topk.SLAB_MIN:
+            assert topk.max_active_clusters(x.device, p) < 8
+
+
+# -- K3: 16-byte groups, ragged strides ---------------------------------------
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+@pytest.mark.parametrize("K", [1, 3, 8, 17])
+@pytest.mark.parametrize("mean", [False, True])
+def test_dequant_kernel_ragged_strides(cuda, name, K, mean):
+    """Payload rows whose stride W is a multiple of the bytes a thread
+    owns (one load a row), of 4 only (4-byte loads) or of neither (byte
+    loads), a ragged last group, K past one group of 8 rows in flight,
+    in both forms (4 outputs a thread on the short rows, 16 on the
+    longest); bit-identical to the plain version."""
+    per = 8 // WIDTHS[name]
+    enc = getattr(quant, f"quantize_pack_{name}")
+    for W in (1, 5, 16, 20, 33, 1000, 1001, 4097, 87500, 350001):
+        for L in sorted({per * W, per * W - (per - 1)}):
+            g = torch.Generator(device=cuda).manual_seed(K * L)
+            x = torch.randn((K, L), generator=g, device=cuda)
+            p, s = enc(x)
+            assert p.shape == (K, W)
+            out_k = getattr(dequant, f"decode_reduce_{name}")(p, s, L,
+                                                              mean=mean)
+            out_p = getattr(dequant, f"decode_reduce_{name}_ref")(
+                p, s, L, mean=mean)
+            assert _bits(out_k).equal(_bits(out_p)), (W, L)
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_dequant_kernel_two_launches_bit_identical(cuda, name):
+    p, s = getattr(quant, f"quantize_pack_{name}")(
+        torch.randn((8, 350000), device=cuda))
+    dec = getattr(dequant, f"decode_reduce_{name}")
+    assert _bits(dec(p, s, 350000)).equal(_bits(dec(p, s, 350000)))

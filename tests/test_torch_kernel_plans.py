@@ -113,14 +113,19 @@ def test_quant_plan_takes_the_widest_cluster_with_a_full_slab(bits):
 
 @pytest.mark.parametrize("bits", WIDTHS)
 def test_quant_plan_raises_with_the_numbers(bits):
+    """A row past the registers of 16 CTAs (or of one) streams now; the
+    limit left is the kernel's int32 index."""
     L = 16 * quant.SLAB_MAX + 1
-    with pytest.raises(ValueError, match=f"a row of L={L} at C=16") as exc:
+    assert quant_plan(1, L, bits).variant == "stream"
+    assert quant_plan(1, quant.SLAB_MAX + 4, bits, cluster=1).variant == \
+        "stream"
+    assert quant_plan(1, quant.SLAB_MAX, bits, cluster=1).variant == \
+        "registers"
+    L = quant.INDEX_MAX + 1
+    with pytest.raises(ValueError, match=f"a row of L={L}") as exc:
         quant_plan(1, L, bits)
-    assert str(quant.SLAB_MAX) in str(exc.value)
-    with pytest.raises(ValueError, match="at C=1 CTAs"):
-        quant_plan(1, quant.SLAB_MAX + 4, bits, cluster=1)
-    assert quant_plan(1, quant.SLAB_MAX, bits, cluster=1).slab <= \
-        quant.SLAB_MAX
+    assert "int32" in str(exc.value) and str(quant.INDEX_MAX) in \
+        str(exc.value)
     with pytest.raises(ValueError, match="cluster must be one of"):
         quant_plan(1, 64, bits, cluster=3)
     with pytest.raises(ValueError, match="empty stack"):
@@ -156,8 +161,8 @@ def test_topk_plan_shared_bytes_fit(cluster, ratio):
             assert cluster is not None and "shared memory" in str(exc)
             continue
         assert plan.shared_bytes <= topk.SHARED_LIMIT
-        assert plan.shared_bytes == topk.shared_bytes(plan.slab, k,
-                                                      plan.cluster)
+        assert plan.shared_bytes == topk.shared_bytes(
+            plan.slab, k, plan.cluster, plan.survivors, plan.patterns)
 
 
 def test_topk_shared_bytes_layout():
@@ -188,16 +193,23 @@ def test_topk_plan_takes_one_cta_for_a_short_row(L, k):
 
 
 @pytest.mark.parametrize("L,k,cluster", [
-    (1_000_000, 1, None),             # a slab of 62500 patterns at C = 16
-    (20000, 20000, 1),                # 20000 survivor keys in one CTA
-    (300000, 300000, 16),             # 18752 survivor keys a CTA
+    (2**31, 1, None),                 # past the int32 row index
+    (2**31, 2**31, 16),
+    (2**31 - 1, 2**31 - 1, 1),        # 2^31 - 1 survivors in one CTA
 ])
 def test_topk_plan_raises_with_the_numbers(L, k, cluster):
-    with pytest.raises(ValueError, match="shared memory") as exc:
+    """Rows that need more than 227 KB a CTA take the device form now
+    (a row of 10^6 at k = 1, 20000 keeping 20000 at C = 1, 300000
+    keeping 300000 at C = 16); what is refused is a row past int32 and
+    a CTA with more than 2^30 survivors to sort."""
+    for L_, k_, c_ in ((1_000_000, 1, None), (20000, 20000, 1),
+                       (300000, 300000, 16)):
+        assert topk_plan(1, L_, k_, c_).survivors == "device"
+    with pytest.raises(ValueError, match="int32|survivors") as exc:
         topk_plan(1, L, k, cluster)
     msg = str(exc.value)
     assert f"L={L}" in msg and f"k={k}" in msg
-    assert str(topk.SHARED_LIMIT) in msg
+    assert str(topk.INDEX_MAX) in msg or str(topk.SURVIVORS_MAX) in msg
 
 
 def test_topk_plan_refuses_what_it_cannot_take():

@@ -10,9 +10,9 @@ import torch
 from repro.kernels.ref import scd_steps_ref
 from repro_torch.core.solvers import scd_steps
 from repro_torch.kernels.scd import (CLUSTERS, RING_MAX, RING_MIN,
-                                     SHARED_LIMIT, SLAB_MAX, ScdPlan,
-                                     scd_layout, scd_plan, scd_solve,
-                                     shared_bytes, slab_rows)
+                                     SHARED_LIMIT, SLAB_MAX, STAGE_ROWS,
+                                     ScdPlan, scd_layout, scd_plan,
+                                     scd_solve, shared_bytes, slab_rows)
 
 MS = [1, 3, 4, 5, 33, 96, 1025, 4096, 16383, 16384, 20000, 60000, 65537]
 
@@ -110,10 +110,24 @@ def test_forced_cluster():
     (8, 16384, 4096, "0 clusters resident"),
 ])
 def test_plan_raises_when_nothing_fits(K, m, n_pad, why):
+    """The register layout's limits (a slab past 16,384 rows, an alpha
+    block past shared memory) are passed by the device-memory variants,
+    so nothing fits only where no variant's clusters are resident; the
+    message gives every reason."""
     with pytest.raises(ValueError, match="no cluster size fits") as exc:
-        scd_plan(K, m, n_pad, lambda p: 0 if "resident" in why else 99)
+        scd_plan(K, m, n_pad, lambda p: 0)
     assert why in str(exc.value)
+    assert "(rho in device, alpha in device): 0 clusters resident" in \
+        str(exc.value)
     assert f"m={m}" in str(exc.value) and f"n_pad={n_pad}" in str(exc.value)
+    # with the clusters resident the same shape plans
+    assert scd_plan(K, m, n_pad, _all_resident).cluster == 16
+
+
+@pytest.mark.parametrize("m,n_pad", [(2**31, 8), (64, 2**31)])
+def test_plan_refuses_past_int32(m, n_pad):
+    with pytest.raises(ValueError, match="int32"):
+        scd_plan(1, m, n_pad, _all_resident)
 
 
 def test_plan_refuses_an_empty_problem():
@@ -123,9 +137,24 @@ def test_plan_refuses_an_empty_problem():
 
 
 def test_slab_limit_is_what_one_cta_can_hold():
+    """The register layout holds SLAB_MAX rows a CTA; past them rho's
+    slab is streamed in stages, in shared memory where it fits beside
+    two stages, else in device memory."""
     assert scd_layout(SLAB_MAX, 8, 1).slab == SLAB_MAX
     assert scd_layout(SLAB_MAX + 1, 8, 1) is None
     assert scd_layout(16 * SLAB_MAX, 8, 16).slab == SLAB_MAX
+    long = scd_layout(SLAB_MAX + 1, 8, 1, rho="device")
+    assert long.slab == SLAB_MAX + 4 and long.stage == STAGE_ROWS
+    assert long.shared_bytes == shared_bytes(STAGE_ROWS, long.ring, 8)
+    held = scd_layout(SLAB_MAX + 1, 8, 1, rho="shared")
+    assert held.stage == STAGE_ROWS and held.ring >= 2
+    assert held.shared_bytes == shared_bytes(STAGE_ROWS, held.ring, 8,
+                                             SLAB_MAX + 4)
+    plan = scd_plan(8, 16 * SLAB_MAX + 1, 8, _all_resident)
+    assert (plan.rho, plan.alpha, plan.cluster) == ("shared", "shared", 16)
+    # a slab past what shared memory holds beside two stages
+    plan = scd_plan(1, 60000, 8, _all_resident, cluster=1)
+    assert (plan.rho, plan.alpha) == ("device", "shared")
 
 
 def _inputs(K, m, n, H, seed):
