@@ -59,6 +59,26 @@ JSON line:
      ``--long-rounds`` rounds each, each kernel of the path once a
      round, and the first 3 rounds held against the plain SCD on the
      same index stream at rtol 1e-4;
+  4c. the baselines at the main shape (ridge, K = 8), each on its own
+     trainer (freed before the next), every round recorded, the launch
+     counters set to 0 just before each path and read just after:
+     mini-batch SCD (its solve the batched exact fixed-point form, H =
+     n_local) under ``compressed:int8`` for up to 300 rounds or until
+     the suboptimality reaches 1e-3 (rounds-to-eps at 1e-3 and 4e-3
+     beside CoCoA's); mini-batch SGD on the virtual driver, MLlib's H = 1
+     at ``batch_frac`` 1 under ``compressed:int8`` and
+     ``compressed:ef:topk(r=0.125)``, and local SGD (H = 4, ``batch_frac``
+     0.1) under ``compressed:ef:int4/drop:1@5-9``, 100 rounds each, step
+     1/L (1/(K L) at H = 4) with L = sigma_max(A)^2 + lam from 30 power
+     iterations; the legacy single-device SGD loop (``batch_frac`` 0.1,
+     20 rounds). K1 must not launch, the path's codec kernels once a
+     round, no other kernel. Then: mini-batch SCD's first 3 rounds again
+     through the step loop (the batched solve's plain version) at rtol
+     1e-4; a small problem on the card and on the CPU on one replayed
+     stream for mini-batch SCD ``compressed:int8``, SGD H = 1
+     ``compressed:int8`` and H = 4 ``compressed:ef:int4/drop:1@3-5`` at
+     rtol 1e-4, with the codes that differ; ``torch.profiler`` traces of 5
+     mini-batch SCD and 5 SGD H = 1 rounds;
   5. timing at the main path's shapes, for every kernel two times: the
      wrapper's time per call by CUDA events around back-to-back calls
      (host work included when the host launches slower than the device
@@ -68,7 +88,12 @@ JSON line:
      for K4, ``torch.topk`` of the magnitudes (the library call that
      computes the same selection; the port never calls it). K1, K2 and
      K4 also for every C that fits, K4 also at k = L and in its
-     device-memory form; then every kernel at the long-row path's shapes
+     device-memory form; mini-batch SCD's batched solve on K1's inputs
+     (events and the device time of all its kernels, beside the bound of
+     its two passes over A_T and of reading each input once); K2 and K3
+     (int8) and K4 (k = 4096) on the SGD path's round-1 gradient stack
+     (K, n), each held bit for bit against its plain version there (K2
+     and K3 also int4); then every kernel at the long-row path's shapes
      (its round-1 inputs and Δv), K4 also at C = 16, 8 and 4;
   6. device traces: ``torch.profiler`` over 5 rounds of
      ``compressed:int8`` and of ``compressed:ef:topk(r=0.125)`` (after 2
@@ -116,6 +141,23 @@ SCD_LONG = ((8, 350000, 128, 128, None), (8, 262148, 128, 64, 4),
             (2, 4096, 65536, 256, None))
 QUANT_LONG = ((8, 1048579), (8, 350000))
 TOPK_LONG = (((8, 350000), 43750), ((1, 1000000), 1), ((2, 200003), 200003))
+# the baselines phase (after 4b), at the main shape: mini-batch SCD
+# (H = n_local, up to SCD_ROUNDS rounds, rounds-to-eps at each of
+# BASELINE_EPS; 4e-3 is the drivers benchmark's int8 multiplier for
+# mini-batch SCD, benchmarks/bench_drivers.py), then mini-batch SGD's
+# virtual-driver paths (name, exchange, H, batch_frac, rounds, codec)
+# and the legacy loop; SMALL_BASELINES run on the card and on the CPU
+SCD_ROUNDS = 300
+BASELINE_EPS = (1e-3, 4e-3)
+SGD_PATHS = (("sgd_h1", "compressed:int8", 1, 1.0, 100, "int8"),
+             ("sgd_h1", TOPK, 1, 1.0, 100, "topk"),
+             ("local_sgd", "compressed:ef:int4/drop:1@5-9", 4, 0.1, 100,
+              "int4"))
+LEGACY_FRAC, LEGACY_ROUNDS = 0.1, 20
+SMALL_BASELINES = (("minibatch_scd", "compressed:int8", None, None),
+                   ("sgd_h1", "compressed:int8", 1, 1.0),
+                   ("local_sgd", "compressed:ef:int4/drop:1@3-5", 4, 0.5))
+POWER_ITERS = 30
 CODECS = ("int8", "int4", "int2")
 BITS = {"int8": 8, "int4": 4, "int2": 2}
 # K2 and K4 run at the planned C (None) and at every C forced
@@ -216,6 +258,22 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def codec_bounds(K: int, L: int, k: int) -> dict:
+    """The bounds of K2 and K3 (each width) on a (K, L) stack and its
+    payloads, and of K4 on that stack keeping k."""
+    bounds = {}
+    for c, per in (("int8", 1), ("int4", 2), ("int2", 4)):
+        wire = -(-L // per)
+        # quantize reads the f32 stack, writes the payload and scales;
+        # decode reads the payload and scales, writes the (L,) f32 sum
+        bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
+        bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
+    # K4 reads the f32 stack and writes k values, k indices and one
+    # threshold per row; one magnitude per element
+    bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k + 4), K * L)
+    return bounds
+
+
 def kernel_bounds(idx, n_pad: int, m: int, k: int):
     """Each kernel's bound at one shape: K1 on the (K, H) index stream
     ``idx`` over K blocks of n_pad columns of m rows, K2 and K3 on a
@@ -231,17 +289,32 @@ def kernel_bounds(idx, n_pad: int, m: int, k: int):
                                 * n_pad).numel())
     scd_bytes = 4 * (distinct * (m + 1) + K * H + 2 * K * n_pad + m + K * m)
     bounds = {"scd_solve": bound_ms(scd_bytes, K * H * (4 * m + 10))}
-    L = m
-    for c, per in (("int8", 1), ("int4", 2), ("int2", 4)):
-        wire = -(-L // per)
-        # quantize reads the f32 stack, writes the payload and scales;
-        # decode reads the payload and scales, writes the (L,) f32 sum
-        bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
-        bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
-    # K4 reads the f32 stack and writes k values, k indices and one
-    # threshold per row; one magnitude per element
-    bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k + 4), K * L)
+    bounds.update(codec_bounds(K, m, k))
     return bounds, distinct, scd_bytes
+
+
+def own_kernels(codec) -> tuple:
+    """The kernels a path under ``codec`` launches once a round for its
+    exchange (none without a codec kernel)."""
+    if codec is None:
+        return ()
+    if codec == "topk":
+        return ("topk_select",)
+    return (f"quantize_pack_{codec}", f"decode_reduce_{codec}")
+
+
+def lipschitz(torch, A, lam: float, iters: int = POWER_ITERS) -> float:
+    """``sigma_max(A)^2 + lam``, the Lipschitz constant of the ridge
+    gradient, by power iterations on ``A^T A`` (a full SVD of A would
+    take far longer)."""
+    g = torch.Generator(device=A.device).manual_seed(0)
+    v = torch.randn((A.shape[1],), generator=g, device=A.device)
+    v = v / torch.linalg.vector_norm(v)
+    for _ in range(iters):
+        u = A.T @ (A @ v)
+        s = torch.linalg.vector_norm(u)
+        v = u / s
+    return float(s) + lam
 
 
 def free(torch) -> None:
@@ -361,8 +434,10 @@ def main(argv=None) -> int:
 
     from repro_torch.carry import ReplayIndices
     from repro_torch.comm.codec import get_codec
-    from repro_torch.core import CoCoAConfig, CoCoATrainer
-    from repro_torch.core.solvers import scd_steps
+    from repro_torch.core import (CoCoAConfig, CoCoATrainer, ExchangeConfig,
+                                  MinibatchSCD, MinibatchSGD, SGDConfig)
+    from repro_torch.core.solvers import (scd_steps, scd_steps_fixed_point,
+                                          scd_steps_fixed_point_batched)
     from repro_torch.data import make_glm_data
     from repro_torch.kernels import _build, dequant, quant, scd, topk
     from repro_torch.kernels.scd import scd_solve
@@ -647,59 +722,72 @@ def main(argv=None) -> int:
                 quant.quant_plan(K_, m_, BITS[c]))
         return out
 
-    def drive(tr, ex, c, rounds, n_feat, line):
-        """Run one path on its own trainer with every launch counter set
-        to 0 just before and read just after; K1 and the path's codec
-        kernels must launch once a round and no other kernel at all."""
-        path_p_star = tr.p_star  # solved outside the path's peak memory
+    def run_path(line, ex, c, go, tr, k1, extra):
+        """Run one path (``go()``, every round recorded) on trainer ``tr``
+        with every launch counter set to 0 just before and read just
+        after: the path's codec kernels, and K1 when ``k1``, must launch
+        once a round and no other kernel at all. ``extra(hist)`` adds the
+        path's own fields to its line."""
         held = torch.cuda.memory_allocated()
         for fn in counters:
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        hist = tr.run(rounds, target_eps=args.eps)
+        hist = go()
         torch.cuda.synchronize()
         launches = {fn.__name__: fn.launches for fn in counters}
         n_rounds = len(hist.rounds)
         r2e = hist.rounds_to(args.eps)
         sec = np.array(hist.seconds)
+        exchanged = not ex.startswith("(none)")
         phase_done(torch, line, t0, exchange=ex, rounds=n_rounds,
                    rounds_to_eps=r2e if r2e is not None else "not reached",
-                   eps=args.eps, p_star=path_p_star,
-                   final_subopt=hist.subopt[-1],
+                   eps=args.eps, final_subopt=hist.subopt[-1],
                    subopt=hist.subopt,
                    round_ms_median=float(np.median(sec)) * 1e3,
                    round_ms_max=float(sec.max()) * 1e3,
                    round_ms_quartiles=(np.percentile(sec, [25, 75])
                                        * 1e3).tolist(),
-                   comm_bytes_per_round=tr.comm_bytes_per_round(),
+                   comm_bytes_per_round=(tr.comm_bytes_per_round()
+                                         if exchanged else "no exchange"),
                    comm_bytes_by_round=(
                        [tr.comm_bytes_per_round(t) for t in hist.rounds]
                        if "drop:" in ex else "every round the same"),
                    memory_allocated_before=held,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   launches=launches, plans=plans_of(tr, c))
+                   launches=launches, **extra(hist))
         want = {fn.__name__: 0 for fn in counters}
-        own = (("topk_select",) if c == "topk"
-               else (f"quantize_pack_{c}", f"decode_reduce_{c}"))
-        want.update({name: n_rounds for name in ("scd_solve",) + own})
+        want.update({name: n_rounds for name in
+                     (("scd_solve",) if k1 else ()) + own_kernels(c)})
         if launches != want:
-            raise SystemExit(f"chip_smoke: under {ex} K1 and the {c} "
-                             f"kernels must launch once per round ({n_rounds}"
-                             f" rounds) and no other kernel, got {launches}")
+            raise SystemExit(f"chip_smoke: under {ex} ({line}) "
+                             f"{'K1 and ' if k1 else ''}the {c} kernels must "
+                             f"launch once per round ({n_rounds} rounds) and "
+                             f"no other kernel, got {launches}")
         if not (np.all(np.isfinite(hist.primal))
                 and np.all(np.isfinite(tr.alpha_final))
-                and tr.alpha_final.shape == (n_feat,)
+                and tr.alpha_final.shape == (tr.n,)
+                and hist.span == [1] * n_rounds
                 and hist.subopt[-1] < 1.0):
-            raise SystemExit(f"chip_smoke: the {ex} path's output is not "
-                             f"finite, not of shape (n,), or made no progress")
-        return dict(primal=hist.primal, rounds=n_rounds, launches=launches)
+            raise SystemExit(f"chip_smoke: the {ex} path's output ({line}) "
+                             f"is not finite, not of shape (n,), or made no "
+                             f"progress")
+        return dict(primal=hist.primal, rounds=n_rounds, launches=launches,
+                    rounds_to_eps=r2e)
+
+    def drive(tr, ex, c, rounds, line):
+        """One CoCoA path: K1 and the path's codec kernels once a round."""
+        path_p_star = tr.p_star  # solved outside the path's peak memory
+        return run_path(line, ex, c, lambda: tr.run(rounds,
+                                                    target_eps=args.eps),
+                        tr, True, lambda h: dict(p_star=path_p_star,
+                                                 plans=plans_of(tr, c)))
 
     runs = {}
     for ex, c in PATHS:
         if tr is None:
             tr = CoCoATrainer(dataclasses.replace(cfg, exchange=ex), A, b)
-        runs[ex] = drive(tr, ex, c, args.rounds, args.n, "main_path")
+        runs[ex] = drive(tr, ex, c, args.rounds, "main_path")
         tr = None
         free(torch)
 
@@ -768,8 +856,7 @@ def main(argv=None) -> int:
     long_runs = {}
     for ex, c in LONG_PATHS:
         trL = CoCoATrainer(dataclasses.replace(cfgL, exchange=ex), AL, bL)
-        long_runs[ex] = drive(trL, ex, c, args.long_rounds, args.long_n,
-                              "long_row_path")
+        long_runs[ex] = drive(trL, ex, c, args.long_rounds, "long_row_path")
         del trL
         free(torch)
         # the first rounds again with the plain SCD on the same index
@@ -787,6 +874,135 @@ def main(argv=None) -> int:
         if max(rel) > 1e-4:
             raise SystemExit(f"chip_smoke: the long-row path under {ex} "
                              f"left the plain SCD's primal by {max(rel)}")
+
+    # -- 4c. the baselines at the main shape ----------------------------
+    def reached(hist):
+        return {str(e): hist.rounds_to(e) or "not reached"
+                for e in BASELINE_EPS}
+
+    t0 = time.perf_counter()
+    cfg_scd = dataclasses.replace(cfg, exchange="compressed:int8")
+    trB = MinibatchSCD(cfg_scd, A, b)                # solver -> scd_fixed
+    base_p_star, base_p_zero = trB.p_star, trB.p_zero
+    L_ridge = lipschitz(torch, trB.A, args.lam)
+    phase_done(torch, "baselines_setup", t0, p_star=base_p_star,
+               p_zero=base_p_zero, lipschitz=L_ridge,
+               power_iterations=POWER_ITERS, scd_solver=trB.cfg.solver)
+    label = "minibatch_scd compressed:int8"
+    runs[label] = run_path(
+        "baseline_path", "compressed:int8", "int8",
+        lambda: trB.run(SCD_ROUNDS, target_eps=BASELINE_EPS[0]), trB, False,
+        lambda h: dict(path=label, H=cfg_scd.H, rounds_to_each_eps=reached(h),
+                       cocoa_rounds_to_eps=(
+                           runs["compressed:int8"]["rounds_to_eps"]
+                           or "not reached")))
+    t0 = time.perf_counter()
+    trace = device_trace(torch, lambda: trB.run(5))
+    phase_done(torch, "baseline_trace", t0, path=label, rounds=5, **trace)
+    del trB
+    free(torch)
+    # (a) the first rounds again through the step loop, the batched
+    # solve's plain version, on the same index stream
+    t0 = time.perf_counter()
+    trL = MinibatchSCD(cfg_scd, A, b)
+    trL._algo.solver = scd_steps_fixed_point
+    trL._p_star_cache = base_p_star      # the same problem: solved once
+    loop = trL.run(n_chk)
+    del trL
+    free(torch)
+    want = runs[label]["primal"][:n_chk]
+    rel = (np.abs(np.array(loop.primal) - want) / np.abs(want)).tolist()
+    phase_done(torch, "baseline_batched_vs_loop", t0, path=label,
+               primal_rel=rel, loop_round_ms=[x * 1e3 for x in loop.seconds],
+               tolerance="rtol 1e-4")
+    if max(rel) > 1e-4:
+        raise SystemExit(f"chip_smoke: mini-batch SCD's batched solve left "
+                         f"the step loop's primal by {max(rel)}")
+
+    sgd_stack = None
+    for name, ex, H_s, frac, rounds, c in SGD_PATHS:
+        cfg_s = SGDConfig(batch_frac=frac, step_size=1.0 / (
+            L_ridge * (args.K if H_s > 1 else 1)), lam=args.lam, eta=1.0,
+            K=args.K, H=H_s, seed=args.seed, exchange=ex)
+        trS = MinibatchSGD(cfg_s, A, b)
+        label = f"{name} {ex}"
+        runs[label] = run_path(
+            "baseline_path", ex, c, lambda: trS.run_workers(
+                rounds, record_every=1, p_star=base_p_star,
+                p_zero=base_p_zero), trS, False,
+            lambda h: dict(path=label, H=H_s, batch_frac=frac,
+                           batch_local=trS.batch_local,
+                           step_size=cfg_s.step_size))
+        if sgd_stack is None:
+            # the path's round-1 gradient stack, which phase 5 times K2,
+            # K3 and K4 on
+            local0, alpha0_s = trS.init_state()
+            sgd_stack = trS._algo.local_step(trS._data, local0, alpha0_s,
+                                             trS.row_source(1), 1)[0]
+            t0 = time.perf_counter()
+            trace = device_trace(torch, lambda: trS.run_workers(
+                5, record_every=1, p_star=base_p_star, p_zero=base_p_zero))
+            phase_done(torch, "baseline_trace", t0, path=label, rounds=5,
+                       **trace)
+            del local0, alpha0_s
+        del trS
+        free(torch)
+    cfg_s = SGDConfig(batch_frac=LEGACY_FRAC, step_size=1.0 / L_ridge,
+                      lam=args.lam, eta=1.0, K=args.K, seed=args.seed)
+    trS = MinibatchSGD(cfg_s, A, b)
+    run_path("baseline_path", "(none)", None, lambda: trS.run(
+        LEGACY_ROUNDS, p_star=base_p_star, p_zero=base_p_zero,
+        record_every=1), trS, False, lambda h: dict(
+            path="sgd_run legacy", batch=trS.batch,
+            step_size=cfg_s.step_size))
+    del trS
+    free(torch)
+
+    # (b) a small problem on the card (kernels) and on the CPU (plain
+    # versions) with one replayed stream
+    t0 = time.perf_counter()
+    small_rel, small_codes = {}, {}
+    for name, ex, H_s, frac in SMALL_BASELINES:
+        if H_s is None:
+            cfg_b = CoCoAConfig(K=4, H=64, lam=1.0, exchange=ex,
+                                seed=args.seed)
+            probe = MinibatchSCD(cfg_b, As, bs, device="cpu").index_source
+
+            def make(where, stream):
+                return MinibatchSCD(cfg_b, As, bs, device=where,
+                                    index_source=ReplayIndices(
+                                        stream, device=where)).run(10)
+        else:
+            cfg_b = SGDConfig(batch_frac=frac, step_size=0.1, lam=1.0, K=4,
+                              H=H_s, seed=args.seed, exchange=ex)
+            probe = MinibatchSGD(cfg_b, As, bs, device="cpu").row_source
+
+            def make(where, stream):
+                return MinibatchSGD(cfg_b, As, bs, device=where,
+                                    row_source=ReplayIndices(
+                                        stream, device=where)).run_workers(
+                                            10, record_every=1)
+        stream = [probe(t).numpy() for t in range(1, 11)]
+        codec = ExchangeConfig.parse(ex).scheme.codec
+        small, sent = {}, {}
+        for where in ("cuda", "cpu"):
+            with recording(codec) as seen:
+                small[where] = make(where, stream).primal
+            sent[where] = seen
+        bits = getattr(codec, "base", codec).bits
+        small_codes[f"{name} {ex}"] = [
+            codes_differ(torch, a[0], b_[0], bits)
+            for a, b_ in zip(sent["cuda"], sent["cpu"])]
+        small_rel[f"{name} {ex}"] = (
+            np.abs(np.array(small["cuda"]) - small["cpu"])
+            / np.abs(small["cpu"])).tolist()
+    worst = {k: max(v) for k, v in small_rel.items()}
+    phase_done(torch, "baseline_card_vs_cpu", t0, primal_rel=small_rel,
+               primal_rel_max=worst, codes_differ_card_vs_cpu=small_codes,
+               tolerance="rtol 1e-4")
+    if max(worst.values()) > 1e-4:
+        raise SystemExit("chip_smoke: a baseline's card and CPU runs "
+                         "disagree (see the baseline_card_vs_cpu line)")
 
     # -- 5. timing at the main path's shapes ----------------------------
     t0 = time.perf_counter()
@@ -864,6 +1080,82 @@ def main(argv=None) -> int:
                codec_device_ms_by_cluster=dev_by_c,
                scd_bound_ratio_by_cluster={
                    c: t / bounds["scd_solve"][0] for c, t in scd_ms.items()})
+
+    # mini-batch SCD's batched solve on K1's round-1 inputs, and K2, K3
+    # and K4 on the SGD path's round-1 gradient stack (K, n)
+    t0 = time.perf_counter()
+    fixed = lambda: scd_steps_fixed_point_batched(   # noqa: E731
+        tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
+    fixed_ms = time_ms(torch, fixed, args.reps)
+    fixed_trace = device_trace(torch, lambda: [fixed()
+                                               for _ in range(args.reps)])
+    fixed_dev = (fixed_trace["device_busy_ms"] / args.reps
+                 if "device_busy_ms" in fixed_trace else "not measured")
+    a_t_bytes = tr.A_T.numel() * tr.A_T.element_size()
+    # the form reads A_T twice (A_T @ w, then the change in alpha times
+    # A_T); the function itself needs each input once
+    fixed_two = bound_ms(2 * a_t_bytes, 4 * tr.A_T.numel())
+    fixed_once = bound_ms(a_t_bytes + 4 * (3 * K * n_pad + m + K * m)
+                          + 4 * idx1.numel(), 4 * tr.A_T.numel())
+    visits = torch.zeros((K, n_pad), dtype=torch.int32, device=dev)
+    visits.scatter_add_(1, idx1.long(), torch.ones_like(idx1))
+    Ks, Ls = sgd_stack.shape
+    k_sgd = get_codec(f"topk(r={TOPK_R:g})")._k(Ls)
+    sgd_same, sgd_calls, sgd_plain = {}, {}, {}
+    for c in ("int8", "int4"):
+        pS, sS = enc[c](sgd_stack)
+        pP, sP = enc_ref[c](sgd_stack)
+        sgd_same[c] = bits_equal(torch, pS, pP) and bits_equal(torch, sS, sP)
+        out_k, out_p = (dec[c](pS, sS, Ls, mean=False),
+                        dec_ref[c](pS, sS, Ls, mean=False))
+        sgd_same[f"decode_{c}"] = bits_equal(torch, out_k, out_p)
+        err[c] = max(err[c], max_err(pS, pP), max_err(sS, sP))
+        err[f"decode_{c}"] = max(err[f"decode_{c}"], max_err(out_k, out_p))
+        if c == "int8":
+            sgd_calls[c] = (lambda: enc["int8"](sgd_stack), 4 * args.reps)
+            sgd_plain[c] = lambda: enc_ref["int8"](sgd_stack)
+            sgd_calls["decode_int8"] = (lambda p=pS, s_=sS: dec["int8"](
+                p, s_, Ls, mean=False), 4 * args.reps)
+            sgd_plain["decode_int8"] = lambda p=pS, s_=sS: dec_ref["int8"](
+                p, s_, Ls, mean=False)
+    got, want = topk_select(sgd_stack, k_sgd), topk_select_ref(sgd_stack,
+                                                                k_sgd)
+    sgd_same["topk"] = all(bits_equal(torch, a, b_) for a, b_ in
+                           zip(got, want))
+    err["topk"] = max(err["topk"], max_err(got[0], want[0]),
+                      max_err(got[2], want[2]),
+                      max_err(got[1].long(), want[1].long()))
+    sgd_calls["topk"] = (lambda: topk_select(sgd_stack, k_sgd), 4 * args.reps)
+    sgd_plain["topk"] = lambda: topk_select_ref(sgd_stack, k_sgd)
+    sgd_ms = {key: time_ms(torch, fn, n) for key, (fn, n) in sgd_calls.items()}
+    sgd_dev = {key: device_ms(torch, fn, n, KERNEL_NAMES[key])
+               for key, (fn, n) in sgd_calls.items()}
+    sgd_plain_ms = {key: time_ms(torch, fn, 4 * args.reps)
+                    for key, fn in sgd_plain.items()}
+    sgd_library = {"topk": time_ms(torch, lambda: torch.topk(
+        sgd_stack.abs(), k_sgd, dim=1, sorted=True), 4 * args.reps)}
+    sgd_bounds = codec_bounds(Ks, Ls, k_sgd)
+    sgd_row = {key: dict(
+        shape=[Ks, Ls, k_sgd] if key == "topk" else [Ks, Ls],
+        ms=sgd_ms[key], device_ms=sgd_dev[key],
+        bound_ms=sgd_bounds[key][0], bound_by=sgd_bounds[key][1],
+        bound_ratio=(sgd_dev[key] / sgd_bounds[key][0]
+                     if isinstance(sgd_dev[key], float) else "not measured"),
+        plain_ms=sgd_plain_ms[key], library_ms=sgd_library.get(key))
+        for key in sgd_calls}
+    phase_done(torch, "timing_baselines", t0, reps=args.reps,
+               fixed_point_batched=dict(
+                   shape=[K, n_pad, m, idx1.shape[1]], ms=fixed_ms,
+                   device_ms=fixed_dev, passes=int(visits.max()),
+                   bound_ms_two_passes=fixed_two[0],
+                   bound_ms_inputs_once=fixed_once[0],
+                   device_kernels=fixed_trace.get("kernels")),
+               sgd_stack=sgd_row, bit_identical_to_plain=sgd_same)
+    if not all(sgd_same.values()):
+        raise SystemExit("chip_smoke: K2, K3 or K4 disagrees with its plain "
+                         "version on the SGD path's gradient stack (see "
+                         "the timing_baselines line)")
+    del visits, got, want
 
     # the same kernels at the long-row path's shapes: K1 on its round-1
     # inputs, K2, K3 and K4 on its round-1 Delta v stack
@@ -947,17 +1239,21 @@ def main(argv=None) -> int:
         phase_done(torch, "trace", t0, exchange=ex, rounds=5, **trace)
 
     src = "src/repro_torch/kernels/csrc/"
+    # the paths that launch each codec's kernels: CoCoA's, then the
+    # baselines' (which never launch K1)
+    uses = {c: [ex for ex, c_ in PATHS if c_ == c] for c in CODECS + ("topk",)}
+    uses["int8"].append("minibatch_scd compressed:int8")
+    for name, ex, _, _, _, c in SGD_PATHS:
+        uses[c].append(f"{name} {ex}")
     rows = [("scd_solve", "scd_solve", src + "scd.cu",
              "src/repro/kernels/scd.py:137", [ex for ex, _ in PATHS])]
-    for (ex, c), q_line, d_line in zip(PATHS[:3], (90, 110, 130),
-                                       (123, 144, 165)):
+    for c, q_line, d_line in zip(CODECS, (90, 110, 130), (123, 144, 165)):
         rows.append((c, f"quantize_pack_{c}", src + "quant.cu",
-                     f"src/repro/kernels/quant.py:{q_line}", [ex]))
+                     f"src/repro/kernels/quant.py:{q_line}", uses[c]))
         rows.append((f"decode_{c}", f"decode_reduce_{c}", src + "dequant.cu",
-                     f"src/repro/kernels/dequant.py:{d_line}", [ex]))
+                     f"src/repro/kernels/dequant.py:{d_line}", uses[c]))
     rows.append(("topk", "topk_select", src + "topk.cu",
-                 "src/repro/kernels/topk.py:83",
-                 [ex for ex, c in PATHS if c == "topk"]))
+                 "src/repro/kernels/topk.py:83", uses["topk"]))
     kernels = []
     for key, name, source, replaces, paths in rows:
         n_l = sum(runs[ex]["launches"][name] for ex in paths)
@@ -985,6 +1281,8 @@ def main(argv=None) -> int:
         bound_ms=bounds["topk_k_eq_L"][0]))
     for entry, key in zip(kernels, [r[0] for r in rows]):
         entry["long_row"] = long_row[key]
+        if key in sgd_row:
+            entry["sgd_stack"] = sgd_row[key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

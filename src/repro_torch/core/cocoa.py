@@ -79,12 +79,16 @@ class CoCoAConfig:
 
 @dataclass
 class History:
+    """One entry a recorded round: its number, primal and suboptimality.
+    ``seconds[i]`` is the host time from the previous record (or from
+    the first round's start) until record ``i``'s primal is on the host,
+    which waits for the device; ``span[i]`` is the number of rounds that
+    time covers."""
     rounds: list = field(default_factory=list)
     primal: list = field(default_factory=list)
     subopt: list = field(default_factory=list)
-    # host seconds per round, from before its indices are drawn
-    # until its primal is on the host (which waits for the device)
     seconds: list = field(default_factory=list)
+    span: list = field(default_factory=list)
     p_star: float = float("nan")
     p_zero: float = float("nan")
 
@@ -93,6 +97,51 @@ class History:
             if s <= eps:
                 return r
         return None
+
+
+def record_rounds(hist: History, step: Callable, state, rounds: int,
+                  record_every: int, target_eps: float | None,
+                  first_round: int = 1):
+    """Run ``step(state, t) -> (state, primal)`` for rounds
+    ``first_round ..`` (``primal()`` gives the round's primal, a 0-dim
+    tensor), recording into ``hist`` as the reference's ``_record_loop``
+    does: round ``t`` only when ``t % record_every == 0`` or it is the
+    last round, and an early stop at ``target_eps`` only at a recorded
+    round. A round that is not recorded never reads its primal, so the
+    host does not wait for the device. Returns the last state and the
+    last round run (0 when none ran), as :func:`dist.finish_run` takes
+    it."""
+    if record_every < 1:
+        raise ValueError(f"record_every must be >= 1, got {record_every}")
+    last = first_round + rounds - 1
+    last_t, prev_t = 0, first_round - 1
+    t0 = time.perf_counter()
+    for t in range(first_round, last + 1):
+        state, primal = step(state, t)
+        last_t = t
+        if t % record_every == 0 or t == last:
+            p = float(primal())
+            hist.seconds.append(time.perf_counter() - t0)
+            s = suboptimality(p, hist.p_star, hist.p_zero)
+            hist.rounds.append(t)
+            hist.primal.append(p)
+            hist.subopt.append(s)
+            hist.span.append(t - prev_t)
+            prev_t = t
+            if target_eps is not None and s <= target_eps:
+                break
+            t0 = time.perf_counter()
+    return state, last_t
+
+
+def virtual_step(round_fn: Callable, source: Callable) -> Callable:
+    """The :func:`record_rounds` step of a virtual-driver run: round
+    ``t`` on ``source(t)``'s indices, the state the ``(local, shared)``
+    pair."""
+    def step(state, t):
+        local, shared, primal = round_fn(*state, source(t), t)
+        return (local, shared), lambda: primal
+    return step
 
 
 class UniformIndices:
@@ -121,7 +170,7 @@ def _get_solver(name: str) -> Callable:
     if name == "scd_ref":
         return solvers.scd_steps
     if name == "scd_fixed":
-        return solvers.scd_steps_fixed_point
+        return solvers.scd_steps_fixed_point_batched
     from repro_torch.kernels import ops as kops
     return kops.scd_steps_kernel
 
@@ -237,36 +286,33 @@ class CoCoATrainer:
             self.m, self.cfg.K, local_state_len=self.cfg.K * self.part.n_padded,
             K_live=K_live)
 
-    def run(self, rounds: int, target_eps: float | None = None, *,
-            state=None, first_round: int = 1) -> History:
+    def run(self, rounds: int, record_every: int = 1,
+            target_eps: float | None = None, *, state=None,
+            first_round: int = 1) -> History:
         """Run up to ``rounds`` rounds, numbered from ``first_round``,
         from ``state`` (``(local, shared)`` as :meth:`init_state` shapes
-        it, default the zero start); stop early once the suboptimality
-        reaches ``target_eps``. Under ``stale`` the recorded primal is
-        one round behind (the driver's metric), and the pending
-        aggregates are absorbed after the last round."""
-        local, w = self.init_state() if state is None else state
+        it, default the zero start), recording every ``record_every``-th
+        round and the last (:func:`record_rounds`); stop early at a
+        recorded round whose suboptimality reaches ``target_eps``. Under
+        ``stale`` the recorded primal is one round behind (the driver's
+        metric), and the pending aggregates are absorbed after the last
+        round, recorded or not."""
         hist = History(p_star=self.p_star, p_zero=self.p_zero)
-        last_t = 0
-        for t in range(first_round, first_round + rounds):
-            t0 = time.perf_counter()
-            idx = self.index_source(t)
-            local, w, primal = self._round_fn(local, w, idx, t)
-            last_t = t
-            p = float(primal)
-            s = suboptimality(p, hist.p_star, hist.p_zero)
-            hist.rounds.append(t)
-            hist.primal.append(p)
-            hist.subopt.append(s)
-            hist.seconds.append(time.perf_counter() - t0)
-            if target_eps is not None and s <= target_eps:
-                break
+        (local, w), last_t = record_rounds(
+            hist, virtual_step(self._round_fn, self.index_source),
+            self.init_state() if state is None else state, rounds,
+            record_every, target_eps, first_round)
         w = dist.finish_run(self._round_fn, w, last_t)
         self.alpha = dist.unwrap_local_state(self.exchange, local)
         self.w_final = w.cpu().numpy()
         self.alpha_final = part_mod.unpack_alpha(self.alpha.cpu().numpy(),
                                                  self.part, self.n)
         return hist
+
+    def run_sharded(self, *args, **kwargs) -> History:
+        raise NotImplementedError(
+            "the sharded driver is not ported yet (ROADMAP.md Queue 1 "
+            "item 8); use run()")
 
     def objective_of(self, alpha_global: np.ndarray) -> float:
         return float(primal_objective(

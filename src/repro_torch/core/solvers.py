@@ -21,6 +21,11 @@ is the reference's ``vmap`` over workers written out.
 atol 1e-5, because it sums each dot product per slab of rows (one slab
 a CTA of the worker's cluster) and then over the slabs in rank order.
 
+``scd_steps_fixed_point`` is mini-batch SCD's solve as a loop of H
+steps (the reference's op for op); ``scd_steps_fixed_point_batched`` is
+its exact batched form, which ``solver="scd_fixed"`` runs on every
+device: the reference computes this solve in jnp, not in a kernel.
+
 Coordinate indices are pre-sampled by the caller, so that the plain
 version, the kernel and the reference agree given the same index
 stream.
@@ -28,6 +33,8 @@ stream.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.utils.device import full_f32_matmul
 
 
 def soft_threshold(z: torch.Tensor, tau) -> torch.Tensor:
@@ -108,3 +115,46 @@ def scd_steps_fixed_point(A_T: torch.Tensor, col_sq: torch.Tensor,
         alpha[rows, j] = z
         dv = dv + (z - a)[:, None] * c
     return dv, alpha
+
+
+def scd_steps_fixed_point_batched(A_T: torch.Tensor, col_sq: torch.Tensor,
+                                  alpha: torch.Tensor, w: torch.Tensor,
+                                  idx: torch.Tensor, *, sigma: float,
+                                  lam: float, eta: float
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``scd_steps_fixed_point`` in a batched exact form, with the same
+    signature and shapes; the step loop stays as its plain version.
+
+    Every step reads the round-start ``w``, so step ``s`` depends on the
+    earlier steps only through ``alpha[k, j_s]``, and a column visited
+    again gets the same map again:
+
+        f_j(a) = where(csq_j > 0,
+                       soft_threshold((sigma*csq_j*a - d_j) / den_j,
+                                      lam*(1-eta) / den_j), a)
+
+    with ``d_j = c_j . w`` and ``den_j = sigma*csq_j + lam*eta``. Hence
+    ``alpha_new[k, j] = f_j^cnt[k, j](alpha[k, j])``, where ``cnt`` counts
+    the visits of ``j`` in ``idx[k]``: one product ``A_T @ w``, ``max(cnt)``
+    elementwise passes over (K, n_pad), and one product of the change
+    in alpha with ``A_T`` for Delta v. Each pass takes the loop's ops in
+    the loop's order, so alpha is the loop's wherever the dots agree;
+    Delta v sums each column once instead of once a visit. Reading
+    ``max(cnt)`` waits for the device."""
+    full_f32_matmul()
+    sig, lam_eta, lam_l1 = _scalars(w, sigma, lam, eta)
+    idx = idx.long()
+    cnt = torch.zeros(col_sq.shape, dtype=torch.int32, device=idx.device)
+    cnt.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    passes = int(cnt.max())
+    d = torch.matmul(A_T, w)                              # (K, n_pad)
+    sig_csq = sig * col_sq
+    denom = sig_csq + lam_eta
+    tau = lam_l1 / denom
+    live = col_sq > 0
+    a = alpha
+    for r in range(passes):
+        z = soft_threshold((sig_csq * a - d) / denom, tau)
+        a = torch.where(live & (cnt > r), z, a)
+    dv = torch.matmul((a - alpha)[:, None, :], A_T)[:, 0]
+    return dv, a

@@ -838,3 +838,59 @@ def test_dequant_kernel_two_launches_bit_identical(cuda, name):
         torch.randn((8, 350000), device=cuda))
     dec = getattr(dequant, f"decode_reduce_{name}")
     assert _bits(dec(p, s, 350000)).equal(_bits(dec(p, s, 350000)))
+
+
+# -- the baselines: mini-batch SCD's batched solve and mini-batch SGD -------
+
+def test_fixed_point_batched_on_card_matches_loop(cuda):
+    """Mini-batch SCD's batched exact solve against its step loop on the
+    card, H = n_pad uniform draws (about 8-10 passes)."""
+    from repro_torch.core.solvers import (scd_steps_fixed_point,
+                                          scd_steps_fixed_point_batched)
+    args = _scd_inputs(8, 2048, 1024, 1024, seed=17, dev=cuda)
+    kw = dict(sigma=8.0, lam=1.0, eta=1.0)
+    dv, a = scd_steps_fixed_point_batched(*args, **kw)
+    dv_l, a_l = scd_steps_fixed_point(*args, **kw)
+    idx = args[4].long()
+    cnt = torch.zeros((8, 1024), dtype=torch.int32, device=cuda)
+    cnt.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    print(f"max(cnt) = {int(cnt.max())}")
+    torch.testing.assert_close(dv, dv_l, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a, a_l, rtol=1e-4, atol=1e-5)
+
+
+def test_uniform_rows_on_card_are_distinct_and_repeat(cuda):
+    from repro_torch.core import UniformRows
+    src = UniformRows(2048, (8, 4, 205), seed=3, device=cuda)
+    rows = src(1)
+    assert rows.device.type == "cuda" and rows.shape == (8, 4, 205)
+    assert bool((rows >= 0).all()) and bool((rows < 2048).all())
+    flat = rows.reshape(-1, 205).sort(dim=1).values
+    assert bool((flat[:, 1:] != flat[:, :-1]).all())
+    assert torch.equal(UniformRows(2048, (8, 4, 205), 3, cuda)(1), rows)
+    assert not torch.equal(src(2), rows)
+
+
+@pytest.mark.parametrize("H,ex,batch_frac", [
+    (1, "compressed:int8", 1.0), (4, "compressed:ef:int4", 0.5)])
+def test_sgd_round_on_card_matches_cpu(cuda, H, ex, batch_frac):
+    """One mini-batch SGD round (MLlib's H = 1, local SGD at H = 4) on
+    the card, through K2 and K3, against the plain versions on the CPU
+    on one replayed row stream."""
+    from repro_torch.carry import ReplayIndices
+    from repro_torch.core import MinibatchSGD, SGDConfig, UniformRows
+    from repro_torch.data import make_glm_data
+    A, b, _ = make_glm_data(m=96, n=256, density=0.2, zipf_a=1.1, seed=42)
+    cfg = SGDConfig(batch_frac=batch_frac, step_size=0.1, K=3, H=H,
+                    exchange=ex)
+    probe = MinibatchSGD(cfg, A, b, device="cpu")
+    stream = [probe.row_source(t).numpy() for t in (1, 2)]
+    out = {}
+    for where in ("cuda", "cpu"):
+        tr = MinibatchSGD(cfg, A, b, device=where,
+                          row_source=ReplayIndices(stream, device=where))
+        hist = tr.run_workers(2, record_every=1, p_star=0.0, p_zero=1.0)
+        out[where] = (np.array(hist.primal), tr.alpha_final)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-3,
+                               atol=1e-6)

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import CoCoAConfig, CoCoATrainer
+from repro_torch.core import (CoCoAConfig, CoCoATrainer, MinibatchSCD,
+                              MinibatchSGD, SGDConfig)
 from repro_torch.utils.device import resolve_device
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -35,6 +36,7 @@ def _python_files():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.cocoa" in mods and "repro_torch.carry" in mods
+    assert "repro_torch.core.baselines" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -74,6 +76,10 @@ def test_entry_points_raise_without_a_card():
     b = np.ones(4, np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CoCoATrainer(CoCoAConfig(K=2, H=2), A, b)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MinibatchSCD(CoCoAConfig(K=2, H=2), A, b)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MinibatchSGD(SGDConfig(K=2), A, b)
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):
