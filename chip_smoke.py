@@ -33,7 +33,12 @@ JSON line:
      at C = 16, each width; K4 at (8, 350,000) with k = 43,750,
      (1, 10^6) with k = 1 and (2, 200,003) with k = L, in its
      device-memory forms, and at the main path's stack forced into the
-     device-memory form);
+     device-memory form); the fixed-order batched products (``bmv.cu``:
+     matvec and vecmat) at mini-batch SCD's (K, n_pad, m) stack, SGD's
+     (K, m/K, n) row blocks and local SGD's gathered rows, and on ragged,
+     misaligned and expanded inputs, within the dot-product bound
+     2 gamma_n sum |products| of their plain versions, each worker's
+     block alone bit-identical to its rows of the K-worker launch;
   3. the main paths: CoCoA ridge with ``solver="scd_kernel"`` on the
      virtual driver, K workers batched into each launch, under
      ``compressed:int8``, ``compressed:ef:int4`` (the error-feedback
@@ -72,7 +77,9 @@ JSON line:
      1/L (1/(K L) at H = 4) with L = sigma_max(A)^2 + lam from 30 power
      iterations; the legacy single-device SGD loop (``batch_frac`` 0.1,
      20 rounds). K1 must not launch, the path's codec kernels once a
-     round, no other kernel. Then: mini-batch SCD's first 3 rounds again
+     round, the batched products as often as the path takes them
+     (mini-batch SCD: one matvec and one vecmat; SGD: H + 1 and H), no
+     other kernel. Then: mini-batch SCD's first 3 rounds again
      through the step loop (the batched solve's plain version) at rtol
      1e-4; a small problem on the card and on the CPU on one replayed
      stream for mini-batch SCD ``compressed:int8``, SGD H = 1
@@ -93,13 +100,45 @@ JSON line:
      its two passes over A_T and of reading each input once); K2 and K3
      (int8) and K4 (k = 4096) on the SGD path's round-1 gradient stack
      (K, n), each held bit for bit against its plain version there (K2
-     and K3 also int4); then every kernel at the long-row path's shapes
+     and K3 also int4); the batched products at mini-batch SCD's and
+     SGD's shapes, beside their plain versions, ``torch.matmul`` and
+     the loop of one ``torch.matmul`` a worker; then every kernel at the
+     long-row path's shapes
      (its round-1 inputs and Δv), K4 also at C = 16, 8 and 4;
   6. device traces: ``torch.profiler`` over 5 rounds of
      ``compressed:int8`` and of ``compressed:ef:topk(r=0.125)`` (after 2
      untraced ones each), each kernel's device time by name and the
      device's busy share of the window (a trace without device time is
-     reported, not failed).
+     reported, not failed);
+  7. the sharded driver (``run_sharded``) on a 1-rank NCCL group in this
+     process, K = 1 at one main-path worker's shape (m = 16,384, n = H =
+     4096), 5 rounds each of ``persistent``, ``spark_faithful``,
+     ``reduce_scatter``, ``compressed:int8``,
+     ``compressed:ef:topk(r=0.125)`` and ``compressed:int8/ring``: the
+     final state's hashes and every primal equal to the virtual driver's
+     at K = 1 (a sum of one addend is exact), no copy staged, K1 and the
+     path's codec kernels once a round; the recorded calls are printed.
+     NCCL refuses two ranks on one card, so this is the only NCCL group
+     the card can hold;
+  8. K ranks, one process per worker, all on the one card in a gloo
+     group (each payload copied through the host), at the main shape:
+     the parent writes each rank's column block and row block once and
+     hands the ranks phase 3's p_star; CoCoA ``compressed:int8`` and
+     ``compressed:int8/ring`` and
+     ``compressed:ef:topk(r=0.125)/stale:k=2/drop:1@5-9`` up to the
+     virtual run's rounds-to-eps, ``persistent`` for 10 rounds,
+     mini-batch SCD ``compressed:int8`` and SGD H = 1 ``compressed:int8``
+     for 5, each on phase 3's (4c's) index stream. Each path against a
+     virtual run: each rank's K1 plan, the final state's hashes (the
+     ``compressed`` paths, where the plans agree), the per-round primal
+     (rtol 1e-6; 1e-4 for ``persistent``, whose sum order is gloo's),
+     rounds-to-eps, the bytes derived from the recorded calls (equal to
+     ``comm_bytes_per_round()`` every round), the wire dtypes, the
+     launches per rank, each rank's peak memory and median round time
+     (K processes time-sharing one card: not a multi-GPU number); then a
+     ``torch.profiler`` trace of 5 int8 rounds on rank 0 (kernels,
+     staging copies and the host's time inside gloo) and each kernel's
+     device time at its sharded shape.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -113,12 +152,16 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# when this process began running this file (a spawned rank of phase 8
+# reports it, to split its start-up time)
+LOADED_AT = time.time()
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # f32 operations/s outside the tensor cores
@@ -157,6 +200,26 @@ LEGACY_FRAC, LEGACY_ROUNDS = 0.1, 20
 SMALL_BASELINES = (("minibatch_scd", "compressed:int8", None, None),
                    ("sgd_h1", "compressed:int8", 1, 1.0),
                    ("local_sgd", "compressed:ef:int4/drop:1@3-5", 4, 0.5))
+# the sharded phases (7 and 8): a 1-rank NCCL group at one worker's
+# shape (n = NCCL_N, K = 1) against the virtual driver at K = 1, then
+# one process per worker on the one card in a gloo group at the main
+# shape, each path against a virtual run on the same index stream
+# ((algorithm, exchange, rounds); None: up to the virtual run's
+# rounds-to-eps)
+NCCL_N, NCCL_ROUNDS = 4096, 5
+NCCL_PATHS = ("persistent", "spark_faithful", "reduce_scatter",
+              "compressed:int8", TOPK, "compressed:int8/ring")
+GLOO_PATHS = (("cocoa", "compressed:int8", None),
+              ("cocoa", "compressed:int8/ring", None),
+              ("cocoa", f"{TOPK}/stale:k=2/drop:1@5-9", None),
+              ("cocoa", "persistent", 10),
+              ("minibatch_scd", "compressed:int8", 5),
+              ("sgd_h1", "compressed:int8", 5))
+GLOO_TRACE_ROUNDS = 5
+# CPU ops of the rank-0 trace whose host time is summed: the process
+# group's calls (the host's wait inside gloo) and the staging copies
+GLOO_HOST_OPS = ("gloo", "c10d", "aten::copy_", "aten::_to_copy",
+                 "cudaMemcpy", "cudaStreamSynchronize")
 POWER_ITERS = 30
 CODECS = ("int8", "int4", "int2")
 BITS = {"int8": 8, "int4": 4, "int2": 2}
@@ -171,7 +234,23 @@ KERNEL_NAMES = {"scd_solve": "scd_kernel", "topk": "topk_kernel",
                 "int2": "quant_kernel<4,",
                 "decode_int8": "dequant_kernel<8,",
                 "decode_int4": "dequant_kernel<4,",
-                "decode_int2": "dequant_kernel<2,"}
+                "decode_int2": "dequant_kernel<2,",
+                "matvec": "bmv_rows_kernel", "vecmat": "bmv_cols_kernel"}
+# the fixed-order batched products' launches a round on each baseline
+# path ((matvec, vecmat); CoCoA and the legacy loop launch none): mini-
+# batch SCD's A_T w and Delta v; SGD's A_s alpha and resid A_s a step,
+# and A alpha for the metric
+BMV = ("batched_matvec", "batched_vecmat")
+
+
+def bmv_per_round(name: str, H=None) -> dict:
+    if name == "minibatch_scd":
+        per = (1, 1)
+    elif name in ("sgd_h1", "local_sgd"):
+        per = (H + 1, H)
+    else:
+        per = (0, 0)
+    return dict(zip(BMV, per))
 
 
 def emit(**kw) -> None:
@@ -250,6 +329,13 @@ def topk_fits(L: int, k: int, cluster) -> bool:
     except ValueError:
         return False
     return True
+
+
+def dot_bound(n: int) -> float:
+    """2 gamma_n: two f32 sums of the same n products, in any two
+    orders, differ by at most this times the sum of their magnitudes."""
+    u = 2.0 ** -24
+    return 2 * n * u / (1 - n * u)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -360,11 +446,12 @@ def indices_differ(torch, a, b) -> int:
     return sum(int((~torch.isin(ra, rb)).sum()) for ra, rb in zip(a, b))
 
 
-def device_trace(torch, fn) -> dict:
+def device_trace(torch, fn, host=()) -> dict:
     """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activities) and
     sum the device time of each kernel by name, with the device's busy
-    share of the host window. A trace that holds no device time says so
-    instead of failing."""
+    share of the host window, and the host time of each CPU op whose
+    name holds one of the ``host`` substrings. A trace that holds no
+    device time says so instead of failing."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -374,9 +461,12 @@ def device_trace(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    by_name, spans = {}, []
+    by_name, spans, host_ops = {}, [], {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if any(h in ev.name for h in host):
+                n, us = host_ops.get(ev.name, (0, 0.0))
+                host_ops[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
             continue
         start, end = ev.time_range.start, ev.time_range.end
         if end <= start:
@@ -385,8 +475,11 @@ def device_trace(torch, fn) -> dict:
         name = ev.name if len(ev.name) <= 80 else ev.name[:77] + "..."
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + (end - start))
+    host_ms = {name: {"calls": n, "host_ms": us / 1e3}
+               for name, (n, us) in host_ops.items()}
     if not spans:
-        return dict(device_time="none in the trace", window_ms=window_us / 1e3)
+        return dict(device_time="none in the trace", window_ms=window_us / 1e3,
+                    **({"host_ops": host_ms} if host else {}))
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s_, e_ in spans[1:]:             # the union of the device spans
@@ -404,7 +497,160 @@ def device_trace(torch, fn) -> dict:
         busy_share_of_window=busy / window_us,
         busy_share_of_device_span=busy / device_span,
         kernels={name: {"calls": n, "device_ms": us / 1e3}
-                 for name, (n, us) in top})
+                 for name, (n, us) in top},
+        **({"host_ops": host_ms} if host else {}))
+
+
+def sharded_stats(torch, tr, hist, log, counters, K: int, eps: float
+                  ) -> dict:
+    """What one sharded run of ``tr`` left on this rank: its History,
+    launches, K1 plan, peak memory, the bytes and dtypes of its log, and
+    the hashes of the final state."""
+    from repro_torch.analysis.traffic import (derived_round_traffic,
+                                              payload_collectives,
+                                              quantized_wire_dtypes)
+    from repro_torch.kernels.scd import scd_solve
+    from repro_torch.launch.dist import sha256
+
+    rounds = log.rounds()
+    sgd = not hasattr(tr, "w_final")
+    length = tr.n if sgd else tr.m
+    payload = [c for t in rounds for c in payload_collectives(log.of_round(t))]
+    return dict(
+        primal=hist.primal, rounds=hist.rounds, seconds=hist.seconds,
+        rounds_to_eps=hist.rounds_to(eps),
+        launches={fn.__name__: fn.launches for fn in counters},
+        plan=(dataclasses.asdict(scd_solve.last_plan)
+              if scd_solve.launches else None),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        derived_bytes=[derived_round_traffic(log.of_round(t), tr.exchange, K)
+                       for t in rounds],
+        model_bytes=[tr.comm_bytes_per_round(t) for t in rounds],
+        model_bytes_all_live=tr.comm_bytes_per_round(),
+        calls_per_round=len(log) / max(len(rounds), 1),
+        staged=sum(c.staged for c in log),
+        quantized_dtypes=sorted(quantized_wire_dtypes(log)),
+        payload_dtypes=sorted({(c.op, c.dtype) for c in payload}),
+        f32_update_payloads=sum(c.dtype == "float32"
+                                and c.nbytes >= 4 * length for c in payload),
+        shared_sha256=sha256(tr.alpha_final if sgd else tr.w_final),
+        local_sha256=None if sgd else sha256(tr.alpha))
+
+
+def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of the gloo phase: worker ``rank``'s blocks from
+    ``job["dir"]``, every path of ``job["paths"]`` on the sharded
+    driver, then (rank 0) a trace of 5 int8 rounds and each kernel's
+    device time at its sharded shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.collectives import Fabric
+    from repro_torch.comm.collectives import recording as record_calls
+    from repro_torch.core import (CoCoAConfig, CoCoATrainer, MinibatchSCD,
+                                  MinibatchSGD, SGDConfig)
+    from repro_torch.core.baselines import WorkerRows
+    from repro_torch.core.cocoa import WorkerColumns
+    from repro_torch.kernels import bmv, dequant, quant
+    from repro_torch.kernels.scd import scd_solve
+    from repro_torch.kernels.topk import topk_select
+
+    started = time.time() - job["spawned_at"]  # process start and group join
+    loaded = LOADED_AT - job["spawned_at"]
+    t0 = time.perf_counter()
+    torch.zeros((1,), device=device)           # the rank's CUDA context
+    torch.cuda.synchronize(device)
+    context_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = job["dir"]
+    b = np.load(os.path.join(d, "b.npy"))
+    cols = WorkerColumns(job["part"], rank,
+                         np.load(os.path.join(d, f"cols{rank}.npy")),
+                         job["n"])
+    rows = WorkerRows(rank, np.load(os.path.join(d, f"rows{rank}.npy")),
+                      job["m"])
+    counters = ([scd_solve, topk_select]
+                + [getattr(quant, f"quantize_pack_{c}") for c in CODECS]
+                + [getattr(dequant, f"decode_reduce_{c}") for c in CODECS]
+                + [bmv.batched_matvec, bmv.batched_vecmat])
+
+    def trainer(name, ex):
+        if name == "sgd_h1":
+            return MinibatchSGD(SGDConfig(exchange=ex, **job["sgd"]), rows, b,
+                                device=device)
+        cls = CoCoATrainer if name == "cocoa" else MinibatchSCD
+        return cls(CoCoAConfig(exchange=ex, **job["cocoa"]), cols, b,
+                   device=device)
+
+    def run(tr, rounds, eps):
+        if isinstance(tr, MinibatchSGD):
+            return tr.run_sharded(rounds, record_every=1, target_eps=eps,
+                                  p_star=job["p_star"], p_zero=job["p_zero"])
+        return tr.run_sharded(rounds, target_eps=eps, p_star=job["p_star"])
+
+    out = {"paths": [], "started_s": started, "loaded_s": loaded,
+           "cuda_context_s": context_s,
+           "blocks_loaded_s": time.perf_counter() - t0}
+    for name, ex, rounds, eps in job["paths"]:
+        t0 = time.perf_counter()
+        tr = trainer(name, ex)
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        with record_calls() as log:
+            hist = run(tr, rounds, eps)
+        torch.cuda.synchronize(device)
+        out["paths"].append(sharded_stats(torch, tr, hist, log, counters,
+                                          world, job["eps"]))
+        del tr
+        free(torch)
+        out["paths"][-1]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # 5 int8 rounds, rank 0 under the profiler, the others alongside
+    tr = trainer("cocoa", "compressed:int8")
+    go = lambda: run(tr, GLOO_TRACE_ROUNDS, None)     # noqa: E731
+    if rank == 0:
+        out["trace"] = device_trace(torch, go, host=GLOO_HOST_OPS)
+    else:
+        go()
+    # each kernel at its sharded shape: K1 on this worker's block, K2 and
+    # K4 on its round-1 row, K3 on the gathered (K, .) payload, the
+    # batched products on the block (mini-batch SCD's A_T w and Delta v)
+    A_T, col_sq, mask = tr.worker_data(rank)
+    alpha0 = torch.zeros_like(mask)
+    w0 = -tr.b
+    idx = tr.index_source(1)[rank:rank + 1]
+    kw = dict(sigma=float(world), lam=job["cocoa"]["lam"], eta=1.0)
+    dv, _ = scd_solve(A_T, col_sq, alpha0, w0, idx, **kw)
+    q, scale = quant.quantize_pack_int8(dv)
+    fab = Fabric()
+    qs, scales = fab.all_gather(q), fab.all_gather(scale)
+    if rank == 0:
+        k = job["topk_k"]
+        y = torch.randn(mask.shape, device=device) * 1e-3
+        calls = {
+            "scd_solve": (lambda: scd_solve(A_T, col_sq, alpha0, w0, idx,
+                                            **kw), "scd_kernel", 20,
+                          tuple(A_T.shape) + (idx.shape[1],)),
+            "quantize_pack_int8": (lambda: quant.quantize_pack_int8(dv),
+                                   "quant_kernel<1,", 200, tuple(dv.shape)),
+            "decode_reduce_int8": (lambda: dequant.decode_reduce_int8(
+                qs, scales, tr.m, mean=False), "dequant_kernel<8,", 200,
+                tuple(qs.shape)),
+            "topk_select": (lambda: topk_select(dv, k), "topk_kernel", 200,
+                            tuple(dv.shape) + (k,)),
+            "batched_matvec": (lambda: bmv.batched_matvec(A_T, w0),
+                               "bmv_rows_kernel", 20, tuple(A_T.shape)),
+            "batched_vecmat": (lambda: bmv.batched_vecmat(y, A_T),
+                               "bmv_cols_kernel", 20, tuple(A_T.shape))}
+        out["kernels"] = {
+            key: dict(shape=list(shape), device_ms=device_ms(
+                torch, fn, n, kname), plan=None)
+            for key, (fn, kname, n, shape) in calls.items()}
+        out["kernels"]["scd_solve"]["plan"] = dataclasses.asdict(
+            scd_solve.last_plan)
+    out["trace_and_timing_s"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv=None) -> int:
@@ -439,10 +685,11 @@ def main(argv=None) -> int:
     from repro_torch.core.solvers import (scd_steps, scd_steps_fixed_point,
                                           scd_steps_fixed_point_batched)
     from repro_torch.data import make_glm_data
-    from repro_torch.kernels import _build, dequant, quant, scd, topk
+    from repro_torch.kernels import _build, bmv, dequant, quant, scd, topk
     from repro_torch.kernels.scd import scd_solve
     from repro_torch.kernels.topk import (topk_plan, topk_select,
                                           topk_select_ref)
+    from repro_torch.utils.device import full_f32_matmul
 
     enc = {c: getattr(quant, f"quantize_pack_{c}") for c in CODECS}
     enc_ref = {c: getattr(quant, f"quantize_pack_{c}_ref") for c in CODECS}
@@ -607,10 +854,69 @@ def main(argv=None) -> int:
                               max_err(got[1].long(), want[1].long()))
             runs_c += 1
         by_cluster.setdefault("topk", {})[str(cl or "plan")] = runs_c
+    # the fixed-order batched products at the baselines' shapes: mini-
+    # batch SCD's A_T w and Delta v, SGD's on the (K, m/K, n) row blocks
+    # and local SGD's on (K, 205, n) gathered rows, then ragged,
+    # misaligned and expanded cases; each within the dot-product bound of
+    # its plain version, and each worker's block alone bit for bit equal
+    # to its rows of the K-worker launch (mini-batch SCD's and SGD's)
+    blocks = tr.A[:K * (m // K)].view(K, m // K, -1)
+    n_cols = blocks.shape[2]
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    bmv_cases = [
+        ("minibatch_scd", tr.A_T, w0, rnd(K, n_pad, scale=1e-3)),
+        ("sgd_h1", blocks, rnd(n_cols, scale=1e-2), rnd(K, m // K)),
+        ("local_sgd", blocks[:, :205].contiguous(), rnd(K, n_cols, scale=1e-2),
+         rnd(K, 205)),
+        ("ragged, x misaligned", rnd(3, 33, 97), rnd(3, 98)[:, 1:],
+         rnd(3, 33)),
+        ("one vector expanded", rnd(5, 17, 258), rnd(258).expand(5, -1),
+         rnd(5, 17))]
+    over_bound, bmv_alone = {}, {}
+    for key in ("matvec", "vecmat"):
+        ok[key], err[key] = True, 0.0
+    for label, M_, x_, y_ in bmv_cases:
+        xs = x_.expand(M_.shape[0], -1) if x_.dim() == 1 else x_
+        for key, got, want, bound in (
+                ("matvec", bmv.batched_matvec(M_, x_),
+                 bmv.batched_matvec_ref(M_, x_),
+                 dot_bound(M_.shape[2]) * bmv.batched_matvec_ref(
+                     M_.abs(), xs.abs())),
+                ("vecmat", bmv.batched_vecmat(y_, M_),
+                 bmv.batched_vecmat_ref(y_, M_),
+                 dot_bound(M_.shape[1]) * bmv.batched_vecmat_ref(
+                     y_.abs(), M_.abs()))):
+            diff = (got - want).abs()
+            ok[key] &= bool((diff <= bound).all())
+            err[key] = max(err[key], max_err(got, want))
+            over_bound[f"{key} {label} {list(M_.shape)}"] = float(
+                (diff / bound.clamp_min(1e-30)).max())
+            if label in ("minibatch_scd", "sgd_h1"):
+                alone = [bmv.batched_matvec(
+                    M_[k_:k_ + 1], x_ if x_.dim() == 1 else x_[k_:k_ + 1])
+                    if key == "matvec" else
+                    bmv.batched_vecmat(y_[k_:k_ + 1], M_[k_:k_ + 1])
+                    for k_ in range(M_.shape[0])]
+                bmv_alone[f"{key} {label}"] = all(
+                    bits_equal(torch, a[0], got[k_])
+                    for k_, a in enumerate(alone))
+                ok[key] &= bmv_alone[f"{key} {label}"]
+    del bmv_cases, blocks, M_, x_, y_, xs, got, want, bound, diff, alone
+    free(torch)
     phase_done(torch, "kernels_vs_plain", t0,
                ok=ok, max_abs_err=err, scd_by_cluster=scd_by_c,
                tolerance={"scd_solve": "rtol 1e-4, atol 1e-5",
-                          "quantize, decode and topk": "bit-identical"},
+                          "quantize, decode and topk": "bit-identical",
+                          "matvec and vecmat": (
+                              "|kernel - plain| <= 2 gamma_n sum_j "
+                              "|products|, gamma_n = n u / (1 - n u), "
+                              "u = 2^-24; a worker alone bit-identical "
+                              "to its rows of the K launch")},
+               bmv_err_over_bound=over_bound,
+               bmv_worker_alone_bit_identical=bmv_alone,
                quantize_cases=[list(x.shape) for x in cases],
                decode_cases=[[list(p.shape), L]
                              for p, _, L in payloads["int4"]],
@@ -709,7 +1015,7 @@ def main(argv=None) -> int:
 
     # -- 3. the main paths ----------------------------------------------
     counters = ([scd_solve] + list(enc.values()) + list(dec.values())
-                + [topk_select])
+                + [topk_select, bmv.batched_matvec, bmv.batched_vecmat])
 
     def plans_of(tr, c):
         """The plans K1 and the path's codec kernels took on ``tr``."""
@@ -722,12 +1028,16 @@ def main(argv=None) -> int:
                 quant.quant_plan(K_, m_, BITS[c]))
         return out
 
-    def run_path(line, ex, c, go, tr, k1, extra):
+    def run_path(line, ex, c, go, tr, k1, extra, bmv_each=None):
         """Run one path (``go()``, every round recorded) on trainer ``tr``
         with every launch counter set to 0 just before and read just
         after: the path's codec kernels, and K1 when ``k1``, must launch
-        once a round and no other kernel at all. ``extra(hist)`` adds the
-        path's own fields to its line."""
+        once a round, the batched products ``bmv_each[name]`` times a
+        round, and no other kernel at all. ``extra(hist)`` adds the
+        path's own fields to its line. A CoCoA trainer's data go to the
+        card before the peak-memory window opens."""
+        if isinstance(tr, CoCoATrainer):
+            tr._round_fn  # noqa: B018 (places the data)
         held = torch.cuda.memory_allocated()
         for fn in counters:
             fn.launches = 0
@@ -759,11 +1069,14 @@ def main(argv=None) -> int:
         want = {fn.__name__: 0 for fn in counters}
         want.update({name: n_rounds for name in
                      (("scd_solve",) if k1 else ()) + own_kernels(c)})
+        want.update({name: n * n_rounds
+                     for name, n in (bmv_each or {}).items()})
         if launches != want:
             raise SystemExit(f"chip_smoke: under {ex} ({line}) "
                              f"{'K1 and ' if k1 else ''}the {c} kernels must "
-                             f"launch once per round ({n_rounds} rounds) and "
-                             f"no other kernel, got {launches}")
+                             f"launch once per round ({n_rounds} rounds), "
+                             f"the batched products {bmv_each} times a "
+                             f"round and no other kernel, got {launches}")
         if not (np.all(np.isfinite(hist.primal))
                 and np.all(np.isfinite(tr.alpha_final))
                 and tr.alpha_final.shape == (tr.n,)
@@ -895,7 +1208,8 @@ def main(argv=None) -> int:
         lambda h: dict(path=label, H=cfg_scd.H, rounds_to_each_eps=reached(h),
                        cocoa_rounds_to_eps=(
                            runs["compressed:int8"]["rounds_to_eps"]
-                           or "not reached")))
+                           or "not reached")),
+        bmv_per_round("minibatch_scd"))
     t0 = time.perf_counter()
     trace = device_trace(torch, lambda: trB.run(5))
     phase_done(torch, "baseline_trace", t0, path=label, rounds=5, **trace)
@@ -932,7 +1246,8 @@ def main(argv=None) -> int:
                 p_zero=base_p_zero), trS, False,
             lambda h: dict(path=label, H=H_s, batch_frac=frac,
                            batch_local=trS.batch_local,
-                           step_size=cfg_s.step_size))
+                           step_size=cfg_s.step_size),
+            bmv_per_round(name, H_s))
         if sgd_stack is None:
             # the path's round-1 gradient stack, which phase 5 times K2,
             # K3 and K4 on
@@ -1157,6 +1472,56 @@ def main(argv=None) -> int:
                          "the timing_baselines line)")
     del visits, got, want
 
+    # the fixed-order batched products at their main-path shapes: mini-
+    # batch SCD's (K, n_pad, m) stack (the kernels line's numbers) and
+    # SGD H = 1's (K, m/K, n) row blocks; beside the plain versions, the
+    # library's batched product and the loop of one library product a
+    # worker that kept the bits K-independent before these kernels
+    t0 = time.perf_counter()
+    full_f32_matmul()
+    blocks = tr.A[:K * (m // K)].view(K, m // K, -1)
+    y_scd = torch.randn((K, n_pad), generator=g, device=dev) * 1e-3
+    a_sgd = torch.randn((blocks.shape[2],), generator=g, device=dev) * 1e-2
+    y_sgd = torch.randn((K, m // K), generator=g, device=dev)
+    bmv_args = {"matvec": (tr.A_T, w0), "vecmat": (y_scd, tr.A_T),
+                "matvec_sgd": (blocks, a_sgd), "vecmat_sgd": (y_sgd, blocks)}
+    bmv_fn = {"matvec": (bmv.batched_matvec, bmv.batched_matvec_ref,
+                         lambda M_, x_: torch.matmul(M_, x_),
+                         lambda M_, x_: torch.stack([a @ x_ for a in M_])),
+              "vecmat": (bmv.batched_vecmat, bmv.batched_vecmat_ref,
+                         lambda y_, M_: torch.matmul(y_[:, None], M_)[:, 0],
+                         lambda y_, M_: torch.stack(
+                             [r @ a for r, a in zip(y_, M_)]))}
+    bmv_row = {}
+    for key, a_ in bmv_args.items():
+        kern, ref_, lib, loop = bmv_fn[key.split("_")[0]]
+        M_ = a_[0] if key.startswith("matvec") else a_[1]
+        Kb, rb, cb = M_.shape
+        nb = 4 * (Kb * rb * cb + Kb * rb                  # M, and y or x
+                  + (cb if key.startswith("matvec") else Kb * cb))
+        bnd = bound_ms(nb, 2 * Kb * rb * cb)
+        dev_t = device_ms(torch, lambda: kern(*a_), args.reps,
+                          KERNEL_NAMES[key.split("_")[0]])
+        bmv_row[key] = dict(
+            shape=[Kb, rb, cb], ms=time_ms(torch, lambda: kern(*a_),
+                                           args.reps),
+            device_ms=dev_t, bound_ms=bnd[0], bound_by=bnd[1],
+            bound_ratio=(dev_t / bnd[0] if isinstance(dev_t, float)
+                         else "not measured"),
+            plain_ms=time_ms(torch, lambda: ref_(*a_), 5, warmup=1),
+            library_ms=time_ms(torch, lambda: lib(*a_), args.reps),
+            per_worker_loop_ms=time_ms(torch, lambda: loop(*a_), args.reps))
+    for key in ("matvec", "vecmat"):
+        ms[key], dev_ms[key] = bmv_row[key]["ms"], bmv_row[key]["device_ms"]
+        plain[key], library[key] = (bmv_row[key]["plain_ms"],
+                                    bmv_row[key]["library_ms"])
+        bounds[key] = (bmv_row[key]["bound_ms"], bmv_row[key]["bound_by"])
+    phase_done(torch, "timing_bmv", t0, reps=args.reps, kernels=bmv_row,
+               library="torch.matmul (batched), full f32",
+               per_worker_loop="one torch.matmul a worker, stacked")
+    del blocks, y_scd, a_sgd, y_sgd, bmv_args
+    free(torch)
+
     # the same kernels at the long-row path's shapes: K1 on its round-1
     # inputs, K2, K3 and K4 on its round-1 Delta v stack
     t0 = time.perf_counter()
@@ -1238,6 +1603,218 @@ def main(argv=None) -> int:
         free(torch)
         phase_done(torch, "trace", t0, exchange=ex, rounds=5, **trace)
 
+    # -- 7. the sharded driver on a 1-rank NCCL group --------------------
+    import torch.distributed as tdist
+
+    from repro_torch.comm.collectives import recording as record_calls
+    from repro_torch.launch.dist import init_group, sha256, spawn
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    A1, b1, _ = make_glm_data(m=args.m, n=NCCL_N, density=args.density,
+                              zipf_a=1.1, seed=args.seed)
+    cfg1 = dataclasses.replace(cfg, K=1, H=NCCL_N)
+    p1, nccl, nccl_ok = None, {}, True
+    data_s = time.perf_counter() - t0
+    init_group("nccl", "file://" + os.path.join(work, "nccl"), 1, 0)
+    try:
+        for ex in NCCL_PATHS:
+            c1 = dataclasses.replace(cfg1, exchange=ex)
+            t1 = time.perf_counter()
+            trv = CoCoATrainer(c1, A1, b1)
+            p1 = trv.p_star if p1 is None else p1
+            trv._p_star_cache = p1           # the same problem: solved once
+            hv = trv.run(NCCL_ROUNDS)
+            virtual_s = time.perf_counter() - t1
+            want = dict(primal=hv.primal, shared=sha256(trv.w_final),
+                        local=sha256(trv.alpha),
+                        plan=dataclasses.asdict(scd_solve.last_plan))
+            del trv
+            free(torch)
+            trs = CoCoATrainer(c1, A1, b1)
+            for fn in counters:
+                fn.launches = 0
+            t1 = time.perf_counter()
+            with record_calls() as log:
+                hs = trs.run_sharded(NCCL_ROUNDS, p_star=p1)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t1
+            got = dict(primal=hs.primal, shared=sha256(trs.w_final),
+                       local=sha256(trs.alpha),
+                       plan=dataclasses.asdict(scd_solve.last_plan))
+            launches = {fn.__name__: fn.launches for fn in counters}
+            c = ExchangeConfig.parse(ex).scheme.codec.name.removeprefix("ef:")
+            expect = {fn.__name__: 0 for fn in counters}
+            expect.update({k_: NCCL_ROUNDS for k_ in ("scd_solve",)
+                           + own_kernels(None if c == "f32" else
+                                         "topk" if c.startswith("topk")
+                                         else c)})
+            nccl[ex] = dict(same_state=(got["shared"], got["local"])
+                            == (want["shared"], want["local"]),
+                            same_primal=got["primal"] == want["primal"],
+                            plan_sharded=got["plan"],
+                            plan_virtual=want["plan"],
+                            calls_round_1=[[c_.op, c_.dtype, c_.nbytes,
+                                            c_.staged]
+                                           for c_ in log.of_round(1)],
+                            launches=launches, virtual_seconds=virtual_s,
+                            sharded_seconds=sharded_s,
+                            sharded_round_ms=[x * 1e3 for x in hs.seconds])
+            nccl_ok &= (nccl[ex]["same_state"] and nccl[ex]["same_primal"]
+                        and launches == expect
+                        and not any(c_.staged for c_ in log))
+            del trs
+            free(torch)
+    finally:
+        tdist.destroy_process_group()
+    phase_done(torch, "sharded_nccl", t0, data_seconds=data_s, K=1,
+               m=args.m, n=NCCL_N,
+               H=NCCL_N, rounds=NCCL_ROUNDS, p_star=p1, paths=nccl,
+               note="a 1-rank NCCL group: NCCL refuses two ranks on one "
+                    "card, so no multi-GPU exchange runs here")
+    if not nccl_ok:
+        raise SystemExit("chip_smoke: the 1-rank NCCL sharded run left the "
+                         "virtual driver's state, staged a copy or launched "
+                         "other kernels (see the sharded_nccl line)")
+    del A1, b1
+
+    # -- 8. K ranks on the one card in a gloo group ------------------------
+    t0 = time.perf_counter()
+    part = CoCoATrainer(cfg, A, b).part
+    part_s = time.perf_counter() - t0
+    m_local = -(-args.m // args.K)
+    np.save(os.path.join(work, "b.npy"), b)
+    A_cols = np.ascontiguousarray(A.T)   # one pass; then each block is rows
+    for k in range(args.K):
+        np.save(os.path.join(work, f"cols{k}.npy"), A_cols[part.owned[k]])
+        np.save(os.path.join(work, f"rows{k}.npy"),
+                A[k * m_local:(k + 1) * m_local])
+    del A_cols
+    blocks_s = time.perf_counter() - t0 - part_s
+    sgd_kw = dict(batch_frac=1.0, step_size=1.0 / L_ridge, lam=args.lam,
+                  eta=1.0, K=args.K, H=1, seed=args.seed)
+    virtual, job_paths = [], []
+    for name, ex, rounds in GLOO_PATHS:
+        if name == "sgd_h1":
+            trv = MinibatchSGD(SGDConfig(exchange=ex, **sgd_kw), A, b)
+            hv = trv.run_workers(rounds, record_every=1, p_star=p_star,
+                                 p_zero=base_p_zero)
+            shared, local, k1_plan = trv.alpha_final, None, None
+        else:
+            cls = CoCoATrainer if name == "cocoa" else MinibatchSCD
+            trv = cls(dataclasses.replace(cfg, exchange=ex), A, b)
+            trv._p_star_cache = p_star
+            hv = trv.run(rounds or args.rounds,
+                         target_eps=None if rounds else args.eps)
+            shared, local = trv.w_final, trv.alpha
+            k1_plan = (dataclasses.asdict(scd_solve.last_plan)
+                       if name == "cocoa" else None)
+        virtual.append(dict(primal=hv.primal, rounds=len(hv.rounds),
+                            rounds_to_eps=hv.rounds_to(args.eps),
+                            shared=sha256(shared),
+                            local=None if local is None else sha256(local),
+                            plan=k1_plan))
+        job_paths.append((name, ex, len(hv.rounds),
+                          None if rounds else args.eps))
+        del trv
+        free(torch)
+    job = dict(dir=work, part=part, n=args.n, m=args.m, p_star=p_star,
+               eps=args.eps,
+               p_zero=base_p_zero, topk_k=k_main, paths=job_paths,
+               sgd=sgd_kw, cocoa=dict(K=args.K, H=H, lam=args.lam, eta=1.0,
+                                      solver="scd_kernel", seed=args.seed))
+    phase_done(torch, "sharded_gloo_setup", t0, K=args.K,
+               block_files=2 * args.K + 1, partition_seconds=part_s,
+               blocks_seconds=blocks_s,
+               virtual_rounds=[v["rounds"] for v in virtual])
+    free(torch)
+    t0 = time.perf_counter()
+    job["spawned_at"] = time.time()
+    try:
+        ranks = spawn(args.K, sharded_rank, backend="gloo", device="cuda",
+                      init_file=os.path.join(work, "gloo"), args=(job,),
+                      timeout_s=600)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+    gloo_ok, gloo_paths = True, []
+    for (name, ex, rounds, _), want, got in zip(
+            job_paths, virtual, zip(*[r["paths"] for r in ranks])):
+        r0 = got[0]
+        transport = ExchangeConfig.parse(ex).scheme.transport
+        codec = ExchangeConfig.parse(ex).scheme.codec.name.removeprefix("ef:")
+        c = None if codec == "f32" else "topk" if codec.startswith(
+            "topk") else codec
+        plans_agree = all(g["plan"] == want["plan"] for g in got)
+        rel = float(np.max(np.abs(np.array(r0["primal"]) - want["primal"])
+                           / np.abs(want["primal"])))
+        expect = {k_: 0 for k_ in r0["launches"]}
+        expect.update({k_: len(r0["rounds"]) for k_ in (
+            ("scd_solve",) if name == "cocoa" else ()) + own_kernels(c)})
+        expect.update({k_: n * len(r0["rounds"])
+                       for k_, n in bmv_per_round(name, 1).items()})
+        checks = dict(
+            ranks_agree=all(g["primal"] == r0["primal"]
+                            and g["shared_sha256"] == r0["shared_sha256"]
+                            for g in got),
+            rounds=len(r0["rounds"]) == want["rounds"] == rounds,
+            rounds_to_eps=all(g["rounds_to_eps"] == want["rounds_to_eps"]
+                              for g in got),
+            primal=rel <= (1e-6 if transport == "compressed" else 1e-4),
+            bytes=all(g["derived_bytes"] == [g["model_bytes_all_live"]]
+                      * len(g["rounds"]) for g in got),
+            dtypes=all(g["f32_update_payloads"] == 0 for g in got)
+            if transport == "compressed" else True,
+            quantized=all(g["quantized_dtypes"] == (["int8"] if c == "int8"
+                                                    else []) for g in got),
+            launches=all(g["launches"] == expect for g in got),
+            state=(not plans_agree or transport != "compressed"
+                   or all((g["shared_sha256"], g["local_sha256"])
+                          == (want["shared"], want["local"]) for g in got)))
+        gloo_ok &= all(checks.values())
+        med = [float(np.median(g["seconds"])) * 1e3 for g in got]
+        line = dict(
+            path=name, exchange=ex, rounds=len(r0["rounds"]),
+            rounds_to_eps=want["rounds_to_eps"] or "not reached",
+            checks=checks, primal_rel_max=rel,
+            same_state_as_virtual=[(g["shared_sha256"], g["local_sha256"])
+                                   == (want["shared"], want["local"])
+                                   for g in got],
+            plans_agree=plans_agree, plan_virtual=want["plan"],
+            plan_rank0=r0["plan"],
+            derived_bytes_rank0=sorted(set(r0["derived_bytes"])),
+            model_bytes_by_round=r0["model_bytes"],
+            payload_dtypes=r0["payload_dtypes"],
+            calls_per_round=r0["calls_per_round"],
+            staged_copies_rank0=r0["staged"],
+            launches_rank0=r0["launches"],
+            max_memory_allocated_by_rank=[g["max_memory_allocated"]
+                                          for g in got],
+            round_ms_median_by_rank=med,
+            wall_seconds_by_rank=[g["wall_s"] for g in got],
+            round_ms_label=(f"{args.K} processes time-sharing one card in a "
+                            f"gloo group, every payload through the host: "
+                            f"not a multi-GPU number"))
+        emit(phase="sharded_gloo_path", **line)
+        gloo_paths.append(line)
+    phase_done(torch, "sharded_gloo", t0, K=args.K, ranks_on="cuda:0",
+               backend="gloo", spawn_seconds=spawn_s,
+               rank_loaded_seconds=[r["loaded_s"] for r in ranks],
+               rank_started_seconds=[r["started_s"] for r in ranks],
+               rank_cuda_context_seconds=[r["cuda_context_s"] for r in ranks],
+               rank_blocks_loaded_seconds=[r["blocks_loaded_s"]
+                                           for r in ranks],
+               rank0_trace_and_timing_seconds=ranks[0]["trace_and_timing_s"],
+               trace_rank0=ranks[0]["trace"],
+               kernels_rank0=ranks[0]["kernels"],
+               note=f"{args.K} processes on one card in a gloo group: "
+                    f"correctness, bytes and dtypes on the card, not a "
+                    f"multi-GPU number")
+    if not gloo_ok:
+        raise SystemExit("chip_smoke: a sharded gloo path failed a check "
+                         "(see its sharded_gloo_path line)")
+
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the
     # baselines' (which never launch K1)
@@ -1254,6 +1831,15 @@ def main(argv=None) -> int:
                      f"src/repro/kernels/dequant.py:{d_line}", uses[c]))
     rows.append(("topk", "topk_select", src + "topk.cu",
                  "src/repro/kernels/topk.py:83", uses["topk"]))
+    # the batched products replace no pallas_call: the reference's XLA
+    # dots of SGD's partial gradient (and of mini-batch SCD's solve,
+    # src/repro/core/solvers.py:97)
+    bmv_uses = ["minibatch_scd compressed:int8"] + [
+        f"{name} {ex}" for name, ex, *_ in SGD_PATHS]
+    rows.append(("matvec", "batched_matvec", src + "bmv.cu",
+                 "src/repro/core/baselines.py:112", bmv_uses))
+    rows.append(("vecmat", "batched_vecmat", src + "bmv.cu",
+                 "src/repro/core/baselines.py:113", bmv_uses))
     kernels = []
     for key, name, source, replaces, paths in rows:
         n_l = sum(runs[ex]["launches"][name] for ex in paths)
@@ -1276,13 +1862,28 @@ def main(argv=None) -> int:
             entry.update(cluster=codec_plans[key]["cluster"],
                          ms_by_cluster=ms_by_c[key],
                          device_ms_by_cluster=dev_by_c[key])
-    kernels[-1].update(k=k_main, k_eq_L=dict(
+    by_key = dict(zip([r[0] for r in rows], kernels))
+    by_key["topk"].update(k=k_main, k_eq_L=dict(
         k=L, ms=ms["topk_k_eq_L"], device_ms=dev_ms["topk_k_eq_L"],
         bound_ms=bounds["topk_k_eq_L"][0]))
+    for key in ("matvec", "vecmat"):
+        by_key[key].update(shape=bmv_row[key]["shape"],
+                           per_worker_loop_ms=bmv_row[key][
+                               "per_worker_loop_ms"],
+                           sgd_blocks=bmv_row[f"{key}_sgd"])
     for entry, key in zip(kernels, [r[0] for r in rows]):
-        entry["long_row"] = long_row[key]
+        entry["long_row"] = long_row.get(key, "not on the long-row path")
         if key in sgd_row:
             entry["sgd_stack"] = sgd_row[key]
+        # phase 8: launches per rank per round over the gloo paths that
+        # launch it, and rank 0's device time at the sharded shape
+        name = entry["name"]
+        n_l = sum(p_["launches_rank0"][name] for p_ in gloo_paths)
+        n_r = sum(p_["rounds"] for p_ in gloo_paths
+                  if p_["launches_rank0"][name])
+        entry["sharded"] = (dict(launches_per_rank_per_round=n_l / n_r,
+                                 **ranks[0]["kernels"][name])
+                            if n_l else "not on the sharded paths")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,11 +24,15 @@ The default, :class:`UniformRows`, draws distinct rows uniformly from a
 ``torch.Generator`` on the device; ``repro_torch.carry.ReplayIndices``
 replays the reference's own streams.
 
-``run_sharded`` waits for the sharded driver (ROADMAP.md Queue 1 item 8).
+Every trainer also runs on the sharded driver (``run_sharded``): one
+worker per process of a ``torch.distributed`` group, each holding only
+its own block (mini-batch SCD: CoCoA's column block; SGD: its row block,
+or just that, :class:`WorkerRows`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -37,17 +41,20 @@ import torch
 
 from repro_torch.core import distributed as dist
 from repro_torch.core.cocoa import (CoCoAConfig, CoCoATrainer, History,
-                                    record_rounds, virtual_step)
+                                    from_rank0, record_rounds,
+                                    round_step)
 from repro_torch.core.glm import (GLMProblem, optimal_objective,
                                   primal_objective)
+from repro_torch.kernels.bmv import batched_matvec, batched_vecmat
 from repro_torch.utils.device import full_f32_matmul, resolve_device
+
 
 class MinibatchSCD(CoCoATrainer):
     """First-class mini-batch SCD (the paper's §2.1 baseline): a
     ``CoCoATrainer`` that forces ``solver="scd_fixed"``, so the baseline
     cannot silently run CoCoA's immediate-local-update solver."""
 
-    def __init__(self, cfg: CoCoAConfig, A: np.ndarray, b: np.ndarray, *,
+    def __init__(self, cfg: CoCoAConfig, A, b: np.ndarray, *,
                  device=None, index_source: Callable | None = None):
         if cfg.solver != "scd_fixed":
             cfg = dataclasses.replace(cfg, solver="scd_fixed")
@@ -72,6 +79,18 @@ class SGDConfig:
                            dist.ExchangeConfig.parse(self.exchange))
         if self.H < 1:
             raise ValueError(f"H must be >= 1, got {self.H}")
+
+
+@dataclass(frozen=True)
+class WorkerRows:
+    """All that one rank of a sharded SGD run needs of ``A``: worker
+    ``rank``'s block of rows ``[rank * m_local, (rank + 1) * m_local)``
+    of an (m, n) matrix (``rows``, the last block short of m_local when
+    K does not divide m). A trainer built on it runs ``run_sharded`` on
+    that rank only."""
+    rank: int
+    rows: np.ndarray
+    m: int
 
 
 class UniformRows:
@@ -117,14 +136,6 @@ def _prox_step(cfg: SGDConfig, alpha, grad, lr):
         torch.abs(alpha_new) - thresh, min=0.0)
 
 
-def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``A (K, r, n) @ x``: ``x`` is one (n,) vector or one (K, n) a
-    block."""
-    if x.dim() == 1:
-        return torch.matmul(A, x)
-    return torch.matmul(A, x[..., None])[..., 0]
-
-
 class _SGDRound:
     """Mini-batch SGD's plug into the virtual round driver: each worker
     owns a row block, samples a local mini-batch and contributes an
@@ -160,13 +171,12 @@ class _SGDRound:
             k = torch.arange(A.shape[0], device=A.device)[:, None]
             rows = rows.long()
             A_s, b_s = A[k, rows], b[k, rows]
-        resid = _matvec(A_s, alpha) - b_s
-        grad = torch.matmul(resid[:, None, :], A_s)[:, 0]
+        resid = batched_matvec(A_s, alpha) - b_s
+        grad = batched_vecmat(resid, A_s)
         return grad * _f32(self.scale, grad)
 
     def local_step(self, data, local, alpha, rows, t):
         cfg = self.cfg
-        full_f32_matmul()
         if cfg.H == 1:
             return self._partial_grad(data, alpha, rows[:, 0]), local
         lr = _lr(cfg, t, alpha)
@@ -189,7 +199,7 @@ class _SGDRound:
 
     def local_metric(self, data, local, alpha_new):
         A, b = data                       # zero-padded rows contribute 0
-        r = _matvec(A, alpha_new) - b
+        r = batched_matvec(A, alpha_new) - b
         return 0.5 * torch.sum(r * r, dim=1)
 
     def finalize_metric(self, alpha_new, loss_sum):
@@ -205,16 +215,19 @@ class MinibatchSGD:
     ``global_row_source`` (``t -> (batch,)``) feeds ``run``; both
     default to :class:`UniformRows`."""
 
-    def __init__(self, cfg: SGDConfig, A: np.ndarray, b: np.ndarray, *,
+    def __init__(self, cfg: SGDConfig, A, b: np.ndarray, *,
                  device=None, row_source: Callable | None = None,
                  global_row_source: Callable | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.A_np = np.asarray(A, np.float32)
+        if isinstance(A, WorkerRows):
+            self.A_np, self.block = None, A
+            self.m, self.n = A.m, A.rows.shape[1]
+        else:
+            self.A_np, self.block = np.asarray(A, np.float32), None
+            self.m, self.n = self.A_np.shape
         self.b_np = np.asarray(b, np.float32)
-        self.A = torch.from_numpy(self.A_np).to(self.device)       # (m, n)
         self.b = torch.from_numpy(self.b_np).to(self.device)
-        self.m, self.n = self.A_np.shape
         self.problem = GLMProblem(lam=cfg.lam, eta=cfg.eta)
         self.exchange = cfg.exchange
         self.scheme = self.exchange.scheme
@@ -229,6 +242,36 @@ class MinibatchSGD:
             self.m, (self.batch,), cfg.seed, self.device)
         self._dist_state = None  # (data, algo, round_fn), built lazily
         self._p_star_cache: float | None = None
+
+    @functools.cached_property
+    def A(self) -> torch.Tensor:
+        """The (m, n) matrix on the device."""
+        if self.A_np is None:
+            raise RuntimeError(
+                f"this trainer holds only worker {self.block.rank}'s rows "
+                f"(WorkerRows); it runs run_sharded() on that rank")
+        return torch.from_numpy(self.A_np).to(self.device)
+
+    def worker_data(self, rank: int):
+        """Worker ``rank``'s ``(1, ...)`` slice of the row partition,
+        built from its own rows only: ``(A (1, m_local, n), b (1,
+        m_local))``, zero-padded as the virtual driver's blocks are."""
+        lo = rank * self.m_local
+        hi = min(lo + self.m_local, self.m)
+        if self.block is not None:
+            if self.block.rank != rank:
+                raise ValueError(f"this trainer holds worker "
+                                 f"{self.block.rank}'s rows, not worker "
+                                 f"{rank}'s")
+            rows = self.block.rows
+        else:
+            rows = self.A_np[lo:hi]
+        A = np.zeros((1, self.m_local, self.n), np.float32)
+        A[0, :max(hi - lo, 0)] = rows
+        b = np.zeros((1, self.m_local), np.float32)
+        b[0, :max(hi - lo, 0)] = self.b_np[lo:hi]
+        return (torch.from_numpy(A).to(self.device),
+                torch.from_numpy(b).to(self.device))
 
     def _distributed(self):
         """The row partition and the round function, built on first use:
@@ -293,17 +336,20 @@ class MinibatchSGD:
         """A fresh trainer on the same problem and device with the
         local-step count moved (and the default row sources)."""
         return type(self)(dataclasses.replace(self.cfg, H=int(H)),
-                          self.A_np, self.b_np, device=self.device)
+                          self.A_np if self.block is None else self.block,
+                          self.b_np, device=self.device)
 
     def comm_bytes_per_round(self, t: int | None = None) -> int:
-        """Modelled bytes through the master per round: the n-length
-        gradient (or model delta) all-reduce across K workers, sized to
+        """Modelled bytes on the wire per round on the exchange's
+        backend: the n-length gradient (or model delta) all-reduce across
+        K workers, sized to
         the codec's payload under ``compressed``, f32 otherwise. ``t``
         asks for one 1-based round of the membership schedule (dropped
         workers ship nothing; ``None``: all K live)."""
         K_live = (None if t is None
                   else self.exchange.membership.live_count(t, self.cfg.K))
-        return self.scheme.bytes_per_round(self.n, self.cfg.K, K_live=K_live)
+        return self.scheme.bytes_per_round(self.n, self.cfg.K, K_live=K_live,
+                                           backend=self.exchange.backend)
 
     def _history(self, p_star, p_zero) -> History:
         return History(p_star=self.p_star if p_star is None else p_star,
@@ -359,16 +405,44 @@ class MinibatchSGD:
         hist = self._history(p_star, p_zero)
         round_fn = self._round_fn
         (_, alpha), last_t = record_rounds(
-            hist, virtual_step(round_fn, self.row_source), self.init_state(),
+            hist, round_step(round_fn, self.row_source), self.init_state(),
             rounds, record_every, target_eps)
         self.alpha_final = dist.finish_run(round_fn, alpha,
                                            last_t).cpu().numpy()
         return hist
 
-    def run_sharded(self, *args, **kwargs) -> History:
-        raise NotImplementedError(
-            "the sharded driver is not ported yet (ROADMAP.md Queue 1 "
-            "item 8); use run_workers()")
+    def build_sharded_round(self, group=None) -> Callable:
+        """This rank's round on the sharded driver, over ``group``
+        (``None``: the default process group, one rank per worker), on
+        the rank's own row block."""
+        fabric = dist.open_fabric(group, self.cfg.K)
+        algo = _SGDRound(self.cfg, self.problem, self.m_local,
+                         self.batch_local)
+        return dist.build_sharded_round(algo, self.exchange,
+                                        self.worker_data(fabric.rank),
+                                        group=fabric, K=self.cfg.K)
+
+    def run_sharded(self, rounds: int, group=None, record_every: int = 10,
+                    target_eps: float | None = None,
+                    p_star: float | None = None,
+                    p_zero: float | None = None) -> History:
+        """:meth:`run_workers` with one worker per rank of ``group``
+        (``None``: the default process group, whose size must be K;
+        start the ranks with ``repro_torch.launch.dist``). ``p_star`` is
+        computed once, on rank 0, unless given. Every rank records the
+        same History and holds the same ``alpha_final``."""
+        round_fn = self.build_sharded_round(group)
+        fabric = round_fn.fabric
+        if p_star is None:
+            p_star = from_rank0(fabric, lambda: self.p_star, self.device)
+        hist = self._history(p_star, p_zero)
+        (_, alpha), last_t = record_rounds(
+            hist, round_step(round_fn, self.row_source),
+            dist.place_state(fabric.rank, *self.init_state()), rounds,
+            record_every, target_eps)
+        self.alpha_final = dist.finish_run(round_fn, alpha,
+                                           last_t).cpu().numpy()
+        return hist
 
     def objective_of(self, alpha: np.ndarray) -> float:
         return float(primal_objective(

@@ -1,5 +1,5 @@
 """CoCoA: communication-efficient distributed primal-dual GLM training
-(the port of ``repro.core.cocoa``, virtual driver).
+(the port of ``repro.core.cocoa``).
 
 ``CoCoATrainer.run()`` runs K *virtual* workers on one device: each
 round, every worker takes H local SCD steps on its column block (one
@@ -28,12 +28,17 @@ The real columns of each worker come first in its block
 (``pack_columns_t``), so "uniform over the real columns" is "uniform
 over ``[0, size_k)``".
 
-``run_sharded`` (real distribution over devices) waits for the sharded
-driver (ROADMAP.md Queue 1 item 8).
+``CoCoATrainer.run_sharded()`` runs the same round with one worker per
+process of a ``torch.distributed`` group (``repro_torch.launch.dist``
+starts them): each rank holds only its own worker's column block on its
+device, takes its row of the same index stream, and exchanges through
+the collective fabric of the exchange's backend. A rank may be given
+only its block (:class:`WorkerColumns`) instead of the whole matrix.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -134,14 +139,35 @@ def record_rounds(hist: History, step: Callable, state, rounds: int,
     return state, last_t
 
 
-def virtual_step(round_fn: Callable, source: Callable) -> Callable:
-    """The :func:`record_rounds` step of a virtual-driver run: round
-    ``t`` on ``source(t)``'s indices, the state the ``(local, shared)``
-    pair."""
+def round_step(round_fn: Callable, source: Callable) -> Callable:
+    """The :func:`record_rounds` step of a driver's run (virtual or
+    sharded): round ``t`` on ``source(t)``'s indices, the state the
+    ``(local, shared)`` pair."""
     def step(state, t):
         local, shared, primal = round_fn(*state, source(t), t)
         return (local, shared), lambda: primal
     return step
+
+
+def from_rank0(fabric: dist.Fabric, compute: Callable, device) -> float:
+    """``compute()`` on rank 0, broadcast to every rank (computed once,
+    not once a rank)."""
+    x = torch.full((1,), compute() if fabric.rank == 0 else 0.0,
+                   dtype=torch.float64, device=device)
+    return float(fabric.broadcast(x)[0])
+
+
+@dataclass(frozen=True)
+class WorkerColumns:
+    """All that one rank of a sharded CoCoA run needs of ``A``: the
+    column partition and worker ``rank``'s columns of an (m, n) matrix,
+    one a row in the partition's order (``columns``, (size, m): the
+    layout of its ``A_T`` block). A trainer built on it runs
+    ``run_sharded`` on that rank only."""
+    part: part_mod.Partition
+    rank: int
+    columns: np.ndarray
+    n: int
 
 
 class UniformIndices:
@@ -210,14 +236,25 @@ class _CoCoARound:
         return self.problem.loss(w_new) + reg_sum
 
 
+def col_sq_of(A_T: torch.Tensor) -> torch.Tensor:
+    """The ``(K, n_pad)`` squared column norms of a ``(K, n_pad, m)``
+    stack, one worker at a time, so that a worker's norms are the same
+    bits whether its block is reduced alone or in the stack."""
+    return torch.stack([torch.sum(a * a, dim=1) for a in A_T])
+
+
 class CoCoATrainer:
-    """Owns the partitioned data on the device and the round function.
+    """Owns the partitioned data and the round functions.
 
     ``device`` defaults to the card and raises without one; the tests
     pass ``device="cpu"``. ``index_source`` is a callable ``t -> (K, H)
-    int32`` on the device (default :class:`UniformIndices`)."""
+    int32`` on the device (default :class:`UniformIndices`). ``A`` is
+    the (m, n) matrix or, for one rank of a sharded run,
+    :class:`WorkerColumns`. The data go to the device at first use:
+    the whole partitioned matrix for :meth:`run`, only the rank's own
+    block for :meth:`run_sharded`."""
 
-    def __init__(self, cfg: CoCoAConfig, A: np.ndarray, b: np.ndarray, *,
+    def __init__(self, cfg: CoCoAConfig, A, b: np.ndarray, *,
                  device=None, index_source: Callable | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -225,26 +262,83 @@ class CoCoATrainer:
         self.exchange = cfg.exchange
         self.scheme = self.exchange.scheme
         self.mode = self.exchange.mode
-        self.A_np = np.asarray(A, np.float32)
+        self.exchange.membership.check_workers(cfg.K)
         self.b_np = np.asarray(b, np.float32)
-        m, n = self.A_np.shape
-        self.m, self.n = m, n
-        nnz = (np.abs(self.A_np) > 0).sum(axis=0)
-        if cfg.partitioner == "balanced":
-            self.part = part_mod.balanced_partition(nnz, cfg.K)
+        if isinstance(A, WorkerColumns):
+            if A.part.K != cfg.K:
+                raise ValueError(f"WorkerColumns of a {A.part.K}-worker "
+                                 f"partition for a K={cfg.K} run")
+            self.A_np, self.block = None, A
+            self.part = A.part
+            self.m, self.n = A.columns.shape[1], A.n
         else:
-            self.part = part_mod.block_partition(n, cfg.K)
-        self.A = torch.from_numpy(self.A_np).to(self.device)       # (m, n)
+            self.A_np, self.block = np.asarray(A, np.float32), None
+            self.m, self.n = self.A_np.shape
+            if cfg.partitioner == "balanced":
+                nnz = (np.abs(self.A_np) > 0).sum(axis=0)
+                self.part = part_mod.balanced_partition(nnz, cfg.K)
+            else:
+                self.part = part_mod.block_partition(self.n, cfg.K)
         self.b = torch.from_numpy(self.b_np).to(self.device)
-        self.A_T, self.mask = part_mod.pack_columns_t(self.A, self.part)
-        self.col_sq = torch.sum(self.A_T * self.A_T, dim=2)       # (K, n_pad)
         self.index_source = index_source or UniformIndices(
             self.part.sizes, cfg.H, cfg.seed, self.device)
         self._algo = _CoCoARound(cfg, self.problem, _get_solver(cfg.solver))
-        self._data = (self.A_T, self.col_sq, self.mask)
-        self._round_fn = dist.build_virtual_round(
-            self._algo, self.exchange, self._data, K=cfg.K)
         self._p_star_cache: float | None = None
+
+    @functools.cached_property
+    def A(self) -> torch.Tensor:
+        """The (m, n) matrix on the device."""
+        if self.A_np is None:
+            raise RuntimeError(
+                f"this trainer holds only worker {self.block.rank}'s columns "
+                f"(WorkerColumns); it runs run_sharded() on that rank")
+        return torch.from_numpy(self.A_np).to(self.device)
+
+    @functools.cached_property
+    def _data(self):
+        """The virtual driver's ``(A_T (K, n_pad, m), col_sq (K, n_pad),
+        mask (K, n_pad))``."""
+        A_T, mask = part_mod.pack_columns_t(self.A, self.part)
+        return A_T, col_sq_of(A_T), mask
+
+    @property
+    def A_T(self) -> torch.Tensor:
+        return self._data[0]
+
+    @property
+    def col_sq(self) -> torch.Tensor:
+        return self._data[1]
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return self._data[2]
+
+    @functools.cached_property
+    def _round_fn(self):
+        return dist.build_virtual_round(self._algo, self.exchange,
+                                        self._data, K=self.cfg.K)
+
+    def worker_data(self, rank: int):
+        """Worker ``rank``'s ``(1, ...)`` slice of the data, built from
+        its own columns only: ``(A_T (1, n_pad, m), col_sq (1, n_pad),
+        mask (1, n_pad))`` on the device."""
+        ids = self.part.owned[rank]
+        if self.block is not None:
+            if self.block.rank != rank:
+                raise ValueError(f"this trainer holds worker "
+                                 f"{self.block.rank}'s columns, not worker "
+                                 f"{rank}'s")
+            columns = self.block.columns
+        else:
+            columns = self.A_np[:, ids].T
+        columns = torch.from_numpy(np.ascontiguousarray(columns, np.float32))
+        A_T = torch.zeros((1, self.part.n_padded, self.m),
+                          dtype=torch.float32, device=self.device)
+        A_T[0, :len(ids)] = columns.to(self.device)
+        mask = torch.zeros((1, self.part.n_padded), dtype=torch.float32,
+                           device=self.device)
+        mask[0, :len(ids)] = 1.0
+        return A_T, col_sq_of(A_T), mask
 
     @property
     def p_star(self) -> float:
@@ -272,19 +366,21 @@ class CoCoATrainer:
         """A fresh trainer on the same problem and device with the H knob
         moved (and the default index source for the new H)."""
         return type(self)(dataclasses.replace(self.cfg, H=int(H)),
-                          self.A_np, self.b_np, device=self.device)
+                          self.A_np if self.block is None else self.block,
+                          self.b_np, device=self.device)
 
     def comm_bytes_per_round(self, t: int | None = None) -> int:
-        """Modelled bytes through the master per round under the
-        configured scheme (the codec's payload for ``compressed:<codec>``,
-        f32 otherwise; the alpha round trip counts the padded blocks).
+        """Modelled bytes on the wire per round under the configured
+        scheme and backend (the codec's payload for
+        ``compressed:<codec>``, f32 otherwise; the alpha round trip
+        counts the padded blocks).
         ``t`` asks for one 1-based round of the membership schedule:
         dropped workers ship nothing (``None``: all K live)."""
         K_live = (None if t is None
                   else self.exchange.membership.live_count(t, self.cfg.K))
         return self.scheme.bytes_per_round(
             self.m, self.cfg.K, local_state_len=self.cfg.K * self.part.n_padded,
-            K_live=K_live)
+            K_live=K_live, backend=self.exchange.backend)
 
     def run(self, rounds: int, record_every: int = 1,
             target_eps: float | None = None, *, state=None,
@@ -299,7 +395,7 @@ class CoCoATrainer:
         round, recorded or not."""
         hist = History(p_star=self.p_star, p_zero=self.p_zero)
         (local, w), last_t = record_rounds(
-            hist, virtual_step(self._round_fn, self.index_source),
+            hist, round_step(self._round_fn, self.index_source),
             self.init_state() if state is None else state, rounds,
             record_every, target_eps, first_round)
         w = dist.finish_run(self._round_fn, w, last_t)
@@ -309,10 +405,41 @@ class CoCoATrainer:
                                                  self.part, self.n)
         return hist
 
-    def run_sharded(self, *args, **kwargs) -> History:
-        raise NotImplementedError(
-            "the sharded driver is not ported yet (ROADMAP.md Queue 1 "
-            "item 8); use run()")
+    def build_sharded_round(self, group=None) -> Callable:
+        """This rank's round on the sharded driver, over ``group``
+        (``None``: the default process group, one rank per worker), on
+        the rank's own block of the data. Returns ``round_fn(local,
+        shared, idx, t)`` as :func:`dist.build_sharded_round` does."""
+        fabric = dist.open_fabric(group, self.cfg.K)
+        return dist.build_sharded_round(
+            self._algo, self.exchange, self.worker_data(fabric.rank),
+            group=fabric, K=self.cfg.K)
+
+    def run_sharded(self, rounds: int, group=None, record_every: int = 1,
+                    target_eps: float | None = None, *,
+                    p_star: float | None = None) -> History:
+        """:meth:`run` with one worker per rank of ``group`` (``None``:
+        the default process group, whose size must be K; start the ranks
+        with ``repro_torch.launch.dist``). Every rank records the same
+        History. ``p_star`` is computed once, on rank 0, unless given.
+        After the run every rank holds ``w_final``, the gathered ``alpha``
+        (K, n_pad) and ``alpha_final``."""
+        round_fn = self.build_sharded_round(group)
+        fabric = round_fn.fabric
+        if p_star is None:
+            p_star = from_rank0(fabric, lambda: self.p_star, self.device)
+        hist = History(p_star=p_star, p_zero=self.p_zero)
+        state = dist.place_state(fabric.rank, *self.init_state())
+        (local, w), last_t = record_rounds(
+            hist, round_step(round_fn, self.index_source), state, rounds,
+            record_every, target_eps)
+        w = dist.finish_run(round_fn, w, last_t)
+        self.alpha = fabric.all_gather(
+            dist.unwrap_local_state(self.exchange, local))
+        self.w_final = w.cpu().numpy()
+        self.alpha_final = part_mod.unpack_alpha(self.alpha.cpu().numpy(),
+                                                 self.part, self.n)
+        return hist
 
     def objective_of(self, alpha_global: np.ndarray) -> float:
         return float(primal_objective(

@@ -1,16 +1,17 @@
-"""The distributed-driver layer on one card: the port of
-``repro.core.distributed`` for the virtual driver.
+"""The distributed-driver layer: the port of ``repro.core.distributed``.
 
   * :class:`CommScheme` — a *transport* composed with an update codec
     (``repro_torch.comm``). All four of the reference's transports
-    parse and price their bytes (``bytes_per_round``). On the virtual
-    driver every exact transport (``persistent``, ``spark_faithful``,
-    ``reduce_scatter``) is one f32 sum over the stacked updates;
-    ``compressed:<codec>`` encodes the (K, L) stack and reduces the
-    payload through the codec (kernels K2 and K3 on the card for
-    ``int8``, ``int4`` and ``int2``, K4 for the ``topk`` encode); under
-    a stateful codec (``ef:<base>``) the encode also advances the
-    per-worker residual.
+    parse and price their bytes (``bytes_per_round``, per backend). On
+    the virtual driver every exact transport (``persistent``,
+    ``spark_faithful``, ``reduce_scatter``) is one f32 sum over the
+    stacked updates; ``compressed:<codec>`` encodes the (K, L) stack and
+    reduces the payload through the codec (kernels K2 and K3 on the card
+    for ``int8``, ``int4`` and ``int2``, K4 for the ``topk`` encode);
+    under a stateful codec (``ef:<base>``) the encode also advances the
+    per-worker residual. On the sharded driver ``all_reduce`` moves one
+    rank's update through the collective fabric
+    (``repro_torch.comm.collectives``).
   * :class:`ExchangeMode` — ``sync``, or ``stale`` / ``stale:k=<int>``:
     the aggregate computed in round ``t`` is applied in round ``t+k``
     while the workers compute against state absorbed through round
@@ -26,21 +27,26 @@
     dropped worker contributes an exact-zero update (zeroed before the
     encode, its ``ef:`` residual too), keeps its local state and
     residual frozen, and the byte model prices the live workers only.
-  * :class:`ExchangeConfig` — all of the above in one frozen value,
-    parsed from and printed as the reference's ``/``-separated spec
-    (``"compressed:ef:topk(r=0.125)/stale:k=2/drop:1@5-9"``), segments
-    in any order. The collective backend is ``xla`` only; a ``ring``
-    segment raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 8).
+  * :class:`ExchangeConfig` — all of the above and the collective
+    backend (``xla`` or ``ring``) in one frozen value, parsed from and
+    printed as the reference's ``/``-separated spec
+    (``"compressed:ef:topk(r=0.125)/ring/stale:k=2/drop:1@5-9"``),
+    segments in any order.
   * :func:`build_virtual_round` — K virtual workers on one device, with
     the reference's ``vmap`` over workers written out as a leading K
     axis: one batched ``local_step`` for all workers, one exchange, one
     apply. Under a stateful codec its ``local`` slot is the ``(local,
     codec_state)`` pair of :func:`wrap_local_state`.
+  * :func:`build_sharded_round` — one worker per process of a
+    ``torch.distributed`` group: the virtual round on this rank's
+    ``(1, ...)`` slice with the collective in place of the stacked sum;
+    :func:`place_state` hands a rank its slice of the state.
 
 Randomness does not enter here: the caller hands each round its (K, H)
 coordinate indices, so a run can replay the reference's index stream
-(``repro_torch.carry``). Round indices are Python ints, so the masks
-the reference evaluates in-graph are plain branches here.
+(``repro_torch.carry``); a sharded rank takes row ``rank`` of them.
+Round indices are Python ints, so the masks the reference evaluates
+in-graph are plain branches here.
 """
 from __future__ import annotations
 
@@ -50,32 +56,21 @@ from typing import Callable, Protocol
 
 import torch
 
-from repro_torch.comm import UpdateCodec, get_codec, wire_bytes
+from repro_torch.comm import UpdateCodec, get_codec
+from repro_torch.comm.collectives import (COLLECTIVE_BACKENDS, Fabric,
+                                          exchange_all_reduce,
+                                          exchange_roundtrip_state,
+                                          get_backend)
 
 COMM_TRANSPORTS = ("persistent", "spark_faithful", "compressed",
                    "reduce_scatter")
 EXCHANGE_MODES = ("sync", "stale")
 STRAGGLER_KINDS = ("none", "det", "lognormal", "mix")
-# the reference's collective backends; the port runs the fused one
-COLLECTIVE_BACKENDS = ("xla", "ring")
-_UNPORTED_BACKENDS = {"ring": "ROADMAP.md Queue 1 item 8"}
-
 EXCHANGE_GRAMMAR = ("<transport>[:<codec>] | "
                     + " | ".join(COLLECTIVE_BACKENDS)
                     + " | sync | stale[:k=<int>] | "
                     "straggler:<kind>[(p=..,slow=..,sigma=..)] | "
                     "drop:<worker>@<round>[-<round>]")
-
-
-def _check_backend(name: str) -> str:
-    if name in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"collective backend {name!r} is not ported yet "
-            f"({_UNPORTED_BACKENDS[name]}); the port runs 'xla'")
-    if name not in COLLECTIVE_BACKENDS:
-        raise ValueError(f"unknown collective backend {name!r}; known: "
-                         f"{COLLECTIVE_BACKENDS}")
-    return name
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +116,21 @@ class CommScheme:
             return get_codec(codec or "int8")
         return get_codec("f32")
 
+    @property
+    def persistent_local_state(self) -> bool:
+        """May per-worker state (e.g. alpha_[k]) stay on its worker?"""
+        return self.transport != "spark_faithful"
+
+    def all_reduce(self, update: torch.Tensor, fabric: Fabric,
+                   backend=None, state=None):
+        """Sum this rank's ``(1, L)`` update across the ranks of
+        ``fabric``, moved by ``backend``'s collectives (a name, a backend
+        object, or ``None`` for the fused ``xla`` fabric). ``state`` is
+        this worker's ``(1, ...)`` codec-state carry: when given, the
+        return value is ``(total, new_state)``."""
+        return exchange_all_reduce(self.transport, self.codec, update,
+                                   fabric, backend, state=state)
+
     def all_reduce_stacked(self, updates: torch.Tensor, state=None):
         """Sum the (K, L) stacked updates: encode the stack and reduce
         the payload through the codec under ``compressed``, one f32 sum
@@ -138,14 +148,25 @@ class CommScheme:
             total = torch.sum(updates, dim=0)
         return total if state is None else (total, state)
 
+    def roundtrip_local_state(self, state: torch.Tensor, fabric: Fabric,
+                              backend=None) -> torch.Tensor:
+        """``spark_faithful`` ships per-worker persistent state through
+        the master every round: all-gather, then each worker re-slices
+        its own block — the identity, with real collective traffic."""
+        if self.persistent_local_state or state.numel() == 0:
+            return state
+        return exchange_roundtrip_state(state, fabric, backend)
+
     def bytes_per_round(self, update_len: int, K: int,
                         local_state_len: int = 0,
-                        K_live: int | None = None) -> int:
+                        K_live: int | None = None, backend=None) -> int:
         """Bytes on the wire per round (paper Fig 1 + §5.3), sized to
-        the dtypes the collectives move; ``K_live`` is the live-worker
-        count of an elastic round (``None``: all K)."""
-        return wire_bytes(self.transport, self.codec, update_len, K,
-                          local_state_len=local_state_len, K_live=K_live)
+        the dtypes the collectives move; the backend owns the formula.
+        ``K_live`` is the live-worker count of an elastic round
+        (``None``: all K)."""
+        return get_backend(backend).wire_bytes(
+            self.transport, self.codec, update_len, K,
+            local_state_len=local_state_len, K_live=K_live)
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +228,8 @@ class StragglerProfile:
     """Per-worker compute-time multiplier distribution (the paper's
     straggling executors, §4). Time-only: the driver ignores it, so the
     port keeps its grammar (``parse``, ``spec``, ``active``); the timing
-    model comes with a driver that keeps a clock (ROADMAP.md Queue 1
-    item 8).
+    model comes with the trade-off layer's clock (ROADMAP.md Queue 1
+    item 9).
 
       * ``none``               every worker runs at 1x.
       * ``det(slow=S)``        worker 0 is S× slower.
@@ -363,11 +384,13 @@ class MembershipSchedule:
 @dataclass(frozen=True)
 class ExchangeConfig:
     """How one run exchanges updates, in one frozen value: the comm
-    scheme, the collective backend (``xla`` only in the port), the
-    exchange mode, the straggler profile and the membership schedule.
+    scheme, the collective backend (``xla`` or ``ring``: which fabric
+    moves the bytes on the sharded driver), the exchange mode, the
+    straggler profile and the membership schedule.
 
     Round-trips to/from the reference's ``"/"``-separated spec, whose
     segments may come in any order (``"compressed:int4/stale:k=2"``,
+    ``"compressed:int4/ring"``,
     ``"persistent/straggler:mix(p=0.1,slow=8)"``,
     ``"spark_faithful/drop:1@5-9/drop:3@7"``); omitted segments take
     their defaults and ``str(cfg)`` prints the canonical spec with the
@@ -392,7 +415,8 @@ class ExchangeConfig:
                 MembershipSchedule.parse(self.membership)
                 if isinstance(self.membership, str)
                 else MembershipSchedule(self.membership))
-        _check_backend(self.backend)
+        # stored by name; get_backend raises on an unknown one
+        object.__setattr__(self, "backend", get_backend(self.backend).name)
 
     @classmethod
     def parse(cls, spec: "ExchangeConfig | CommScheme | ExchangeMode | str | None"
@@ -422,7 +446,7 @@ class ExchangeConfig:
                 if backend is not None:
                     raise ValueError(f"exchange spec {spec!r}: duplicate "
                                      f"collective-backend segment {seg!r}")
-                backend = _check_backend(head)
+                backend = head
             elif head in COMM_TRANSPORTS:
                 if scheme is not None:
                     raise ValueError(f"exchange spec {spec!r}: duplicate "
@@ -452,9 +476,12 @@ class ExchangeConfig:
 
     @property
     def spec(self) -> str:
-        """Canonical spec string: the scheme first, then every other
-        non-default segment; ``parse(spec)`` round-trips."""
+        """Canonical spec string: the scheme first, then the backend
+        when not the default ``xla``, then every other non-default
+        segment; ``parse(spec)`` round-trips."""
         segs = [self.scheme.name]
+        if self.backend != "xla":
+            segs.append(self.backend)
         if self.mode.spec != "sync":
             segs.append(self.mode.spec)
         if self.straggler.active:
@@ -677,3 +704,117 @@ def build_virtual_round(algo: RoundAlgorithm, exchange, data, *,
     round_fn.mode = xmode
     round_fn.flush = _make_flush(algo, xmode)
     return round_fn
+
+
+def build_sharded_round(algo: RoundAlgorithm, exchange, data, *, group=None,
+                        K: int) -> Callable:
+    """One worker per process of a ``torch.distributed`` group (or of the
+    :class:`~repro_torch.comm.collectives.Fabric` the caller opened on
+    it, :func:`open_fabric`): this rank runs worker ``rank`` of K.
+
+    ``data`` holds this worker's ``(1, ...)`` slice of every data leaf,
+    and ``local`` (from :func:`place_state`) its ``(1, ...)`` slice of
+    the local state; ``shared`` is replicated on every rank. Returns
+    ``round_fn(local, shared, idx, t) -> (local_new, shared_new,
+    metric)`` with the virtual driver's contract: ``idx`` is the round's
+    whole ``(K, ...)`` index array, of which the rank takes row
+    ``rank``, so the per-worker streams are the virtual driver's. The
+    round is the virtual round with the collective in place of the
+    stacked sum: the local step, the membership mask's row ``rank``
+    (a dropped worker's update and ``ef:`` residual zeroed before the
+    encode, its state frozen), ``CommScheme.all_reduce`` over the
+    exchange's backend, the ``live_reweight``, the stale apply and
+    queue, ``roundtrip_local_state``, and the metric as one scalar
+    all-reduce of the rank's ``local_metric``. ``round_fn.fabric`` is
+    the group's :class:`~repro_torch.comm.collectives.Fabric`, whose
+    ``round`` every recorded call carries."""
+    ex = ExchangeConfig.parse(exchange)
+    ex.membership.check_workers(K)
+    fabric = open_fabric(group, K)
+    for leaf in data:
+        if leaf.shape[0] != 1:
+            raise ValueError(f"build_sharded_round: every data leaf is this "
+                             f"worker's (1, ...) slice, got "
+                             f"{tuple(leaf.shape)}")
+    comm, xmode, membership = ex.scheme, ex.mode, ex.membership
+    k, rank = xmode.k, fabric.rank
+    stateful = comm.codec.stateful
+    reweight = not membership.empty and getattr(algo, "live_reweight", False)
+
+    def round_fn(local, shared, idx, t=1):
+        if idx.shape[0] != K:
+            raise ValueError(f"round_fn: idx must have K={K} rows, got "
+                             f"{tuple(idx.shape)}")
+        fabric.round = t
+        if stateful:
+            local, cstate = local
+        if xmode.stale:
+            shared, queue = shared
+        upd, local_new = algo.local_step(data, local, shared,
+                                         idx[rank:rank + 1], t)
+        cstate_in = cstate if stateful else None
+        if not membership.empty:
+            mask = membership.live_mask(t, K, device=upd.device)
+            mask_k = mask[rank:rank + 1]
+            upd = upd * mask_k[:, None]
+            local_new = _freeze_dropped(local_new, local, mask_k)
+            if stateful:
+                cstate_in = cstate_in * mask_k[:, None]
+        if stateful:
+            total, cstate_new = comm.all_reduce(upd, fabric, ex.backend,
+                                                state=cstate_in)
+            if not membership.empty:
+                cstate_new = _freeze_dropped(cstate_new, cstate, mask_k)
+        else:
+            total = comm.all_reduce(upd, fabric, ex.backend)
+        if reweight:
+            live = torch.clamp(torch.sum(mask), min=1.0)
+            total = total * (torch.full_like(live, float(K)) / live)
+        if xmode.stale:
+            shared_new = _delayed_apply(algo, shared, queue, t, k)
+            shared_out = (shared_new, _queue_push(queue, total))
+            metric_shared = _absorb_for_metric(algo, shared_new, queue, t, k)
+        else:
+            shared_new = algo.apply_update(shared, total, t)
+            shared_out = shared_new
+            metric_shared = shared_new
+        local_new = comm.roundtrip_local_state(local_new, fabric, ex.backend)
+        # stale pairs the lagged shared state with the round-t-1 local
+        # state, as the virtual driver does
+        metric_local = local if xmode.stale else local_new
+        metric_sum = fabric.all_reduce(torch.sum(
+            algo.local_metric(data, metric_local, metric_shared))[None])[0]
+        fabric.round = None
+        local_out = (local_new, cstate_new) if stateful else local_new
+        return local_out, shared_out, algo.finalize_metric(metric_shared,
+                                                           metric_sum)
+
+    round_fn.fabric = fabric
+    round_fn.exchange = ex
+    round_fn.mode = xmode
+    round_fn.flush = _make_flush(algo, xmode)
+    return round_fn
+
+
+def open_fabric(group, K: int) -> Fabric:
+    """The :class:`~repro_torch.comm.collectives.Fabric` of ``group`` (a
+    process group, ``None`` for the default one, or a Fabric already
+    opened), which must have one rank per worker."""
+    fabric = group if isinstance(group, Fabric) else Fabric(group)
+    if fabric.K != K:
+        raise ValueError(f"run_sharded: the process group has {fabric.K} "
+                         f"ranks and the run K={K} workers; start one rank "
+                         f"per worker (repro_torch.launch.dist)")
+    return fabric
+
+
+def place_state(rank: int, local, shared):
+    """This rank's share of a ``(local, shared)`` state shaped for the
+    virtual driver: row ``rank`` of every ``(K, ...)`` local leaf (the
+    ``ef:`` pair's too) as a ``(1, ...)`` tensor of its own, and the
+    replicated ``shared`` (the stale pair's too) as it is."""
+    def row(x):
+        return x[rank:rank + 1].clone()
+
+    local = tuple(map(row, local)) if isinstance(local, tuple) else row(local)
+    return local, shared

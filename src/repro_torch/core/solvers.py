@@ -34,8 +34,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.utils.device import full_f32_matmul
-
 
 def soft_threshold(z: torch.Tensor, tau) -> torch.Tensor:
     return torch.sign(z) * torch.clamp(torch.abs(z) - tau, min=0.0)
@@ -139,15 +137,17 @@ def scd_steps_fixed_point_batched(A_T: torch.Tensor, col_sq: torch.Tensor,
     elementwise passes over (K, n_pad), and one product of the change
     in alpha with ``A_T`` for Delta v. Each pass takes the loop's ops in
     the loop's order, so alpha is the loop's wherever the dots agree;
-    Delta v sums each column once instead of once a visit. Reading
-    ``max(cnt)`` waits for the device."""
-    full_f32_matmul()
+    Delta v sums each column once instead of once a visit. Both products
+    go through ``kernels.bmv``, whose order is fixed per worker, so a
+    worker's block gives the same bits alone (the sharded driver) as in
+    the stack. Reading ``max(cnt)`` waits for the device."""
+    from repro_torch.kernels.bmv import batched_matvec, batched_vecmat
     sig, lam_eta, lam_l1 = _scalars(w, sigma, lam, eta)
     idx = idx.long()
     cnt = torch.zeros(col_sq.shape, dtype=torch.int32, device=idx.device)
     cnt.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
     passes = int(cnt.max())
-    d = torch.matmul(A_T, w)                              # (K, n_pad)
+    d = batched_matvec(A_T, w)                            # (K, n_pad)
     sig_csq = sig * col_sq
     denom = sig_csq + lam_eta
     tau = lam_l1 / denom
@@ -156,5 +156,5 @@ def scd_steps_fixed_point_batched(A_T: torch.Tensor, col_sq: torch.Tensor,
     for r in range(passes):
         z = soft_threshold((sig_csq * a - d) / denom, tau)
         a = torch.where(live & (cnt > r), z, a)
-    dv = torch.matmul((a - alpha)[:, None, :], A_T)[:, 0]
+    dv = batched_vecmat(a - alpha, A_T)
     return dv, a

@@ -129,7 +129,7 @@ def test_minibatch_scd_forces_the_batched_fixed_point_solve(data, solver):
                       device="cpu")
     assert tr.cfg.solver == "scd_fixed"
     assert tr._algo.solver is solvers.scd_steps_fixed_point_batched
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="repro_torch.launch.dist"):
         tr.run_sharded(2)
 
 
@@ -305,7 +305,7 @@ def test_sgd_refuses_what_the_reference_refuses(data):
                       device="cpu")
     with pytest.raises(ValueError, match="stale"):
         tr.run(3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(RuntimeError, match="repro_torch.launch.dist"):
         tr.run_sharded(3)
     with pytest.raises(ValueError, match="record_every"):
         tr.run_workers(3, record_every=0)

@@ -188,17 +188,13 @@ def test_exchange_spec_matches_reference(spec):
                                   "persistent/drop:1@5",
                                   "persistent/straggler:mix(p=0.1,slow=8)",
                                   "persistent/ring"])
-def test_unported_exchange_segments_raise(spec):
-    """Only the ``ring`` backend is still refused; the stale, drop and
-    straggler segments the port once refused parse like the
-    reference's."""
-    ref = dist_ref.ExchangeConfig.parse(spec)      # the reference runs it
-    if "ring" in spec:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dist.ExchangeConfig.parse(spec)
-        return
+def test_exchange_segments_parse_like_the_reference(spec):
+    """The stale, drop, straggler and backend segments the port once
+    refused parse like the reference's."""
+    ref = dist_ref.ExchangeConfig.parse(spec)
     ours = dist.ExchangeConfig.parse(spec)
     assert ours.spec == ref.spec
+    assert ours.backend == ref.backend
     assert (ours.mode.name, ours.mode.k) == (ref.mode.name, ref.mode.k)
     assert ours.membership.events == ref.membership.events
     assert ours.straggler.spec == ref.straggler.spec

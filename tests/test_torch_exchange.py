@@ -160,12 +160,15 @@ def test_exchange_typed_errors_match_reference(i):
 @pytest.mark.parametrize("spec", ["persistent/ring",
                                   "compressed:int4/ring/stale:k=2",
                                   "ring/persistent"])
-def test_ring_backend_still_refused(spec):
-    dist_ref.ExchangeConfig.parse(spec)      # the reference runs it
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        dist.ExchangeConfig.parse(spec)
-    with pytest.raises(NotImplementedError):
-        dist.ExchangeConfig(backend="ring")
+def test_ring_backend_parses_like_the_reference(spec):
+    """The ``ring`` segment reaches the fabric: it parses to the
+    reference's backend and canonical spec, which round-trips."""
+    ref = dist_ref.ExchangeConfig.parse(spec)
+    ours = dist.ExchangeConfig.parse(spec)
+    assert ours.backend == ref.backend == "ring"
+    assert ours.spec == ref.spec
+    assert dist.ExchangeConfig.parse(ours.spec) == ours
+    assert dist.ExchangeConfig(backend="ring").backend == "ring"
 
 
 # ------------------------------------------------------------ the config

@@ -894,3 +894,132 @@ def test_sgd_round_on_card_matches_cpu(cuda, H, ex, batch_frac):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-3,
                                atol=1e-6)
+
+
+# -- the collective fabric on the card ----------------------------------
+@pytest.fixture
+def one_rank_group(cuda, tmp_path):
+    """A 1-rank process group in this process, by backend name."""
+    import torch.distributed as tdist
+    from repro_torch.launch.dist import init_group
+
+    def start(backend):
+        init_group(backend, f"file://{tmp_path / backend}", 1, 0, 60)
+    yield start
+    if tdist.is_initialized():
+        tdist.destroy_process_group()
+
+
+def test_fabric_on_a_one_rank_nccl_group(cuda, one_rank_group):
+    """NCCL takes the device tensors as they are (no staging) and refuses
+    a host tensor; every call of a 1-rank group is the identity."""
+    from repro_torch.comm.collectives import Fabric, get_backend, recording
+    one_rank_group("nccl")
+    fab = Fabric()
+    x = torch.randn(97, device=cuda)
+    with recording() as log:
+        outs = [fab.all_reduce(x), fab.all_gather(x[None])[0],
+                fab.reduce_scatter(x), fab.shift(x), fab.broadcast(x),
+                get_backend("ring").reduce_scatter_gather(x, fab),
+                get_backend("xla").reduce_scatter_gather(x, fab)]
+    for out in outs:
+        assert out.device == x.device and torch.equal(out, x)
+    # a 1-rank hop sends nothing: six calls into the group
+    assert not any(c.staged for c in log) and len(log) == 6
+    with pytest.raises(ValueError, match="device tensors"):
+        fab.all_reduce(x.cpu())
+
+
+def test_gloo_stages_a_card_tensor_through_the_host(cuda, one_rank_group):
+    """A gloo group gets a host copy of a CUDA operand; the result comes
+    back to the card with its bits, and the log says it was staged."""
+    from repro_torch.comm.collectives import Fabric, recording
+    one_rank_group("gloo")
+    fab = Fabric()
+    x = torch.randn((1, 1001), device=cuda)
+    x[0, 3] = -0.0
+    q = torch.randint(-127, 128, (1, 1001), dtype=torch.int8, device=cuda)
+    with recording() as log:
+        got = [fab.all_gather(x), fab.all_gather(q), fab.all_reduce(x[0]),
+               fab.broadcast(q)]
+    for out, want in zip(got, (x, q, x[0], q)):
+        assert out.device == want.device and out.dtype == want.dtype
+        assert torch.equal(_bits(out), _bits(want))
+    assert [c.staged for c in log] == [True] * 4
+    assert [c.dtype for c in log] == ["float32", "int8", "float32", "int8"]
+
+
+# -- the fixed-order batched products (kernels/bmv.py) ----------------------
+def _dot_bound(M, v, along):
+    """2 gamma_n sum |products|: two orders of one f32 dot product differ
+    by at most this (n the summed length, u = 2^-24)."""
+    n = M.shape[along]
+    u = 2.0 ** -24
+    g = n * u / (1 - n * u)
+    if along == 2:
+        return 2 * g * torch.einsum("kij,kj->ki", M.abs().double(),
+                                    v.abs().double())
+    return 2 * g * torch.einsum("ki,kij->kj", v.abs().double(),
+                                M.abs().double())
+
+
+@pytest.mark.parametrize("K,r,c,form", [
+    (8, 512, 16384, "vector"), (8, 2048, 4096, "rows"),
+    (3, 33, 97, "rows"), (5, 17, 258, "expanded"), (1, 4096, 4099, "vector"),
+    (2, 7, 3, "misaligned")])
+def test_bmv_kernels_match_plain(cuda, K, r, c, form):
+    """Both forms against their plain versions within the dot-product
+    bound, on aligned rows (float4 loads), ragged ones (c % 4 != 0),
+    one vector, rows, one vector expanded (stride 0) and an x that is not
+    16-byte aligned."""
+    from repro_torch.kernels.bmv import (batched_matvec, batched_matvec_ref,
+                                         batched_vecmat, batched_vecmat_ref)
+    g = torch.Generator(device=cuda).manual_seed(K * r + c)
+    M = torch.randn((K, r, c), generator=g, device=cuda)
+    if form == "vector":
+        x = torch.randn((c,), generator=g, device=cuda)
+    elif form == "expanded":
+        x = torch.randn((c,), generator=g, device=cuda).expand(K, -1)
+    elif form == "misaligned":
+        x = torch.randn((K, c + 1), generator=g, device=cuda)[:, 1:]
+    else:
+        x = torch.randn((K, c), generator=g, device=cuda)
+    y = torch.randn((K, r), generator=g, device=cuda)
+    got, want = batched_matvec(M, x), batched_matvec_ref(M, x)
+    xs = x.expand(K, -1) if x.dim() == 1 else x
+    assert bool(((got - want).abs().double() <= _dot_bound(M, xs, 2)).all())
+    got, want = batched_vecmat(y, M), batched_vecmat_ref(y, M)
+    assert bool(((got - want).abs().double() <= _dot_bound(M, y, 1)).all())
+
+
+@pytest.mark.parametrize("K,r,c", [(8, 256, 16384), (4, 33, 97)])
+def test_bmv_kernels_do_not_depend_on_K(cuda, K, r, c):
+    """A worker's block alone gives, bit for bit, its rows of the
+    K-worker launch: the property the sharded driver's bit-identity
+    rests on."""
+    from repro_torch.kernels.bmv import batched_matvec, batched_vecmat
+    g = torch.Generator(device=cuda).manual_seed(c)
+    M = torch.randn((K, r, c), generator=g, device=cuda)
+    w = torch.randn((c,), generator=g, device=cuda)
+    x = torch.randn((K, c), generator=g, device=cuda)
+    y = torch.randn((K, r), generator=g, device=cuda)
+    stack = (batched_matvec(M, w), batched_matvec(M, x), batched_vecmat(y, M))
+    for k in range(K):
+        one = slice(k, k + 1)
+        alone = (batched_matvec(M[one].clone(), w),
+                 batched_matvec(M[one].clone(), x[one].clone()),
+                 batched_vecmat(y[one].clone(), M[one].clone()))
+        for s, a in zip(stack, alone):
+            assert torch.equal(_bits(s[k]), _bits(a[0]))
+
+
+def test_bmv_wrappers_count_their_launches(cuda):
+    from repro_torch.kernels.bmv import batched_matvec, batched_vecmat
+    M = torch.ones((2, 3, 8), device=cuda)
+    before = (batched_matvec.launches, batched_vecmat.launches)
+    assert torch.equal(batched_matvec(M, torch.ones(8, device=cuda)),
+                       torch.full((2, 3), 8.0, device=cuda))
+    assert torch.equal(batched_vecmat(torch.ones((2, 3), device=cuda), M),
+                       torch.full((2, 8), 3.0, device=cuda))
+    assert (batched_matvec.launches, batched_vecmat.launches) == (
+        before[0] + 1, before[1] + 1)

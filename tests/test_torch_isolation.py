@@ -37,6 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.cocoa" in mods and "repro_torch.carry" in mods
     assert "repro_torch.core.baselines" in mods
+    assert "repro_torch.launch.dist" in mods
+    assert "repro_torch.analysis.traffic" in mods
+    assert "repro_torch.comm.collectives" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
