@@ -118,8 +118,10 @@ JSON line:
      final state's hashes and every primal equal to the virtual driver's
      at K = 1 (a sum of one addend is exact), no copy staged, K1 and the
      path's codec kernels once a round; the recorded calls are printed.
-     NCCL refuses two ranks on one card, so this is the only NCCL group
-     the card can hold;
+     Then ``calibrate_link`` on the group for ``persistent`` and
+     ``compressed:int8``: one rank moves no bytes, so the bandwidth must
+     come back infinite, beside the call's latency. NCCL refuses two
+     ranks on one card, so this is the only NCCL group the card can hold;
   8. K ranks, one process per worker, all on the one card in a gloo
      group (each payload copied through the host), at the main shape:
      the parent writes each rank's column block and row block once and
@@ -138,7 +140,31 @@ JSON line:
      (K processes time-sharing one card: not a multi-GPU number); then a
      ``torch.profiler`` trace of 5 int8 rounds on rank 0 (kernels,
      staging copies and the host's time inside gloo) and each kernel's
-     device time at its sharded shape.
+     device time at its sharded shape; last, each rank's
+     ``calibrate_link`` fit over the gloo group for ``persistent``,
+     ``compressed:int8`` and ``compressed:int8/ring`` (host staging and
+     time-slicing on one card, never an NVLink number);
+  9. the trade-off path (``repro_torch.core.tradeoff``), at the main
+     shape: ``sweep_H`` of CoCoA under ``compressed:int8`` with
+     ``solver="scd_kernel"`` over H in (256, 1024, 4096, 16384), up to
+     2000 rounds a point, ``measure=True`` (each point's t_solver and
+     t_ref at H = n_local by ``measure_solver_time``), the launch
+     counters set to 0 just before and read just after: K1, K2 int8 and
+     K3 int8 once a round run or timed, no other kernel; the
+     least-squares slope and intercept of t_solver(H); then each point
+     again on one trainer whose data every H shares (rounds-to-eps must
+     be the sweep's, its launches and peak memory), and a
+     ``torch.profiler`` trace of 3 of its rounds (K1's device time a
+     launch beside t_solver, the host's share of the round); H*,
+     time-to-eps and the compute fraction at H* for the seven profiles
+     under a ``TimeModel`` on ``synthetic_link(1e9, 1e-4)`` with the
+     sweep's bytes, under ``stale:k=2`` and under
+     ``straggler:mix(p=0.5,slow=16)`` (model only); ``autotune_H`` over
+     [256, 16384] for ``E_mpi`` and ``D_pyspark_c`` on live, cached
+     rounds-to-eps, each cost at most twice the grid's best; and a small
+     sweep (m 96, n 256, K 4, H in (16, 32, 64)) on the card and on the
+     CPU on one replayed stream per H: the same rounds-to-eps and each
+     point's per-round primal at rtol 1e-4.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -220,6 +246,27 @@ GLOO_TRACE_ROUNDS = 5
 # group's calls (the host's wait inside gloo) and the staging copies
 GLOO_HOST_OPS = ("gloo", "c10d", "aten::copy_", "aten::_to_copy",
                  "cudaMemcpy", "cudaStreamSynchronize")
+# the trade-off phase (9): CoCoA's H sweep at the main shape (each point
+# run to eps, then timed by measure_solver_time: a warm-up round and 3
+# timed ones, at every H and at H = n_local), each point again on a
+# trainer that shares the data, SWEEP_TRACE_ROUNDS of it traced, the
+# seven profiles under three time models on the reference's
+# single-device stand-in link, autotune_H over the grid's span for
+# TUNED, and a small sweep on the card and on the CPU on replayed per-H
+# streams
+SWEEP_GRID = (256, 1024, 4096, 16384)
+SWEEP_EXCHANGE = "compressed:int8"
+SWEEP_MAX_ROUNDS = 2000
+MEASURED_ROUNDS = 4
+SWEEP_TRACE_ROUNDS = 3
+STAND_IN_LINK = (1e9, 1e-4)       # synthetic_link(bandwidth B/s, latency s)
+MODELS = {"sync": "", "stale:k=2": "/stale:k=2",
+          "straggler:mix(p=0.5,slow=16)": "/straggler:mix(p=0.5,slow=16)"}
+TUNED = ("E_mpi", "D_pyspark_c")
+SMALL_SWEEP_GRID, SMALL_SWEEP_ROUNDS = (16, 32, 64), 60
+# calibrate_link on the sharded phases' groups
+CALIBRATED_NCCL = ("persistent", "compressed:int8")
+CALIBRATED_GLOO = ("persistent", "compressed:int8", "compressed:int8/ring")
 POWER_ITERS = 30
 CODECS = ("int8", "int4", "int2")
 BITS = {"int8": 8, "int4": 4, "int2": 2}
@@ -501,6 +548,14 @@ def device_trace(torch, fn, host=()) -> dict:
         **({"host_ops": host_ms} if host else {}))
 
 
+def link_fields(link) -> dict:
+    """A LinkCalibration as a JSON line's fields (an infinite bandwidth
+    as the string "inf")."""
+    bw = link.bandwidth_Bps
+    return dict(bandwidth_Bps=bw if bw != float("inf") else "inf",
+                latency_s=link.latency_s, source=link.source)
+
+
 def sharded_stats(torch, tr, hist, log, counters, K: int, eps: float
                   ) -> dict:
     """What one sharded run of ``tr`` left on this rank: its History,
@@ -545,6 +600,7 @@ def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.bench.timing import calibrate_link
     from repro_torch.comm.collectives import Fabric
     from repro_torch.comm.collectives import recording as record_calls
     from repro_torch.core import (CoCoAConfig, CoCoATrainer, MinibatchSCD,
@@ -650,6 +706,11 @@ def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
         out["kernels"]["scd_solve"]["plan"] = dataclasses.asdict(
             scd_solve.last_plan)
     out["trace_and_timing_s"] = time.perf_counter() - t0
+    # this rank's fit of each exchange's collective over the gloo group
+    t0 = time.perf_counter()
+    out["links"] = {ex: link_fields(calibrate_link(ex, device=device))
+                    for ex in job["calibrate"]}
+    out["calibrate_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1519,7 +1580,7 @@ def main(argv=None) -> int:
     phase_done(torch, "timing_bmv", t0, reps=args.reps, kernels=bmv_row,
                library="torch.matmul (batched), full f32",
                per_worker_loop="one torch.matmul a worker, stacked")
-    del blocks, y_scd, a_sgd, y_sgd, bmv_args
+    del blocks, y_scd, a_sgd, y_sgd, bmv_args, a_, M_
     free(torch)
 
     # the same kernels at the long-row path's shapes: K1 on its round-1
@@ -1606,6 +1667,7 @@ def main(argv=None) -> int:
     # -- 7. the sharded driver on a 1-rank NCCL group --------------------
     import torch.distributed as tdist
 
+    from repro_torch.bench.timing import calibrate_link
     from repro_torch.comm.collectives import recording as record_calls
     from repro_torch.launch.dist import init_group, sha256, spawn
     t0 = time.perf_counter()
@@ -1666,17 +1728,27 @@ def main(argv=None) -> int:
                         and not any(c_.staged for c_ in log))
             del trs
             free(torch)
+        t1 = time.perf_counter()
+        nccl_links = {ex: link_fields(calibrate_link(ex, device=dev))
+                      for ex in CALIBRATED_NCCL}
+        calibrate_s = time.perf_counter() - t1
     finally:
         tdist.destroy_process_group()
+    nccl_ok &= all(f["bandwidth_Bps"] == "inf" for f in nccl_links.values())
     phase_done(torch, "sharded_nccl", t0, data_seconds=data_s, K=1,
                m=args.m, n=NCCL_N,
                H=NCCL_N, rounds=NCCL_ROUNDS, p_star=p1, paths=nccl,
+               links=nccl_links, calibrate_seconds=calibrate_s,
+               links_label="calibrate_link on a 1-rank NCCL group: one rank "
+                           "moves no bytes, so the bandwidth is inf and the "
+                           "latency is the call's dispatch",
                note="a 1-rank NCCL group: NCCL refuses two ranks on one "
                     "card, so no multi-GPU exchange runs here")
     if not nccl_ok:
         raise SystemExit("chip_smoke: the 1-rank NCCL sharded run left the "
-                         "virtual driver's state, staged a copy or launched "
-                         "other kernels (see the sharded_nccl line)")
+                         "virtual driver's state, staged a copy, launched "
+                         "other kernels or fitted a finite bandwidth (see "
+                         "the sharded_nccl line)")
     del A1, b1
 
     # -- 8. K ranks on the one card in a gloo group ------------------------
@@ -1723,7 +1795,8 @@ def main(argv=None) -> int:
                eps=args.eps,
                p_zero=base_p_zero, topk_k=k_main, paths=job_paths,
                sgd=sgd_kw, cocoa=dict(K=args.K, H=H, lam=args.lam, eta=1.0,
-                                      solver="scd_kernel", seed=args.seed))
+                                      solver="scd_kernel", seed=args.seed),
+               calibrate=CALIBRATED_GLOO)
     phase_done(torch, "sharded_gloo_setup", t0, K=args.K,
                block_files=2 * args.K + 1, partition_seconds=part_s,
                blocks_seconds=blocks_s,
@@ -1814,6 +1887,228 @@ def main(argv=None) -> int:
     if not gloo_ok:
         raise SystemExit("chip_smoke: a sharded gloo path failed a check "
                          "(see its sharded_gloo_path line)")
+    gloo_links = {ex: [r["links"][ex] for r in ranks]
+                  for ex in CALIBRATED_GLOO}
+    emit(phase="sharded_gloo_links", K=args.K, fits_by_rank=gloo_links,
+         seconds_by_rank=[r["calibrate_s"] for r in ranks],
+         label=f"calibrate_link, each rank's own fit: {args.K} processes "
+               f"time-sharing one card in a gloo group, every payload "
+               f"staged through the host; host staging and time-slicing, "
+               f"never an NVLink number")
+    if not all(isinstance(f["bandwidth_Bps"], float)
+               and f["bandwidth_Bps"] > 0 and f["latency_s"] >= 0
+               for fits in gloo_links.values() for f in fits):
+        raise SystemExit("chip_smoke: a gloo rank's link fit is not a "
+                         "finite positive bandwidth and a latency (see the "
+                         "sharded_gloo_links line)")
+
+    # -- 9. the trade-off path: the H sweep at the main shape -----------
+    from repro_torch.bench.timing import synthetic_link
+    from repro_torch.core import PROFILES
+    from repro_torch.core.tradeoff import (TimeModel, autotune_H,
+                                           compute_fraction_at, make_trainer,
+                                           optimal_H, sweep_H)
+    t9 = t0 = time.perf_counter()
+    cfg9 = dataclasses.replace(cfg, exchange=SWEEP_EXCHANGE)
+    codec9 = own_kernels(SWEEP_EXCHANGE.partition(":")[2])
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    sweep = sweep_H(A, b, cfg9, SWEEP_GRID, eps=args.eps,
+                    max_rounds=SWEEP_MAX_ROUNDS, measure=True)
+    torch.cuda.synchronize()
+    sweep_launches = {fn.__name__: fn.launches for fn in counters}
+    # every point runs to eps (or the cap), then measure_solver_time runs
+    # MEASURED_ROUNDS at its H; and as many at H = n_local for t_ref
+    ran = sum(p_.rounds_to_eps or SWEEP_MAX_ROUNDS for p_ in sweep.points)
+    timed = MEASURED_ROUNDS * (len(SWEEP_GRID) + 1)
+    want = {fn.__name__: 0 for fn in counters}
+    want.update({k_: ran + timed for k_ in ("scd_solve",) + codec9})
+    Hs = np.array([p_.H for p_ in sweep.points], float)
+    ts = np.array([p_.t_solver_s for p_ in sweep.points])
+    slope, intercept = (float(x) for x in np.polyfit(Hs, ts, 1))
+    phase_done(torch, "tradeoff_sweep", t0, exchange=sweep.exchange,
+               K=sweep.workers, n_local=sweep.n_local, eps=sweep.eps,
+               points=[dict(H=p_.H, rounds_to_eps=p_.rounds_to_eps
+                            or "not reached", t_solver_s=p_.t_solver_s)
+                       for p_ in sweep.points],
+               t_ref_s=sweep.t_ref_s, fit_slope_s_per_step=slope,
+               fit_intercept_s=intercept,
+               comm_bytes_per_round=sweep.comm_bytes_per_round,
+               launches=sweep_launches, rounds_run=ran,
+               rounds_timed=timed,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if sweep_launches != want:
+        raise SystemExit(f"chip_smoke: the sweep must launch K1 and the "
+                         f"{SWEEP_EXCHANGE} kernels once a round "
+                         f"({ran + timed} rounds) and no other kernel, got "
+                         f"{sweep_launches}")
+    if not any(p_.rounds_to_eps for p_ in sweep.points) or not all(
+            np.isfinite(ts) & (ts > 0)) or not sweep.t_ref_s > 0:
+        raise SystemExit("chip_smoke: no sweep point reached eps, or one "
+                         "timed no positive solver time (see the "
+                         "tradeoff_sweep line)")
+
+    # each point again on one trainer whose data every H shares: its
+    # launches and peak memory, then a trace of a few of its rounds (K1's
+    # device time a launch, the host's share of the round)
+    t0 = time.perf_counter()
+    tr9 = CoCoATrainer(cfg9, A, b)
+    tr9.p_star  # noqa: B018 (solved once, outside every window)
+    tr9._round_fn  # noqa: B018 (places the data)
+    setup9_s = time.perf_counter() - t0
+    k1_by_H = {}
+    for p_ in sweep.points:
+        t0 = time.perf_counter()
+        trH = tr9.with_H(p_.H)
+        held = torch.cuda.memory_allocated()
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        hist = trH.run(SWEEP_MAX_ROUNDS, target_eps=args.eps)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated()
+        n_rounds = len(hist.rounds)
+        trace = device_trace(torch, lambda: trH.run(SWEEP_TRACE_ROUNDS))
+        k1 = [v for name_, v in trace.get("kernels", {}).items()
+              if KERNEL_NAMES["scd_solve"] in name_]
+        calls = sum(v["calls"] for v in k1)
+        k1_ms = (sum(v["device_ms"] for v in k1) / calls if calls
+                 else "not measured")
+        k1_by_H[p_.H] = k1_ms
+        round_ms = trace["window_ms"] / SWEEP_TRACE_ROUNDS
+        want = {fn.__name__: 0 for fn in counters}
+        want.update({k_: n_rounds for k_ in ("scd_solve",) + codec9})
+        phase_done(
+            torch, "tradeoff_point", t0, H=p_.H,
+            rounds_to_eps=p_.rounds_to_eps,
+            rounds_to_eps_again=hist.rounds_to(args.eps),
+            t_solver_ms=p_.t_solver_s * 1e3, k1_device_ms=k1_ms,
+            t_solver_minus_k1_ms=(p_.t_solver_s * 1e3 - k1_ms
+                                  if calls else "not measured"),
+            traced_round_ms=round_ms,
+            host_share_of_traced_round=(
+                1.0 - trace["busy_share_of_window"]
+                if "busy_share_of_window" in trace else "not measured"),
+            round_ms_median=float(np.median(hist.seconds)) * 1e3,
+            memory_allocated_before=held, max_memory_allocated=peak,
+            launches=launches,
+            trace_kernels=trace.get("kernels", trace.get("device_time")))
+        if launches != want or hist.rounds_to(args.eps) != p_.rounds_to_eps:
+            raise SystemExit(f"chip_smoke: at H = {p_.H} K1 and the "
+                             f"{SWEEP_EXCHANGE} kernels must launch once a "
+                             f"round ({n_rounds}), no other kernel, and the "
+                             f"rounds to eps must be the sweep's "
+                             f"({p_.rounds_to_eps}); got {launches} and "
+                             f"{hist.rounds_to(args.eps)}")
+        del trH
+        free(torch)
+
+    # H* under each profile and three time models on the stand-in link
+    t0 = time.perf_counter()
+    link = synthetic_link(*STAND_IN_LINK)
+    best = {}
+    for name_, prof in PROFILES.items():
+        for label, seg in MODELS.items():
+            tm = TimeModel(prof, sweep.comm_bytes_per_round, link,
+                           exchange=sweep.exchange + seg,
+                           workers=sweep.workers)
+            h_star, t_star = optimal_H(tm, sweep)
+            best.setdefault(name_, {})[label] = dict(
+                H_star=h_star, time_to_eps_s=t_star,
+                compute_fraction=compute_fraction_at(tm, sweep, h_star))
+    phase_done(torch, "tradeoff_models", t0, link=link_fields(link),
+               link_label="synthetic_link(1e9, 1e-4), the reference's "
+                          "single-device stand-in; model only, no run",
+               comm_bytes_per_round=sweep.comm_bytes_per_round,
+               optimal=best)
+
+    # autotune_H on live, cached rounds-to-eps and the sweep's fit of
+    # t_solver(H), each cost within 2x of the grid's best
+    t0 = time.perf_counter()
+    live = {}
+
+    def rounds_to_eps(H):
+        if H not in live:
+            h_ = tr9.with_H(H).run(SWEEP_MAX_ROUNDS, target_eps=args.eps)
+            live[H] = (h_.rounds_to(args.eps), len(h_.rounds))
+        return live[H][0]
+
+    for fn in counters:
+        fn.launches = 0
+    tuned, tune_ok = {}, True
+    for name_ in TUNED:
+        tm = TimeModel(PROFILES[name_], sweep.comm_bytes_per_round, link,
+                       exchange=sweep.exchange, workers=sweep.workers)
+
+        def round_time(H, tm=tm):
+            return tm.round_time(slope * H + intercept, sweep.t_ref_s)
+
+        h_star = autotune_H(rounds_to_eps, round_time, SWEEP_GRID[0],
+                            SWEEP_GRID[-1])
+        grid = {p_.H: (p_.rounds_to_eps or float("inf")) * round_time(p_.H)
+                for p_ in sweep.points}
+        h_grid = min(grid, key=grid.get)
+        cost = (rounds_to_eps(h_star) or float("inf")) * round_time(h_star)
+        tune_ok &= cost <= 2.0 * grid[h_grid]
+        tuned[name_] = dict(H_star=h_star, cost_s=cost, grid_best_H=h_grid,
+                            grid_best_cost_s=grid[h_grid],
+                            ratio=cost / grid[h_grid])
+    torch.cuda.synchronize()
+    tune_launches = {fn.__name__: fn.launches for fn in counters}
+    want = {fn.__name__: 0 for fn in counters}
+    want.update({k_: sum(n for _, n in live.values())
+                 for k_ in ("scd_solve",) + codec9})
+    phase_done(torch, "tradeoff_autotune", t0, tuned=tuned,
+               evaluated={str(H): r for H, (r, _) in sorted(live.items())},
+               launches=tune_launches)
+    if not tune_ok or tune_launches != want:
+        raise SystemExit("chip_smoke: an autotuned H costs over twice the "
+                         "grid's best, or its runs launched other kernels "
+                         "than K1 and the int8 kernels once a round (see "
+                         "the tradeoff_autotune line)")
+    del tr9
+    free(torch)
+
+    # a small sweep on the card (kernels) and on the CPU (plain versions)
+    # on one replayed stream per H: rounds-to-eps, and each point's
+    # per-round primal at rtol 1e-4
+    t0 = time.perf_counter()
+    cfg_s = CoCoAConfig(K=4, H=64, lam=1.0, solver="scd_kernel",
+                        exchange=SWEEP_EXCHANGE, seed=args.seed)
+    probe = CoCoATrainer(cfg_s, As, bs, device="cpu")
+    streams = {H_: [probe.with_H(H_).index_source(t).numpy()
+                    for t in range(1, SMALL_SWEEP_ROUNDS + 1)]
+               for H_ in SMALL_SWEEP_GRID}
+    small_r2e, small_primal = {}, {}
+    for where in ("cuda", "cpu"):
+        def replay(H_, where=where):
+            return ReplayIndices(streams[H_], device=where)
+
+        sw = sweep_H(As, bs, cfg_s, SMALL_SWEEP_GRID, eps=args.eps,
+                     max_rounds=SMALL_SWEEP_ROUNDS, measure=False,
+                     device=where, index_source_for=replay)
+        small_r2e[where] = [p_.rounds_to_eps for p_ in sw.points]
+        small_primal[where] = {H_: make_trainer(
+            "cocoa", dataclasses.replace(cfg_s, H=H_), As, bs, device=where,
+            index_source=replay(H_)).run(SMALL_SWEEP_ROUNDS,
+                                         target_eps=args.eps).primal
+            for H_ in SMALL_SWEEP_GRID}
+    small_rel = {str(H_): float(np.max(
+        np.abs(np.array(small_primal["cuda"][H_]) - small_primal["cpu"][H_])
+        / np.abs(small_primal["cpu"][H_]))) if len(
+            small_primal["cuda"][H_]) == len(small_primal["cpu"][H_])
+        else "rounds differ" for H_ in SMALL_SWEEP_GRID}
+    phase_done(torch, "tradeoff_card_vs_cpu", t0, grid=SMALL_SWEEP_GRID,
+               rounds_to_eps=small_r2e, primal_rel_max=small_rel,
+               tolerance="rtol 1e-4",
+               tradeoff_seconds=time.perf_counter() - t9,
+               setup_seconds=setup9_s)
+    if small_r2e["cuda"] != small_r2e["cpu"] or not all(
+            isinstance(r, float) and r <= 1e-4 for r in small_rel.values()):
+        raise SystemExit("chip_smoke: the small sweep's card and CPU runs "
+                         "disagree (see the tradeoff_card_vs_cpu line)")
 
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the
@@ -1884,6 +2179,10 @@ def main(argv=None) -> int:
         entry["sharded"] = (dict(launches_per_rank_per_round=n_l / n_r,
                                  **ranks[0]["kernels"][name])
                             if n_l else "not on the sharded paths")
+        # phase 9: launches over the sweep_H call at the main shape
+        entry["tradeoff_launches"] = sweep_launches[name]
+    by_key["scd_solve"]["tradeoff_device_ms_by_H"] = {
+        str(H_): t for H_, t in k1_by_H.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ only its block (:class:`WorkerColumns`) instead of the whole matrix.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import time
@@ -363,11 +364,22 @@ class CoCoATrainer:
                 dist.init_exchange_state(self.exchange, -self.b))
 
     def with_H(self, H: int) -> "CoCoATrainer":
-        """A fresh trainer on the same problem and device with the H knob
-        moved (and the default index source for the new H)."""
-        return type(self)(dataclasses.replace(self.cfg, H=int(H)),
-                          self.A_np if self.block is None else self.block,
-                          self.b_np, device=self.device)
+        """A trainer on the same problem and device with the H knob moved
+        and the default index source for the new H. The partition, the
+        data already on the device and ``p_star`` do not depend on H, so
+        the new trainer shares them with this one instead of building
+        them again: it is a copy of this trainer whose configuration,
+        index source and round function are made anew, without this
+        trainer's results."""
+        new = copy.copy(self)
+        new.cfg = dataclasses.replace(self.cfg, H=int(H))
+        new.index_source = UniformIndices(self.part.sizes, new.cfg.H,
+                                          new.cfg.seed, self.device)
+        new._algo = _CoCoARound(new.cfg, self.problem,
+                                _get_solver(new.cfg.solver))
+        for name in ("_round_fn", "alpha", "w_final", "alpha_final"):
+            new.__dict__.pop(name, None)
+        return new
 
     def comm_bytes_per_round(self, t: int | None = None) -> int:
         """Modelled bytes on the wire per round under the configured

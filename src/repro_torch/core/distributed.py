@@ -20,9 +20,10 @@
     and ``round_fn.flush`` / :func:`finish_run` absorb it after the last
     round.
   * :class:`StragglerProfile` — the straggler segment of the grammar
-    (per-worker compute-time multipliers). Time-only: under a
-    bulk-synchronous barrier a straggler changes the wall clock, never
-    the numbers, so the driver ignores it.
+    (per-worker compute-time multipliers) and its timing model. Time-only:
+    under a bulk-synchronous barrier a straggler changes the wall clock,
+    never the numbers, so the driver ignores it and the trade-off layer
+    charges it.
   * :class:`MembershipSchedule` — elastic membership (``drop:1@5-9``): a
     dropped worker contributes an exact-zero update (zeroed before the
     encode, its ``ef:`` residual too), keeps its local state and
@@ -50,10 +51,12 @@ in-graph are plain branches here.
 """
 from __future__ import annotations
 
+import functools
 import re
 from dataclasses import dataclass, field
 from typing import Callable, Protocol
 
+import numpy as np
 import torch
 
 from repro_torch.comm import UpdateCodec, get_codec
@@ -223,18 +226,38 @@ class ExchangeMode:
 # ---------------------------------------------------------------------------
 # straggler profiles
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _lognormal_barrier_mult(sigma: float, K: int,
+                            samples: int = 8192) -> float:
+    """E[max over K workers] of a mean-1 lognormal multiplier, by
+    fixed-seed Monte Carlo (no closed form). Deterministic, cached; the
+    reference's numpy draw, so the same bits."""
+    z = np.random.default_rng(20260808).standard_normal((samples, K))
+    mult = np.exp(sigma * z - 0.5 * sigma * sigma)
+    return float(np.mean(np.max(mult, axis=1)))
+
+
 @dataclass(frozen=True)
 class StragglerProfile:
     """Per-worker compute-time multiplier distribution (the paper's
-    straggling executors, §4). Time-only: the driver ignores it, so the
-    port keeps its grammar (``parse``, ``spec``, ``active``); the timing
-    model comes with the trade-off layer's clock (ROADMAP.md Queue 1
-    item 9).
+    straggling executors, §4). Time-only: under a bulk-synchronous
+    barrier every round waits for its slowest worker, so the drivers
+    ignore the profile and the trade-off layer's ``TimeModel``
+    (``repro_torch.core.tradeoff``) charges compute as the max over
+    workers (:meth:`expected_barrier_mult`).
 
       * ``none``               every worker runs at 1x.
-      * ``det(slow=S)``        worker 0 is S× slower.
-      * ``lognormal(sigma=σ)`` mean-1 lognormal jitter on every worker.
-      * ``mix(p=P,slow=S)``    each worker S× slow with probability P."""
+      * ``det(slow=S)``        worker 0 is S× slower; barrier factor S.
+      * ``lognormal(sigma=σ)`` mean-1 lognormal jitter on every worker
+        (``exp(σz - σ²/2)``); barrier factor E[max of K] by fixed-seed
+        Monte Carlo.
+      * ``mix(p=P,slow=S)``    each worker S× slow with probability P;
+        barrier factor ``1 + (S-1)·(1-(1-P)^K)``.
+
+    :meth:`multipliers` and :meth:`barrier_mults` sample from a
+    ``torch.Generator`` where the reference splits a ``jax.random`` key,
+    whose bits PyTorch cannot reproduce: ``none`` and ``det`` are exact,
+    ``mix`` and ``lognormal`` match the reference in distribution."""
     kind: str = "none"
     slow: float = 4.0
     p: float = 0.1
@@ -295,6 +318,43 @@ class StragglerProfile:
         fmt = {"slow": self.slow, "p": self.p, "sigma": self.sigma}
         args = ",".join(f"{k}={fmt[k]:g}" for k in self._PARAMS[self.kind])
         return f"straggler:{self.kind}" + (f"({args})" if args else "")
+
+    def multipliers(self, generator: torch.Generator, K: int) -> torch.Tensor:
+        """One round's per-worker compute-time multipliers, ``(K,)`` f32
+        on the generator's device, drawn from ``generator``."""
+        dev = generator.device
+        if self.kind == "none":
+            return torch.ones((K,), dtype=torch.float32, device=dev)
+        if self.kind == "det":
+            return torch.where(torch.arange(K, device=dev) == 0,
+                               self.slow, 1.0).to(torch.float32)
+        if self.kind == "lognormal":
+            z = torch.randn((K,), generator=generator, device=dev)
+            return torch.exp(self.sigma * z - 0.5 * self.sigma ** 2)
+        hit = torch.rand((K,), generator=generator, device=dev) < self.p
+        return torch.where(hit, self.slow, 1.0).to(torch.float32)
+
+    def barrier_mults(self, generator: torch.Generator, K: int,
+                      rounds: int) -> torch.Tensor:
+        """``(rounds,)`` sampled per-round barrier factors: the max over
+        workers of :meth:`multipliers`, one round after another."""
+        return torch.stack([torch.max(self.multipliers(generator, K))
+                            for _ in range(rounds)])
+
+    def expected_barrier_mult(self, K: int) -> float:
+        """E[max over K workers] of the multiplier: the factor a
+        bulk-synchronous barrier stretches compute by (what
+        ``TimeModel`` charges)."""
+        if K < 1:
+            raise ValueError(f"straggler barrier factor needs the worker "
+                             f"count K >= 1, got {K}")
+        if self.kind == "none":
+            return 1.0
+        if self.kind == "det":
+            return float(self.slow)
+        if self.kind == "mix":
+            return 1.0 + (self.slow - 1.0) * (1.0 - (1.0 - self.p) ** K)
+        return _lognormal_barrier_mult(self.sigma, K)
 
 
 # ---------------------------------------------------------------------------

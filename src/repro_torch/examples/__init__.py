@@ -1,0 +1,4 @@
+"""Runnable examples of the port (``python -m repro_torch.examples.<name>``):
+``quickstart`` walks the paper's workload end to end, ``tune_h`` tunes
+the H knob against measured rounds and a time model. Each runs on the
+card unless given ``--device cpu``."""

@@ -25,7 +25,9 @@ places only its own worker's block on its device. The result JSON holds
 the per-round primal objectives, SHA-256 hashes of the final shared and
 (gathered) local state, which is how runs are compared bit for bit, and
 the bytes each round moved, derived from the recorded collective log
-(``repro_torch.analysis.traffic``).
+(``repro_torch.analysis.traffic``). With ``--calibrate`` it also holds
+``link``, this rank's fit of the exchange's collective over the group
+(``repro_torch.bench.timing.calibrate_link``), which differs by rank.
 
 :func:`spawn` starts a whole group from one process (the tests and
 ``chip_smoke.py`` use it).
@@ -198,7 +200,7 @@ def run(args, device) -> dict:
         shared, local = tr.alpha_final, np.zeros((K, 0), np.float32)
     else:
         shared, local = tr.w_final, tr.alpha
-    return {
+    result = {
         "workers": K,
         "num_processes": args.num_processes,
         "algorithm": args.algorithm,
@@ -211,6 +213,17 @@ def run(args, device) -> dict:
                                                  tr.exchange, K)
                            for t in log.rounds()],
     }
+    if args.calibrate:
+        from repro_torch.bench.timing import TimingPolicy, calibrate_link
+
+        # this rank's fit of the exchange's collective over the group
+        link = calibrate_link(tr.exchange, policy=TimingPolicy(warmup=1,
+                                                               reps=3),
+                              device=device)
+        result["link"] = {"bandwidth_Bps": link.bandwidth_Bps,
+                          "latency_s": link.latency_s,
+                          "source": link.source}
+    return result
 
 
 def main(argv=None) -> None:
@@ -240,15 +253,12 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--calibrate", action="store_true",
-                    help="also calibrate the link over the real transport")
+                    help="also calibrate the link over the real transport "
+                         "(calibrate_link; each rank writes its own fit)")
     ap.add_argument("--out", default=None,
                     help="write the result JSON here (every process "
                          "writes — compare them bit-for-bit)")
     args = ap.parse_args(argv)
-    if args.calibrate:
-        raise NotImplementedError(
-            "--calibrate times the exchange with calibrate_link, which "
-            "comes with the trade-off layer (ROADMAP.md Queue 1 item 9)")
 
     device = rank_device(args.device, args.process_id)
     url = (args.coordinator if "://" in args.coordinator

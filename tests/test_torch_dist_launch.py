@@ -2,8 +2,9 @@
 a 2-process gloo run on the CPU gives the same per-round primals and the
 same SHA-256 of the final shared and local state as the virtual driver
 at K = 2 in this process — a sum of two addends is exact in either
-order — for the fused ``xla`` fabric and the explicit ``ring``. The
-counterpart of ``tests/test_dist_launch.py``."""
+order — for the fused ``xla`` fabric and the explicit ``ring``; with
+``--calibrate`` each rank also writes its link fit. The counterpart of
+``tests/test_dist_launch.py``."""
 from __future__ import annotations
 
 import json
@@ -15,13 +16,13 @@ import pytest
 
 from repro_torch.core import CoCoAConfig, CoCoATrainer
 from repro_torch.data import make_glm_data
-from repro_torch.launch.dist import main, sha256
+from repro_torch.launch.dist import sha256
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M, N, H, ROUNDS = 64, 128, 8, 3
 
 
-def _launch(spec: str, tmp_path) -> list:
+def _launch(spec: str, tmp_path, *extra: str) -> list:
     init = tmp_path / "init"
     outs = [tmp_path / f"p{pid}.json" for pid in (0, 1)]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -31,7 +32,7 @@ def _launch(spec: str, tmp_path) -> list:
          "--process-id", str(pid), "--algorithm", "cocoa",
          "--exchange", spec, "--rounds", str(ROUNDS), "--H", str(H),
          "--m", str(M), "--n", str(N), "--device", "cpu",
-         "--out", str(outs[pid])], env=env, stdout=subprocess.PIPE,
+         "--out", str(outs[pid]), *extra], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
     try:
         for p in procs:
@@ -63,6 +64,14 @@ def test_two_processes_match_the_virtual_driver(spec, tmp_path):
     assert p0["bytes_recorded"] == [tr.comm_bytes_per_round()] * ROUNDS
 
 
-def test_calibrate_waits_for_the_trade_off_layer():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        main(["--calibrate", "--device", "cpu"])
+def test_calibrate_writes_each_ranks_link_fit(tmp_path):
+    """``--calibrate`` adds this rank's fit of the exchange's collective
+    over the group (``calibrate_link``) as ``link``; the rest of the JSON
+    is the same on both ranks."""
+    p0, p1 = _launch("compressed:int8", tmp_path, "--calibrate")
+    for p in (p0, p1):
+        link = p.pop("link")
+        assert link["source"] == "measured"
+        assert 0 < link["bandwidth_Bps"] < float("inf")
+        assert link["latency_s"] >= 0
+    assert p0 == p1

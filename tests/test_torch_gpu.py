@@ -1023,3 +1023,66 @@ def test_bmv_wrappers_count_their_launches(cuda):
                        torch.full((2, 8), 3.0, device=cuda))
     assert (batched_matvec.launches, batched_vecmat.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+# -- the trade-off layer on the card ------------------------------------
+def test_measure_solver_time_on_card_covers_k1s_device_time(cuda):
+    """``measure_solver_time`` drains the card inside each sample, so a
+    round's time is at least the device time of the K1 launch it holds
+    (without the drain it would time the launches only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench.timing import measure_solver_time
+    from repro_torch.core import CoCoAConfig, CoCoATrainer
+    from repro_torch.data import make_glm_data
+    A, b, _ = make_glm_data(m=2048, n=4096, density=0.15, zipf_a=1.1,
+                            seed=42)
+    H = 512
+    tr = CoCoATrainer(CoCoAConfig(K=8, H=H, solver="scd_kernel",
+                                  exchange="compressed:int8"), A, b,
+                      device=cuda)
+    t_round = measure_solver_time(tr, H)
+    alpha, w = tr.init_state()
+    idx = tr.index_source(1)
+    call = lambda: scd_solve(tr.A_T, tr.col_sq, alpha, w, idx,  # noqa: E731
+                             sigma=8.0, lam=1.0, eta=1.0)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    k1 = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "scd_kernel" in e.name]
+    assert len(k1) == 5, "the trace holds no K1 launch"
+    k1_s = float(np.mean(k1)) * 1e-6
+    print(f"t_solver {t_round * 1e3:.3f} ms, K1 device {k1_s * 1e3:.3f} ms")
+    assert t_round >= k1_s
+
+
+def test_small_sweep_on_card_equals_cpu(cuda):
+    """``sweep_H`` on the card (K1, K2 and K3) and on the CPU (plain
+    versions) on one replayed index stream per H: the same rounds-to-eps
+    and bytes at every grid point."""
+    from repro_torch.carry import ReplayIndices
+    from repro_torch.core import CoCoAConfig, CoCoATrainer
+    from repro_torch.core.tradeoff import sweep_H
+    from repro_torch.data import make_glm_data
+    A, b, _ = make_glm_data(m=96, n=256, density=0.2, zipf_a=1.1, seed=42)
+    cfg = CoCoAConfig(K=4, H=64, solver="scd_kernel",
+                      exchange="compressed:int8", seed=1)
+    probe = CoCoATrainer(cfg, A, b, device="cpu")
+    streams = {H: [probe.with_H(H).index_source(t).numpy()
+                   for t in range(1, 61)] for H in (16, 64)}
+    out = {}
+    for where in ("cuda", "cpu"):
+        out[where] = sweep_H(A, b, cfg, (16, 64), max_rounds=60,
+                             measure=False, device=where,
+                             index_source_for=lambda H: ReplayIndices(
+                                 streams[H], device=where))
+    got, want = out["cuda"], out["cpu"]
+    assert ([p.rounds_to_eps for p in got.points]
+            == [p.rounds_to_eps for p in want.points])
+    assert all(p.rounds_to_eps is not None for p in want.points)
+    assert got.comm_bytes_per_round == want.comm_bytes_per_round

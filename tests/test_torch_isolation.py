@@ -40,6 +40,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.launch.dist" in mods
     assert "repro_torch.analysis.traffic" in mods
     assert "repro_torch.comm.collectives" in mods
+    for name in ("bench.timing", "core.tradeoff", "core.overheads",
+                 "examples.quickstart", "examples.tune_h"):
+        assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
