@@ -164,7 +164,29 @@ JSON line:
      rounds-to-eps, each cost at most twice the grid's best; and a small
      sweep (m 96, n 256, K 4, H in (16, 32, 64)) on the card and on the
      CPU on one replayed stream per H: the same rounds-to-eps and each
-     point's per-round primal at rtol 1e-4.
+     point's per-round primal at rtol 1e-4;
+  10. the transformer local-updates path (``repro_torch.optim.
+     local_updates.virtual_round``): tinyllama-1.1b at full width
+     (d_model 2048, 32 heads, 4 kv heads, d_ff 5632, vocab 32,000; all 22
+     layers), bf16 params, f32 AdamW, per-layer remat, a cosine schedule
+     warmed up over one round, K = 4 virtual data shards on the card, H =
+     2, batch 4 x seq 512 a shard from ``TokenStream(seed=0)``, under
+     ``f32`` (the exact mean, no codec kernel) and ``compressed:int8`` (K2
+     and K3) for 3 rounds and ``compressed:ef:topk(r=0.01)`` (K4 and the
+     topk decode) for 2 rounds, the launch counters set to 0
+     just before each path and read just after. Each path must: lower
+     the loss from the first step (the shards' mean) to the last round's
+     last step; launch its codec kernels once a leaf a round (12 leaves)
+     and no other kernel; put on the wire, twice the bytes of the encoded
+     parts, exactly ``delta_wire_bytes``; keep every param finite; and, in
+     round 1, give at the largest leaf and at ``embed`` the same parts,
+     mean (and ``ef:`` residual) through the kernels as through the plain
+     versions, bit for bit. Printed: tokens/s, each round split into the
+     local steps and the exchange (CUDA events), each codec kernel's
+     events and device time at the largest leaf beside its byte bound,
+     its plain version and (K4) ``torch.topk``, a ``torch.profiler`` trace
+     of one local step (the top kernels, the matrix products' share, the
+     busy share), and the peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -267,6 +289,32 @@ SMALL_SWEEP_GRID, SMALL_SWEEP_ROUNDS = (16, 32, 64), 60
 # calibrate_link on the sharded phases' groups
 CALIBRATED_NCCL = ("persistent", "compressed:int8")
 CALIBRATED_GLOO = ("persistent", "compressed:int8", "compressed:int8/ring")
+# the transformer phase (10): tinyllama at full width trained by local-
+# update rounds over K virtual data shards on the one card, its delta
+# exchange through the codecs' kernels. Paths: (label, codec, layers
+# (None: all 22), rounds). The schedule warms up over one
+# round's H steps: under the default 100-step warmup the first steps'
+# updates (~1e-6 at lr 1e-4) fall below half a bf16 ulp of the weights
+# (~0.02, ulp 1.2e-4) and leave them where they are. Adam's first steps
+# move every weight by about lr * lr_scale, all in the descent
+# direction, so a layer's pre-activations move by about that times its
+# fan-in (2048): at lr 1e-3 (5e-4 a weight) the loss rose from 10.8 to
+# 15-17 before it fell, on an H100.
+LM_ARCH = "tinyllama-1.1b"
+LM_K, LM_H, LM_BATCH, LM_SEQ, LM_LR = 4, 2, 4, 512, 1e-4
+LM_PATHS = (("f32", "f32", None, 3),
+            ("compressed:int8", "int8", None, 3),
+            ("compressed:ef:topk(r=0.01)", "ef:topk(r=0.01)", None, 2))
+LM_REPS = 3
+# device_trace's guard on each side of the traced window: marker
+# kernels (``torch.cuda._sleep``, named "spin_kernel"), left out of every
+# sum. A profiler session in a process that has traced before loses its
+# first few kernel records (2 after phase 5, 11-12 in phase 10, on an
+# H100): the markers ahead take that loss, and a trace counts the
+# markers it kept on each side
+TRACE_MARKERS, MARKER = 32, "spin_kernel"
+# substrings of the names of cuBLAS's matrix-product kernels
+LM_GEMM = ("gemm", "xmma", "cutlass", "sm90_", "nvjet")
 POWER_ITERS = 30
 CODECS = ("int8", "int4", "int2")
 BITS = {"int8": 8, "int4": 4, "int2": 2}
@@ -344,12 +392,15 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, kernel: str):
+def device_ms(torch, fn, reps: int, kernel: str, guards=None):
     """Mean device milliseconds per launch of the kernel whose name holds
     ``kernel``, from a ``torch.profiler`` trace of ``reps`` warm calls of
-    ``fn``; "not measured" when the trace holds no such kernel."""
+    ``fn``; "not measured" when the trace holds no such kernel. The
+    trace's guard counts are appended to ``guards`` when it is a list."""
     fn()
     trace = device_trace(torch, lambda: [fn() for _ in range(reps)])
+    if guards is not None:
+        guards.append(trace["guard"])
     hits = [v for name, v in trace.get("kernels", {}).items()
             if kernel in name]
     calls = sum(v["calls"] for v in hits)
@@ -497,18 +548,27 @@ def device_trace(torch, fn, host=()) -> dict:
     """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activities) and
     sum the device time of each kernel by name, with the device's busy
     share of the host window, and the host time of each CPU op whose
-    name holds one of the ``host`` substrings. A trace that holds no
-    device time says so instead of failing."""
+    name holds one of the ``host`` substrings. ``TRACE_MARKERS`` marker
+    kernels run on each side of ``fn``; the trace says how many of them
+    it kept. A trace that holds no device time says so instead of
+    failing."""
     from torch.profiler import ProfilerActivity, profile
+
+    def markers():
+        for _ in range(TRACE_MARKERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        markers()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    by_name, spans, host_ops = {}, [], {}
+        markers()
+    by_name, spans, host_ops, marks = {}, [], {}, []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             if any(h in ev.name for h in host):
@@ -516,6 +576,9 @@ def device_trace(torch, fn, host=()) -> dict:
                 host_ops[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
             continue
         start, end = ev.time_range.start, ev.time_range.end
+        if MARKER in ev.name:
+            marks.append(start)
+            continue
         if end <= start:
             continue
         spans.append((start, end))
@@ -524,9 +587,15 @@ def device_trace(torch, fn, host=()) -> dict:
         by_name[name] = (n + 1, us + (end - start))
     host_ms = {name: {"calls": n, "host_ms": us / 1e3}
                for name, (n, us) in host_ops.items()}
+    first = min(s_ for s_, _ in spans) if spans else None
+    guard = dict(
+        markers_kept=(dict(before=sum(m < first for m in marks),
+                           after=sum(m > first for m in marks))
+                      if spans else {"either side": len(marks)}),
+        markers_launched=dict(before=TRACE_MARKERS, after=TRACE_MARKERS))
     if not spans:
         return dict(device_time="none in the trace", window_ms=window_us / 1e3,
-                    **({"host_ops": host_ms} if host else {}))
+                    guard=guard, **({"host_ops": host_ms} if host else {}))
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s_, e_ in spans[1:]:             # the union of the device spans
@@ -544,7 +613,7 @@ def device_trace(torch, fn, host=()) -> dict:
         busy_share_of_window=busy / window_us,
         busy_share_of_device_span=busy / device_span,
         kernels={name: {"calls": n, "device_ms": us / 1e3}
-                 for name, (n, us) in top},
+                 for name, (n, us) in top}, guard=guard,
         **({"host_ops": host_ms} if host else {}))
 
 
@@ -714,6 +783,269 @@ def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
     return out
 
 
+def transformer_phase(torch, counters, device="cuda") -> dict:
+    """Phase 10: each path of ``LM_PATHS`` at peak learning rate
+    ``LM_LR``, with the launch counters set to 0 just before and read just after;
+    returns the kernels line's ``transformer`` entries by kernel name."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.comm.codec import get_codec
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import dequant, quant, topk
+    from repro_torch.models import build_model
+    from repro_torch.optim import (AdamWConfig, LocalUpdatesConfig,
+                                   adamw_init, cosine_schedule,
+                                   delta_wire_bytes, init_delta_codec_state,
+                                   local_updates, virtual_round)
+    from repro_torch.train import make_train_step
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import (tree_allfinite, tree_leaves,
+                                         tree_params)
+
+    full_f32_matmul()
+    entries = {}
+    K, H = LM_K, LM_H
+    for label, codec_name, layers, rounds in LM_PATHS:
+        t0 = time.perf_counter()
+        free(torch)
+        held_before = torch.cuda.memory_allocated()
+        cfg = get_config(LM_ARCH)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        opt_cfg = AdamWConfig(lr=LM_LR)
+        opt = adamw_init(params, opt_cfg)
+        step = make_train_step(model, opt_cfg, remat=True, schedule=(
+            functools.partial(cosine_schedule, warmup=H, total=rounds * H)))
+        lc = LocalUpdatesConfig(H=H, codec=codec_name)
+        codec = get_codec(codec_name)
+        state = init_delta_codec_state(params, lc, shards=K)
+        leaves = tree_leaves(params)
+        largest = max(p.numel() for p in leaves)
+        embed_len = params["embed"].numel()
+        want_bytes = delta_wire_bytes(params, lc, K)
+        ts = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0)
+        setup_s = time.perf_counter() - t0
+
+        # events: the round's start, the end of its last shard's steps
+        # (the exchange starts), the round's end
+        marks, checks, timing, kept, timing_ctx = [], {}, {}, {}, {}
+        steps_fn = local_updates._steps
+        exchange_fn = local_updates.exchange_leaf
+        calls = {"steps": 0, "round": 0}
+
+        def steps_hook(*a, **kw):
+            out = steps_fn(*a, **kw)
+            calls["steps"] += 1
+            if calls["steps"] % K == 0:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks[-1]["local_end"] = ev
+            return out
+
+        def exchange_hook(codec_, stack, st=None):
+            out = exchange_fn(codec_, stack, st)
+            L = stack.shape[1]
+            if calls["round"] != 1 or codec_.lossless or L not in (
+                    largest, embed_len) or L in checks:
+                return out
+            # round 1, the largest leaf and embed: the kernels' mean
+            # against the plain versions' on the same stack (and
+            # residual); these launches do not count. The largest leaf's
+            # stack and parts are kept for time_largest()
+            saved = {fn: fn.launches for fn in counters}
+            mean_k, st_k, parts_k = out
+            e = stack if st is None else stack + st
+            # the plain encode a row at a time (each worker's row is
+            # encoded alone), a K-th of its scratch beside the round
+            rows_p = [codec_.encode_ref(e[i:i + 1]) for i in range(K)]
+            parts_p = tuple(torch.cat(ts_) for ts_ in zip(*rows_p))
+            del rows_p
+            res = {"parts": all(bits_equal(torch, a, b)
+                                for a, b in zip(parts_k, parts_p))}
+            mean_p = (codec_.decode_stacked_mean(parts_p, L)
+                      if "topk" in codec_.name else
+                      getattr(codec_, "base", codec_).decode_reduce_ref(
+                          parts_p, L, mean=True))
+            res["mean"] = bits_equal(torch, mean_k, mean_p)
+            res["max_abs_err"] = max_err(mean_k, mean_p)
+            if st is not None:
+                res["residual"] = all(bits_equal(
+                    torch, st_k[i], e[i] - codec_.decode_stacked(
+                        tuple(t[i:i + 1] for t in parts_p), L)[0])
+                    for i in range(K))
+            del parts_p, mean_p
+            checks[L] = res
+            if L == largest:
+                kept.update(e=e, parts=parts_k, codec=codec_, L=L)
+            for fn, n in saved.items():
+                fn.launches = n
+            return out
+
+        def time_largest():
+            """Each of the path's kernels at round 1's largest leaf, after
+            the round: events, its device time, the plain version and, for
+            K4, torch.topk; these launches do not count."""
+            saved = {fn: fn.launches for fn in counters}
+            e, codec_, L = kept["e"], kept["codec"], kept["L"]
+            free(torch)         # the round's cached blocks back to the card
+            timing_ctx.update(
+                memory_allocated=torch.cuda.memory_allocated(),
+                memory_reserved=torch.cuda.memory_reserved())
+            base = getattr(codec_, "base", codec_)
+            if "topk" in codec_.name:
+                k = base._k(L)
+                fns = {"topk": (lambda: topk.topk_select(e, k),
+                                lambda: topk.topk_select_ref(e, k))}
+                lib = {"topk": lambda: torch.topk(e.abs(), k, dim=1,
+                                                  sorted=True)}
+            else:
+                c = base.name
+                p_, s_ = kept["parts"]
+                enc, dec = (getattr(quant, f"quantize_pack_{c}"),
+                            getattr(dequant, f"decode_reduce_{c}"))
+                enc_ref = getattr(quant, f"quantize_pack_{c}_ref")
+                dec_ref = getattr(dequant, f"decode_reduce_{c}_ref")
+                fns = {c: (lambda: enc(e), lambda: enc_ref(e)),
+                       f"decode_{c}": (
+                           lambda: dec(p_, s_, L, mean=True),
+                           lambda: dec_ref(p_, s_, L, mean=True))}
+                lib, k = {}, 1
+            b = codec_bounds(K, L, k)
+            for key, (fn, ref) in fns.items():
+                guards = []
+                timing[key] = dict(
+                    shape=[K, L], k=k if key == "topk" else None,
+                    ms=time_ms(torch, fn, LM_REPS, warmup=1),
+                    device_ms=device_ms(torch, fn, LM_REPS,
+                                        KERNEL_NAMES[key], guards),
+                    plain_ms=time_ms(torch, ref, 1, warmup=0),
+                    library_ms=(time_ms(torch, lib[key], 1, warmup=1)
+                                if key in lib else None),
+                    bound_ms=b[key][0], bound_by=b[key][1],
+                    trace_guard=guards[0])
+                if isinstance(timing[key]["device_ms"], float):
+                    timing[key]["bound_ratio"] = (
+                        timing[key]["device_ms"] / b[key][0])
+            kept.clear()
+            for fn, n in saved.items():
+                fn.launches = n
+
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        local_updates._steps = steps_hook
+        local_updates.exchange_leaf = exchange_hook
+        losses, wire, host_s = [], [], []
+        try:
+            for r in range(1, rounds + 1):
+                calls["round"] = r
+                bs = [[ts.next_batch() for _ in range(H)] for _ in range(K)]
+                batches = {n: torch.tensor(np.stack([np.stack(
+                    [b[n] for b in row]) for row in bs])).to(device)
+                    for n in ("tokens", "labels")}
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                marks.append({"start": start})
+                out = virtual_round(step, params, opt, batches, lc, state)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                marks[-1]["end"] = end
+                torch.cuda.synchronize()
+                host_s.append(time.perf_counter() - h0)
+                params, opt, metrics = out[:3]
+                if state is not None:
+                    state = out[3]
+                losses.append(metrics["loss"].float().cpu().numpy())
+                wire.append(metrics["wire_bytes"])
+                if kept:
+                    time_largest()
+        finally:
+            local_updates._steps = steps_fn
+            local_updates.exchange_leaf = exchange_fn
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(tree_allfinite(params))
+        # one more local step (shard 0's first batch) under the profiler:
+        # where a step's device time goes, and the device's busy share
+        b0 = {n: v[0, 0] for n, v in batches.items()}
+        trace = device_trace(torch, lambda: step(params, opt, b0))
+        kern = trace.get("kernels", {})
+        step_trace = dict(
+            window_ms=trace["window_ms"],
+            busy_share_of_window=trace.get("busy_share_of_window"),
+            device_busy_ms=trace.get("device_busy_ms"),
+            gemm_ms=sum(v["device_ms"] for n, v in kern.items()
+                        if any(g in n.lower() for g in LM_GEMM)),
+            kernels_launched=sum(v["calls"] for v in kern.values()),
+            top=dict(list(kern.items())[:12]), guard=trace.get("guard"))
+        for fn in counters:           # the traced step launches none
+            fn.launches = launches[fn.__name__]
+        split = [dict(round=i + 1, round_ms=m_["start"].elapsed_time(
+            m_["end"]), local_ms=m_["start"].elapsed_time(m_["local_end"]),
+            exchange_ms=m_["local_end"].elapsed_time(m_["end"]),
+            host_s=host_s[i]) for i, m_ in enumerate(marks)]
+        steady = split[1:] or split
+        tokens = K * H * LM_BATCH * LM_SEQ
+        first = float(np.mean(losses[0][:, 0]))
+        last = float(np.mean(losses[-1][:, -1]))
+        want = {fn.__name__: 0 for fn in counters}
+        own = own_kernels(None if codec.lossless else "topk"
+                          if "topk" in codec.name
+                          else codec.name.removeprefix("ef:"))
+        want.update({n: len(leaves) * rounds for n in own})
+        ok = dict(loss_falls=last < first, finite=finite,
+                  launches=launches == want,
+                  bytes=all(w == want_bytes for w in wire),
+                  plain=(all(all(v for k_, v in c_.items()
+                                 if k_ != "max_abs_err")
+                             for c_ in checks.values())
+                         and (codec.lossless
+                              or len(checks) == len({largest, embed_len}))))
+        phase_done(
+            torch, "transformer_path", t0, path=label, codec=codec_name,
+            arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+            params=tree_params(params), K=K, H=H, batch=LM_BATCH,
+            seq=LM_SEQ, rounds=rounds, lr=LM_LR, leaves=len(leaves),
+            largest_leaf=largest, checks=ok,
+            loss_first_step=first, loss_last_round=last,
+            loss_by_round=[l_.tolist() for l_ in losses],
+            wire_bytes_by_round=wire, delta_wire_bytes=want_bytes,
+            launches=launches, expected_launches=want,
+            plain_vs_kernel={str(k_): v for k_, v in checks.items()},
+            round_split_ms=split,
+            tokens_per_round=tokens,
+            tokens_per_s=tokens / np.median([s["round_ms"] for s in steady])
+            * 1e3,
+            tokens_per_s_label="median over the rounds after the first (the "
+                               "first holds the plain-version checks)",
+            kernels_at_largest_leaf=timing, timing_context=timing_ctx,
+            step_trace=step_trace,
+            memory_allocated_before=held_before,
+            max_memory_allocated=peak, setup_seconds=setup_s)
+        if not all(ok.values()):
+            raise SystemExit(f"chip_smoke: the transformer path {label} "
+                             f"failed a check {ok} (see its "
+                             f"transformer_path line)")
+        for name in own:
+            key = {"topk_select": "topk"}.get(
+                name, name.replace("quantize_pack_", "").replace(
+                    "decode_reduce_", "decode_"))
+            entries[name] = dict(path=label, launches=launches[name],
+                                 launches_per_round=launches[name] / rounds,
+                                 leaves=len(leaves), **timing[key])
+        del params, opt, state, out, step, model
+        free(torch)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=16384)
@@ -732,6 +1064,9 @@ def main(argv=None) -> int:
     ap.add_argument("--long-rounds", type=int, default=30)
     args = ap.parse_args(argv)
 
+    # phase 10's ef: path holds ~68 GB at its largest leaf; without
+    # expandable segments the caching allocator strands ~12 GB there
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -770,6 +1105,8 @@ def main(argv=None) -> int:
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
     phase_done(torch, "build", t0, build_seconds=info.seconds,
                library=os.path.relpath(info.path, ROOT), ptxas=ptxas)
+    counters = ([scd_solve] + list(enc.values()) + list(dec.values())
+                + [topk_select, bmv.batched_matvec, bmv.batched_vecmat])
 
     # -- data and the first trainer at the slice's size -----------------
     t0 = time.perf_counter()
@@ -1075,8 +1412,6 @@ def main(argv=None) -> int:
                          "kernels_vs_plain_long line)")
 
     # -- 3. the main paths ----------------------------------------------
-    counters = ([scd_solve] + list(enc.values()) + list(dec.values())
-                + [topk_select, bmv.batched_matvec, bmv.batched_vecmat])
 
     def plans_of(tr, c):
         """The plans K1 and the path's codec kernels took on ``tr``."""
@@ -2110,6 +2445,12 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: the small sweep's card and CPU runs "
                          "disagree (see the tradeoff_card_vs_cpu line)")
 
+    # -- 10. the transformer local-updates path: tinyllama on K shards --
+    t10 = time.perf_counter()
+    lm_entries = transformer_phase(torch, counters)
+    emit(phase="transformer", seconds=time.perf_counter() - t10,
+         paths=[label for label, *_ in LM_PATHS])
+
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the
     # baselines' (which never launch K1)
@@ -2181,6 +2522,10 @@ def main(argv=None) -> int:
                             if n_l else "not on the sharded paths")
         # phase 9: launches over the sweep_H call at the main shape
         entry["tradeoff_launches"] = sweep_launches[name]
+        # phase 10: launches over the local-updates paths that run it, and
+        # its times at the largest leaf of that path's model
+        entry["transformer"] = lm_entries.get(
+            name, "not on the transformer paths")
     by_key["scd_solve"]["tradeoff_device_ms_by_H"] = {
         str(H_): t for H_, t in k1_by_H.items()}
     print(json.dumps({"kernels": kernels}), flush=True)

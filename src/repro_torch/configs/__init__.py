@@ -1,0 +1,5 @@
+"""Model configs: the port of ``repro.configs`` (tinyllama so far)."""
+from repro_torch.configs.base import (EncDecConfig, MLAConfig,  # noqa: F401
+                                      ModelConfig, MoEConfig, padded_vocab)
+from repro_torch.configs.registry import (ARCHS, PENDING,  # noqa: F401
+                                          get_config, list_archs)

@@ -1,0 +1,38 @@
+"""Architecture registry: --arch <id> -> ModelConfig.
+
+The reference knows ten architectures (``repro.configs.registry``); the
+port has the configs of those it can train. The others are named, so
+that asking for one says where it stands instead of calling it unknown.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama",
+}
+
+# the reference's other architectures, not ported yet
+PENDING = ("llama4-maverick-400b-a17b", "qwen2-vl-72b", "deepseek-v3-671b",
+           "chatglm3-6b", "nemotron-4-15b", "recurrentgemma-9b",
+           "whisper-tiny", "mamba2-2.7b", "command-r-35b")
+
+ARCHS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch in PENDING:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ROADMAP.md, Queue 1 item 12: "
+            f"MoE / MLA / RG-LRU / SSD / whisper and the other configs); "
+            f"ported: {list(ARCHS)}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{list(ARCHS) + list(PENDING)}")
+    return importlib.import_module(_MODULES[arch]).CONFIG
+
+
+def list_archs() -> list[str]:
+    return list(ARCHS)

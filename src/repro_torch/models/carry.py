@@ -1,0 +1,68 @@
+"""Carry a model's parameters between the reference and the port.
+
+The reference's param tree, as ``jax.device_get(model.init(key))`` gives
+it, is a nested dict (and list) of numpy arrays; its bf16 leaves have
+``ml_dtypes``' bfloat16 dtype, which PyTorch cannot read directly, so
+they cross as their 16-bit patterns. Both directions keep every bit and
+the tree's structure (the ``prologue`` list and the stacked ``stack``
+slots included), so leaves, their order and their checkpoint keys are
+the same in both packages.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.models.transformer import _period, layer_plan
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.trees import tree_map
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """One leaf: a numpy array (bf16 by its bit pattern) as a tensor of
+    the same dtype on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One leaf back: bf16 as an ``ml_dtypes.bfloat16`` array (the
+    package the reference's arrays come with)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_reference(np_tree, cfg: ModelConfig | None = None, *,
+                          device=None):
+    """The reference's param tree (numpy leaves) as the port's tensors on
+    ``device`` (the card by default). With ``cfg``, the tree must hold
+    the reference's leaves for it: the embedding's and every stacked
+    slot's shapes are checked."""
+    dev = resolve_device(device)
+    if cfg is not None:
+        n_cycles = len(layer_plan(cfg)) // _period(cfg)
+        want = (padded_vocab(cfg), cfg.d_model)
+        got = tuple(np.shape(np_tree["embed"]))
+        if got != want:
+            raise ValueError(f"params_from_reference: embed is {got}, "
+                             f"{cfg.name} has {want}")
+        for slot in np_tree["stack"]:
+            lead = np.shape(slot["mixer_norm"]["scale"])[0]
+            if lead != n_cycles:
+                raise ValueError(f"params_from_reference: a slot stacks "
+                                 f"{lead} layers, {cfg.name} has "
+                                 f"{n_cycles}")
+    return tree_map(lambda a: tensor_from_numpy(a, dev), np_tree)
+
+
+def params_to_reference(params):
+    """The inverse of ``params_from_reference``: numpy leaves, bf16 as
+    ``ml_dtypes.bfloat16``."""
+    return tree_map(tensor_to_numpy, params)

@@ -1,0 +1,160 @@
+"""Decoder-only LM over the dense block: the port of
+``repro.models.transformer`` (``layer_plan``, ``_period``, ``init_lm``,
+``embed_inputs``, ``forward`` over a whole sequence, ``unembed``).
+
+A *layer* is a (mixer, channel) pair with pre-norm residuals. Layers are
+stored STACKED per pattern slot, as in the reference: ``params["stack"]
+[s]`` holds slot ``s`` of every layer cycle, each leaf with a leading
+axis of ``n_cycles``, so that the leaves (and so the delta exchange's
+codec scales and ``delta_wire_bytes``) are the reference's. The forward
+indexes each cycle's layer out of the stack in a Python loop (the
+reference's ``lax.scan``); ``remat=True`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), keeping only its input.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.models import layers as L
+from repro_torch.utils.trees import tree_map
+
+
+def layer_plan(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """[(mixer, channel)] for every layer."""
+    plan = []
+    pat = cfg.block_pattern
+    for i in range(cfg.num_layers):
+        mixer = pat[i % len(pat)]
+        if mixer == "ssd":
+            channel = "none"
+        elif cfg.moe is not None and i >= cfg.moe.first_k_dense:
+            channel = "moe"
+        else:
+            channel = "mlp"
+        if cfg.mla is not None and mixer == "attn":
+            mixer = "mla"
+        plan.append((mixer, channel))
+    return plan
+
+
+def _period(cfg: ModelConfig) -> int:
+    """Smallest cycle after which the (mixer, channel) plan repeats."""
+    plan = layer_plan(cfg)
+    base = len(cfg.block_pattern)
+    k = cfg.moe.first_k_dense if cfg.moe else 0
+    body = plan[k:]
+    p = base
+    while any(body[i] != body[i % p] for i in range(len(body))):
+        p += base
+    return p
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 12: MoE, MLA, "
+        f"RG-LRU, SSD and whisper follow the dense block)")
+
+
+def _init_layer(gen, cfg, mixer, channel, dtype, lead):
+    if mixer not in ("attn", "attn_local"):
+        raise _unported(f"mixer {mixer!r}")
+    if channel not in ("mlp", "none"):
+        raise _unported(f"channel {channel!r}")
+    p = {"mixer_norm": L.norm_init(cfg.d_model, cfg.norm, lead=lead,
+                                   device=L._device(gen)),
+         "mixer": L.init_attention(gen, cfg, dtype, lead=lead)}
+    if channel == "mlp":
+        p["channel"] = L.init_mlp(gen, cfg, dtype=dtype, lead=lead)
+        p["channel_norm"] = L.norm_init(cfg.d_model, cfg.norm, lead=lead,
+                                        device=L._device(gen))
+    return p
+
+
+def _apply_layer(p, cfg, mixer, channel, x, positions):
+    h_in = L.apply_norm(p["mixer_norm"], x, cfg.norm)
+    local = mixer == "attn_local" or cfg.sliding_window is not None
+    h = L.attention_apply(p["mixer"], cfg, h_in, positions, local=local)
+    if cfg.parallel_block and channel != "none":
+        return x + h + L.mlp_apply(p["channel"], cfg, h_in)
+    x = x + h
+    if channel == "mlp":
+        x = x + L.mlp_apply(p["channel"], cfg,
+                            L.apply_norm(p["channel_norm"], x, cfg.norm))
+    return x
+
+
+def init_lm(gen: torch.Generator | None, cfg: ModelConfig,
+            dtype=torch.bfloat16):
+    """Random params on ``gen``'s device, in the reference's tree: the
+    leaves of each slot drawn stacked, ``(n_cycles, ...)``. With no
+    generator, on PyTorch's default generator and device (under
+    ``torch.device("meta")``, the tree's shapes without allocating)."""
+    if cfg.moe is not None or cfg.mtp_depth > 0:
+        raise _unported("MoE / multi-token prediction")
+    v = padded_vocab(cfg)
+    period = _period(cfg)
+    plan = layer_plan(cfg)
+    n_cycles = len(plan) // period
+    params: dict[str, Any] = {
+        "embed": (L._randn(gen, (v, cfg.d_model)) * 0.02).to(dtype),
+        "final_norm": L.norm_init(cfg.d_model, cfg.norm,
+                                  device=L._device(gen)),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = (L._randn(gen, (cfg.d_model, v))
+                             / np.sqrt(cfg.d_model)).to(dtype)
+    params["prologue"] = []
+    params["stack"] = [_init_layer(gen, cfg, *plan[s], dtype, (n_cycles,))
+                       for s in range(period)]
+    return params
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: dict):
+    """Token embedding; returns (x, positions (B, S) int32)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+    return x, positions
+
+
+def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "full",
+            remat: bool = False):
+    """Full-sequence forward. Returns (logits f32, aux_loss)."""
+    if mode != "full":
+        raise NotImplementedError("forward: only mode='full' is ported; "
+                                  "decode waits for the serving slice")
+    if params["prologue"]:
+        raise _unported("a prologue of dense layers (MoE)")
+    plan = layer_plan(cfg)
+    period = _period(cfg)
+    n_cycles = len(plan) // period
+    x, positions = embed_inputs(params, cfg, batch)
+    for c in range(n_cycles):
+        for s in range(period):
+            lp = tree_map(lambda a: a[c], params["stack"][s])
+            if remat:
+                x = checkpoint(_apply_layer, lp, cfg, *plan[s], x, positions,
+                               use_reentrant=False)
+            else:
+                x = _apply_layer(lp, cfg, *plan[s], x, positions)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params, cfg, x), aux
+
+
+def unembed(params, cfg: ModelConfig, x):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    logits = (x @ w).float()
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits

@@ -1,0 +1,35 @@
+"""Language-model losses: the port of ``repro.train.loss`` (cross-entropy
+with a z-loss over the positions whose label is not -100)."""
+from __future__ import annotations
+
+import torch
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss_coef: float = 1e-4):
+    """Mean next-token CE over valid positions; labels = -100 masked.
+    Returns (loss, metrics)."""
+    valid = labels >= 0
+    labels_safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels_safe[..., None])[..., 0] - logz
+    n = torch.clamp(valid.sum(), min=1)
+    ce = -(ll * valid).sum() / n
+    zl = z_loss_coef * ((logz ** 2) * valid).sum() / n
+    acc = ((logits.argmax(-1) == labels_safe) & valid).sum() / n
+    return ce + zl, {"ce": ce, "z_loss": zl, "accuracy": acc}
+
+
+def lm_loss(model, params, batch, *, z_loss_coef: float = 1e-4,
+            remat: bool = False):
+    """Full train loss of a dense decoder. batch needs tokens + labels
+    (labels already shifted; -100 = ignore)."""
+    if model.cfg.mtp_depth > 0:
+        raise NotImplementedError("lm_loss: multi-token prediction is not "
+                                  "ported yet (ROADMAP.md)")
+    logits, aux = model.forward_train(params, batch, remat=remat)
+    loss, metrics = softmax_xent(logits, batch["labels"], z_loss_coef)
+    loss = loss + aux
+    metrics["aux_loss"] = aux
+    metrics["loss"] = loss
+    return loss, metrics

@@ -1,0 +1,78 @@
+"""Train-step factory: the port of ``repro.train.step`` (loss + grad +
+AdamW, with optional per-layer remat and gradient accumulation over
+microbatches). A step never synchronises gradients: the local-update
+rounds (``repro_torch.optim.local_updates``) exchange parameter deltas
+instead, and the reference's ``grad_sync_axis`` belongs to its
+``shard_map`` driver, which the port does not have for this workload
+yet.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.train.loss import lm_loss
+from repro_torch.utils.trees import tree_leaves, tree_unflatten
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A host batch (numpy arrays) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
+                    schedule: Callable | None = None,
+                    microbatch: int | None = None):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics), all tensors on the params' device (no host sync).
+
+    remat: checkpoint each layer (the reference's per-layer-cycle
+    policy). microbatch: gradient-accumulate over N sequential
+    microbatches (the batch's leading dim split N ways), in f32.
+    schedule(step_no) -> lr scale; the cosine schedule by default.
+    """
+    def grads_of(params, batch):
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = lm_loss(model, tree_unflatten(params, live),
+                                    batch, remat=remat)
+            grads = torch.autograd.grad(loss, live)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return loss.detach(), metrics, list(grads)
+
+    def step(params, opt_state, batch):
+        if microbatch and microbatch > 1:
+            mbs = [{k: v.reshape(microbatch, v.shape[0] // microbatch,
+                                 *v.shape[1:])[i] for k, v in batch.items()}
+                   for i in range(microbatch)]
+            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)
+                     for p in tree_leaves(params)]
+            ms = []
+            for b in mbs:
+                loss, metrics, g = grads_of(params, b)
+                g_acc = [a + gg.to(a.dtype)
+                         / torch.full_like(a, float(microbatch))
+                         for a, gg in zip(g_acc, g)]
+                metrics["loss"] = loss
+                ms.append(metrics)
+            metrics = {k: torch.mean(torch.stack([m[k] for m in ms]).float(),
+                                     dim=0) for k in ms[0]}
+            grads = g_acc
+        else:
+            _, metrics, grads = grads_of(params, batch)
+        grads = tree_unflatten(params, grads)
+        step_no = opt_state["count"] + 1
+        lr_scale = (schedule(step_no) if schedule is not None
+                    else cosine_schedule(step_no))
+        params, opt_state, om = adamw_update(params, grads, opt_state,
+                                             opt_cfg, lr_scale)
+        metrics = dict(metrics)
+        metrics.update(om)
+        metrics["lr_scale"] = lr_scale
+        return params, opt_state, metrics
+
+    return step

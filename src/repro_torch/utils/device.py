@@ -35,9 +35,15 @@ def on_cuda() -> bool:
 
 
 def full_f32_matmul() -> None:
-    """Keep float32 matrix products in full float32 on the card. TF32
-    keeps about three decimal digits, far too few for ``p_star`` and the
-    primal metric, which are compared with the reference at rtol 1e-5.
-    PyTorch's default is already off; it is set here explicitly because
-    any caller in the process may have turned it on."""
+    """Keep matrix products' sums in full float32 on the card.
+
+    TF32 keeps about three decimal digits, far too few for ``p_star`` and
+    the primal metric, which are compared with the reference at rtol
+    1e-5. And a bf16 product (the transformer's weights) may let cuBLAS
+    reduce in bf16 (``allow_bf16_reduced_precision_reduction``, on by
+    default): the reference accumulates its bf16 dots in f32, so the port
+    turns that off. PyTorch's TF32 default is already off; both are set
+    here explicitly because any caller in the process may have turned
+    them on."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -1086,3 +1086,96 @@ def test_small_sweep_on_card_equals_cpu(cuda):
             == [p.rounds_to_eps for p in want.points])
     assert all(p.rounds_to_eps is not None for p in want.points)
     assert got.comm_bytes_per_round == want.comm_bytes_per_round
+
+
+# -- the transformer local-updates path (tinyllama) ----------------------
+
+# tinyllama's largest leaf: the stacked w_up / w_gate of its 22 layers
+TINYLLAMA_LARGEST = 22 * 2048 * 5632
+
+
+@pytest.mark.parametrize("codec", ["int8", "ef:topk(r=0.01)"])
+def test_exchange_at_the_largest_tinyllama_leaf(cuda, codec):
+    """The delta exchange of one (4, 253,755,392) leaf through the
+    kernels (K2 and K3, or K4 and the topk decode) against the plain
+    versions on the same stack: the parts, the mean and the residual
+    bit for bit, one launch of each kernel."""
+    from repro_torch.kernels import dequant, quant, topk
+    from repro_torch.optim.local_updates import exchange_leaf
+    K, L = 4, TINYLLAMA_LARGEST
+    g = torch.Generator(device=cuda).manual_seed(0)
+    stack = torch.randn((K, L), generator=g, device=cuda) * 1e-3
+    c = get_codec(codec)
+    state = (torch.randn((K, L), generator=g, device=cuda) * 1e-5
+             if c.stateful else None)
+    fns = ((topk.topk_select,) if "topk" in codec else
+           (quant.quantize_pack_int8, dequant.decode_reduce_int8))
+    before = [f.launches for f in fns]
+    mean, new_state, parts = exchange_leaf(c, stack, state)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1] * len(fns)
+    e = stack if state is None else stack + state
+    want = c.encode_ref(e)
+    for a, b in zip(parts, want):
+        assert torch.equal(_bits(a), _bits(b))
+    del want
+    if "topk" in codec:
+        want_mean = c.decode_stacked_mean(parts, L)
+    else:
+        want_mean = c.decode_reduce_ref(parts, L, mean=True)
+    assert torch.equal(_bits(mean), _bits(want_mean))
+    if state is not None:
+        want_state = e - c.decode_stacked(parts, L)
+        assert torch.equal(_bits(new_state), _bits(want_state))
+
+
+def test_one_full_width_round_launches_and_bytes(cuda):
+    """One K = 4 round of tinyllama at full width (H = 1, batch 1, seq
+    64) under ``compressed:int8``: K2 and K3 once a leaf (12 leaves), no
+    other kernel, the exchange's bytes equal to ``delta_wire_bytes``,
+    every param finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dequant, quant, topk
+    from repro_torch.models import build_model
+    from repro_torch.optim import (AdamWConfig, LocalUpdatesConfig,
+                                   adamw_init, delta_wire_bytes,
+                                   virtual_round)
+    from repro_torch.train import make_train_step
+    from repro_torch.utils.trees import tree_allfinite, tree_leaves
+    from repro_torch.utils.device import full_f32_matmul
+    full_f32_matmul()
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    lc = LocalUpdatesConfig(H=1, codec="int8")
+    tok = torch.randint(0, cfg.vocab_size, (4, 1, 1, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    batches = {"tokens": tok, "labels": tok}
+    fns = [quant.quantize_pack_int8, dequant.decode_reduce_int8,
+           quant.quantize_pack_int4, quant.quantize_pack_int2,
+           dequant.decode_reduce_int4, dequant.decode_reduce_int2,
+           topk.topk_select]
+    before = [f.launches for f in fns]
+    p, _, m = virtual_round(make_train_step(model, opt_cfg, remat=True),
+                            params, adamw_init(params, opt_cfg), batches, lc)
+    torch.cuda.synchronize()
+    n = len(tree_leaves(params))
+    assert n == 12
+    assert [f.launches - b for f, b in zip(fns, before)] == [n, n] + [0] * 5
+    assert m["wire_bytes"] == delta_wire_bytes(params, lc, 4)
+    assert bool(tree_allfinite(p))
+
+
+def test_launch_train_reduced_runs_on_the_card(cuda, capsys, tmp_path):
+    """``python -m repro_torch.launch.train --reduced`` with local rounds
+    under ``compressed:int8`` and a checkpoint, on the card by default."""
+    from repro_torch.launch import train
+    ckpt = str(tmp_path / "ck.npz")
+    train.main(["--reduced", "--steps", "4", "--batch", "2", "--seq", "64",
+                "--local-H", "2", "--exchange", "compressed:int8",
+                "--ckpt", ckpt])
+    out = capsys.readouterr().out
+    assert "round 1 (H=2)" in out and "saved" in out
+    import os
+    assert os.path.exists(ckpt) and os.path.exists(ckpt + ".meta.json")

@@ -41,7 +41,11 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.analysis.traffic" in mods
     assert "repro_torch.comm.collectives" in mods
     for name in ("bench.timing", "core.tradeoff", "core.overheads",
-                 "examples.quickstart", "examples.tune_h"):
+                 "examples.quickstart", "examples.tune_h",
+                 "configs.registry", "models.transformer", "models.carry",
+                 "optim.local_updates", "train.step", "checkpoint.np_ckpt",
+                 "data.tokens", "utils.trees", "launch.train",
+                 "examples.train_lm"):
         assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -86,6 +90,12 @@ def test_entry_points_raise_without_a_card():
         MinibatchSCD(CoCoAConfig(K=2, H=2), A, b)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MinibatchSGD(SGDConfig(K=2), A, b)
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--steps", "1"])
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):
