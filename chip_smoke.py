@@ -186,7 +186,26 @@ JSON line:
      events and device time at the largest leaf beside its byte bound,
      its plain version and (K4) ``torch.topk``, a ``torch.profiler`` trace
      of one local step (the top kernels, the matrix products' share, the
-     busy share), and the peak memory.
+     busy share), and the peak memory;
+  11. serving (``repro_torch.serve.greedy_generate``) at full width,
+     random bf16 params (seed 0), seeded prompts over the whole vocab:
+     tinyllama-1.1b (22 layers, B = 8, prompt 512, 64 new tokens) and
+     nemotron-4-15b (arXiv:2402.16819: 32 layers, d_model 6144, 48/8
+     heads, d_ff 24,576, vocab 256,000; B = 8, prompt 512, 32 new), the
+     launch counters set to 0 just before each and read just after
+     (none of K1-K4 or ``bmv`` may launch). Checks: the prefill's logits
+     equal ``forward_train``'s; every decoded position's log-softmax
+     within 0.15 of the full forward over the prompt and the ids before
+     it (teacher forcing), and each id its argmax where that forward's
+     top-two gap exceeds 0.15; each row's ``pos_abs`` 0 ... S + n - 2;
+     the cache bytes B T (2 L KV Dh 2 + 4 L). Printed beside their
+     bounds: prefill ms and decode ms a step (median and max after the
+     first; CUDA events), tokens/s, parameter and cache bytes, peak
+     memory over init, prefill and decode, and ``torch.profiler``
+     traces of 5 decode steps and of one prefill (kernels, busy share,
+     matrix products' device time, top kernels);
+     then the three archs at ``.reduced()`` in f32 on the same params on
+     the card and on the CPU: equal greedy ids, logits at rtol 1e-4.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -211,10 +230,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # reports it, to split its start-up time)
 LOADED_AT = time.time()
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# f32 operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# f32 operations/s outside the tensor cores, dense bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # the paths phase 3 drives, and the codec whose kernels each launches
 TOPK_R = 0.125
@@ -306,6 +326,16 @@ LM_PATHS = (("f32", "f32", None, 3),
             ("compressed:int8", "int8", None, 3),
             ("compressed:ef:topk(r=0.01)", "ef:topk(r=0.01)", None, 2))
 LM_REPS = 3
+# the serving phase (11): greedy generation through
+# repro_torch.serve.greedy_generate at full width, random bf16 params
+# (seed 0) and seeded prompts over the whole vocab. Paths: (arch, batch,
+# prompt, new tokens); all layers. command-r-35b's bf16 weights (60.6 GB)
+# and its f32 init draw do not fit beside them: ROADMAP follow-up
+SERVE_PATHS = (("tinyllama-1.1b", 8, 512, 64), ("nemotron-4-15b", 8, 512, 32))
+SERVE_TF_TOL = 0.15          # tests/test_models_smoke.py's decode bound
+SERVE_TRACE_STEPS = 5
+# the small card-vs-CPU run: the ported archs at .reduced() in f32
+SERVE_SMALL = (4, 24, 12)
 # device_trace's guard on each side of the traced window: marker
 # kernels (``torch.cuda._sleep``, named "spin_kernel"), left out of every
 # sum. A profiler session in a process that has traced before loses its
@@ -436,8 +466,9 @@ def dot_bound(n: int) -> float:
     return 2 * n * u / (1 - n * u)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1044,6 +1075,274 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
         del params, opt, state, out, step, model
         free(torch)
     return entries
+
+
+class ServeRecorder:
+    """The ``Model`` interface ``greedy_generate`` calls, delegated to
+    ``model``, keeping the states it allocates, the last row of the
+    prefill's logits (a copy: not the whole (B, S, V) block) and each
+    decode step's logits and, with ``events``, CUDA events around the
+    prefill and each step. ``cache_dtype`` replaces the states' default
+    bf16."""
+
+    def __init__(self, torch, model, events: bool, cache_dtype=None):
+        self.torch, self.model, self.events = torch, model, events
+        self.cache_dtype = cache_dtype
+        self.states, self.prefill_last, self.step_logits = None, None, []
+        self.marks = []
+
+    def _event(self):
+        if not self.events:
+            return None
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def init_states(self, params, B, max_len, batch=None):
+        kw = {} if self.cache_dtype is None else {"dtype": self.cache_dtype}
+        self.states = self.model.init_states(params, B, max_len, batch, **kw)
+        return self.states
+
+    def prefill(self, params, batch, states):
+        start = self._event()
+        logits, states = self.model.prefill(params, batch, states)
+        self.marks.append((start, self._event()))
+        self.prefill_last = logits[:, -1:].clone()
+        return logits, states
+
+    def decode_step(self, params, batch, states):
+        start = self._event()
+        logits, states = self.model.decode_step(params, batch, states)
+        self.marks.append((start, self._event()))
+        self.step_logits.append(logits)
+        return logits, states
+
+    def logits(self):
+        """The prefill's last row and every step's, (B, steps + 1, V)."""
+        return self.torch.cat([self.prefill_last] + self.step_logits, dim=1)
+
+    def ms(self):
+        return [a.elapsed_time(b) for a, b in self.marks]
+
+
+def dense_products(cfg, tokens: int) -> tuple[float, float]:
+    """The bf16 matrix products of a forward over ``tokens`` positions:
+    (flops, bytes), each weight, input and output read or written once
+    (the attention's score products run in f32 and are not counted)."""
+    from repro_torch.configs import padded_vocab
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    layer = [(d, H * Dh), (d, KV * Dh), (d, KV * Dh), (H * Dh, d),
+             (d, cfg.d_ff), (cfg.d_ff, d)]
+    if cfg.mlp_gated:
+        layer.append((d, cfg.d_ff))
+    shapes = layer * cfg.num_layers + [(d, padded_vocab(cfg))]
+    flops = sum(2 * tokens * a * b for a, b in shapes)
+    nbytes = sum(2 * (tokens * a + a * b + tokens * b) for a, b in shapes)
+    return flops, nbytes
+
+
+def serve_phase(torch, counters, device="cuda") -> None:
+    """Phase 11: each path of ``SERVE_PATHS`` through ``greedy_generate``
+    with the launch counters set to 0 just before and read just after,
+    its checks, its times beside their bounds and traces of
+    ``SERVE_TRACE_STEPS`` decode steps and of a prefill; then the small
+    card-vs-CPU run."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_config, padded_vocab
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_bytes, tree_map, tree_params
+
+    full_f32_matmul()
+    for arch, B, S, n in SERVE_PATHS:
+        t0 = time.perf_counter()
+        free(torch)
+        held_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        prompts = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, S)), dtype=torch.int32).to(device)
+        # a warm-up call: the first of each kernel loads its module
+        greedy_generate(model, params, prompts, max_new=2)
+        rec = ServeRecorder(torch, model, events=True)
+        for fn in counters:
+            fn.launches = 0
+        h0 = time.perf_counter()
+        ids = greedy_generate(rec, params, prompts, max_new=n)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - h0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated()
+        ms = rec.ms()
+        prefill_ms, step_ms = ms[0], ms[1:]
+        steady = step_ms[1:] or step_ms
+
+        with torch.inference_mode():
+            # 1. the prefill's logits (the same call on the same prompts,
+            # into new states) against forward_train's
+            full, _ = model.prefill(params, {"tokens": prompts},
+                                    model.init_states(params, B, S + n))
+            train, _ = model.forward_train(params, {"tokens": prompts})
+            prefill_diff = max_err(full, train)
+            del full, train
+            # 2-3. every decoded position against teacher forcing: the
+            # full forward over the prompt and the ids before it
+            seq = torch.cat([prompts, ids[:, :-1]], dim=1)
+            tf, _ = model.forward_train(params, {"tokens": seq})
+            tf = torch.log_softmax(tf[:, S - 1:], dim=-1)
+            got = torch.log_softmax(rec.logits(), dim=-1)
+            tf_err = max_err(got, tf)
+            tf_err_by_pos = (got - tf).abs().amax(dim=(0, 2)).tolist()
+            top2 = tf.topk(2, dim=-1).values
+            sure = (top2[..., 0] - top2[..., 1]) > SERVE_TF_TOL
+            argmax_ok = bool((ids == tf.argmax(-1).to(torch.int32))[sure]
+                             .all())
+            del tf, got
+        # 4. each row's positions: 0 ... S + n - 2, the last slot empty
+        want_pos = torch.cat([torch.arange(S + n - 1, dtype=torch.int32),
+                              torch.tensor([-1], dtype=torch.int32)])
+        pos_ok = all(bool((st["pos_abs"].cpu() == want_pos).all())
+                     for st in rec.states)
+        L_, T_ = cfg.num_layers, S + n
+        cache_bytes = tree_bytes(rec.states)
+        want_cache = (B * T_ * 2 * L_ * cfg.num_kv_heads * cfg.head_dim * 2
+                      + B * T_ * 4 * L_)
+        param_bytes = tree_bytes(params)
+        embed_bytes = tree_bytes(params["embed"])
+        # decode: every weight byte but the embedding table (a step
+        # gathers B rows of it; read whole where it is also the
+        # unembedding), and the whole cache, which a step reads
+        read = (param_bytes - (0 if cfg.tie_embeddings else embed_bytes)
+                + B * cfg.d_model * 2 + cache_bytes)
+        decode_bound = bound_ms(read, dense_products(cfg, B)[0],
+                                BF16_FLOPS_PER_S)
+        pre_flops, pre_bytes = dense_products(cfg, B * S)
+        prefill_bound = bound_ms(pre_bytes, pre_flops, BF16_FLOPS_PER_S)
+        # 5 decode steps more, traced, writing on past the last slot
+        # (positions wrap in the cache; the checks are done)
+        step = lambda t: model.decode_step(       # noqa: E731
+            params, {"tokens": ids[:, -1:], "positions": torch.full(
+                (B, 1), t, dtype=torch.int32, device=device)}, rec.states)
+
+        def steps():
+            with torch.inference_mode():
+                for t in range(SERVE_TRACE_STEPS):
+                    step(S + n - 1 + t)
+
+        trace = device_trace(torch, steps)
+        kern = trace.get("kernels", {})
+        n_kern = sum(v["calls"] for v in kern.values())
+        # and one prefill, into new states
+        st = model.init_states(params, B, S + n)
+
+        def prefill():
+            with torch.inference_mode():
+                model.prefill(params, {"tokens": prompts}, st)
+
+        p_trace = device_trace(torch, prefill)
+        p_kern = p_trace.get("kernels", {})
+        del st
+        median = float(np.median(steady))
+        checks = dict(
+            prefill_equals_forward_train=prefill_diff == 0.0,
+            decode_vs_teacher_forcing=tf_err < SERVE_TF_TOL,
+            ids_are_teacher_forced_argmax=argmax_ok,
+            pos_abs=pos_ok, cache_bytes=cache_bytes == want_cache,
+            no_kernel_launched=not any(launches.values()) and not any(
+                fn.launches for fn in counters),
+            shape=tuple(ids.shape) == (B, n) and ids.dtype == torch.int32)
+        line = dict(
+            arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+            heads=[cfg.num_heads, cfg.num_kv_heads], d_ff=cfg.d_ff,
+            vocab=padded_vocab(cfg), params=tree_params(params),
+            batch=B, prompt=S, max_new=n, checks=checks,
+            prefill_max_abs_diff_vs_forward_train=prefill_diff,
+            teacher_forcing_max_abs_logsoftmax_err=tf_err,
+            teacher_forcing_err_by_position=tf_err_by_pos,
+            positions_with_top2_gap_over_tol=int(sure.sum()),
+            positions=int(sure.numel()),
+            prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound[0],
+            prefill_bound_by=prefill_bound[1],
+            prefill_bf16_tflop=pre_flops / 1e12,
+            decode_ms_median=median, decode_ms_max=float(max(steady)),
+            decode_ms_first=step_ms[0],
+            decode_ms_by_step=step_ms,
+            decode_bound_ms=decode_bound[0], decode_bound_by=decode_bound[1],
+            decode_bytes_read=read,
+            decode_tokens_per_s=B / median * 1e3,
+            generate_seconds_host=generate_s,
+            param_bytes=param_bytes, cache_bytes=cache_bytes,
+            cache_bytes_formula=want_cache,
+            max_memory_allocated=peak, init_peak_memory=init_peak,
+            memory_allocated_before=held_before, init_seconds=init_s,
+            launches=launches, sample_ids=ids[0, :16].tolist(),
+            decode_trace=dict(
+                steps=SERVE_TRACE_STEPS,
+                kernels_per_step=n_kern / SERVE_TRACE_STEPS,
+                window_ms=trace["window_ms"],
+                busy_share_of_window=trace.get("busy_share_of_window"),
+                device_busy_ms_per_step=(
+                    trace["device_busy_ms"] / SERVE_TRACE_STEPS
+                    if "device_busy_ms" in trace else "not measured"),
+                gemm_ms_per_step=sum(
+                    v["device_ms"] for k_, v in kern.items()
+                    if any(g in k_.lower() for g in LM_GEMM))
+                / SERVE_TRACE_STEPS,
+                top=dict(list(kern.items())[:8]), guard=trace["guard"]),
+            prefill_trace=dict(
+                kernels=sum(v["calls"] for v in p_kern.values()),
+                window_ms=p_trace["window_ms"],
+                busy_share_of_window=p_trace.get("busy_share_of_window"),
+                device_busy_ms=p_trace.get("device_busy_ms", "not measured"),
+                gemm_ms=sum(v["device_ms"] for k_, v in p_kern.items()
+                            if any(g in k_.lower() for g in LM_GEMM)),
+                top=dict(list(p_kern.items())[:5]), guard=p_trace["guard"]))
+        phase_done(torch, "serve_path", t0, **line)
+        if not all(checks.values()):
+            raise SystemExit(f"chip_smoke: serving {arch} failed a check "
+                             f"{checks} (see its serve_path line)")
+        del params, rec, ids, prompts, trace, p_trace
+        free(torch)
+
+    # the small run: the same f32 params, and f32 caches, on the card
+    # and on the CPU
+    t0 = time.perf_counter()
+    B, S, n = SERVE_SMALL
+    small = {}
+    for arch in ARCHS:
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), torch.float32)
+        prompts = torch.tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (B, S)), dtype=torch.int32)
+        runs = {}
+        for dev in (device, "cpu"):
+            rec = ServeRecorder(torch, model, events=False,
+                                cache_dtype=torch.float32)
+            ids = greedy_generate(rec, tree_map(lambda a: a.to(dev), params),
+                                  prompts.to(dev), max_new=n)
+            runs[dev] = (ids.cpu(), rec.logits().cpu())
+        (ids_d, lg_d), (ids_c, lg_c) = runs[device], runs["cpu"]
+        scale = float(lg_c.abs().max())
+        err = max_err(lg_d, lg_c)
+        small[arch] = dict(
+            ids_equal=bool(torch.equal(ids_d, ids_c)), max_abs_err=err,
+            largest_logit=scale,
+            close=bool(torch.allclose(lg_d, lg_c, rtol=1e-4,
+                                      atol=1e-5 * scale)))
+    phase_done(torch, "serve_card_vs_cpu", t0, batch=B, prompt=S,
+               max_new=n, dtype="float32", archs=small,
+               tolerance="rtol 1e-4, atol 1e-5 of the largest logit")
+    if not all(v["ids_equal"] and v["close"] for v in small.values()):
+        raise SystemExit("chip_smoke: reduced serving on the card and on "
+                         "the CPU disagree (see the serve_card_vs_cpu line)")
 
 
 def main(argv=None) -> int:
@@ -2450,6 +2749,13 @@ def main(argv=None) -> int:
     lm_entries = transformer_phase(torch, counters)
     emit(phase="transformer", seconds=time.perf_counter() - t10,
          paths=[label for label, *_ in LM_PATHS])
+
+    # -- 11. serving: greedy generation at full width -----------------
+    t11 = time.perf_counter()
+    free(torch)
+    serve_phase(torch, counters)
+    emit(phase="serve", seconds=time.perf_counter() - t11,
+         paths=[arch for arch, *_ in SERVE_PATHS])
 
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the

@@ -1,4 +1,4 @@
-"""Model configs: the port of ``repro.configs`` (tinyllama so far)."""
+"""Model configs: the port of ``repro.configs`` (the dense family so far)."""
 from repro_torch.configs.base import (EncDecConfig, MLAConfig,  # noqa: F401
                                       ModelConfig, MoEConfig, padded_vocab)
 from repro_torch.configs.registry import (ARCHS, PENDING,  # noqa: F401

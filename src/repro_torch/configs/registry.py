@@ -1,8 +1,9 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
 The reference knows ten architectures (``repro.configs.registry``); the
-port has the configs of those it can train. The others are named, so
-that asking for one says where it stands instead of calling it unknown.
+port has the configs of the dense ones it trains and serves. The others
+are named, so that asking for one says where it stands instead of
+calling it unknown.
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama",
+    "nemotron-4-15b": "repro_torch.configs.nemotron4",
+    "command-r-35b": "repro_torch.configs.command_r",
 }
 
 # the reference's other architectures, not ported yet
 PENDING = ("llama4-maverick-400b-a17b", "qwen2-vl-72b", "deepseek-v3-671b",
-           "chatglm3-6b", "nemotron-4-15b", "recurrentgemma-9b",
-           "whisper-tiny", "mamba2-2.7b", "command-r-35b")
+           "chatglm3-6b", "recurrentgemma-9b", "whisper-tiny", "mamba2-2.7b")
 
 ARCHS = tuple(_MODULES)
 

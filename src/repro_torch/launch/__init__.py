@@ -1,2 +1,2 @@
-"""Start the sharded driver's processes: the port of ``repro.launch``
-(its multi-process entry, ``dist``)."""
+"""Entry points: the port of ``repro.launch`` (``train``, ``serve``, and
+the sharded driver's multi-process entry, ``dist``)."""

@@ -1,4 +1,5 @@
-"""Carry a model's parameters between the reference and the port.
+"""Carry a model's parameters, and its decode states, between the
+reference and the port.
 
 The reference's param tree, as ``jax.device_get(model.init(key))`` gives
 it, is a nested dict (and list) of numpy arrays; its bf16 leaves have
@@ -66,3 +67,19 @@ def params_to_reference(params):
     """The inverse of ``params_from_reference``: numpy leaves, bf16 as
     ``ml_dtypes.bfloat16``."""
     return tree_map(tensor_to_numpy, params)
+
+
+def states_from_reference(np_states, device=None) -> list:
+    """The reference's per-layer decode states (a list of ``{k, v,
+    pos_abs}`` dicts of numpy arrays, as ``jax.device_get`` gives them)
+    as the port's tensors on ``device`` (the card by default), every bit
+    kept."""
+    dev = resolve_device(device)
+    return [tree_map(lambda a: tensor_from_numpy(a, dev), st)
+            for st in np_states]
+
+
+def states_to_reference(states) -> list:
+    """The inverse of ``states_from_reference``: numpy leaves, bf16 as
+    ``ml_dtypes.bfloat16``."""
+    return [tree_map(tensor_to_numpy, st) for st in states]

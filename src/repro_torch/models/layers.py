@@ -13,9 +13,10 @@ attention takes its logits, softmax and sums in f32.
 
 Here so far: ``dense``, the norms, the activations, full and partial
 RoPE, dense attention (``_attend_dense``), flash attention with a
-backward that recomputes the score blocks, the GQA attention block over
-a whole sequence and the (gated) MLP. MLA, MoE, RG-LRU, SSD and the
-decode caches are not ported yet (ROADMAP.md, Queue 1 item 12).
+backward that recomputes the score blocks, the GQA attention block with
+its decode cache (a ring buffer under a window) and the (gated) MLP.
+MLA, MoE, RG-LRU and SSD are not ported yet (ROADMAP.md, Queue 1 item
+12), nor is the reference's sharding (``constrain``, item 13).
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ def _device(gen: torch.Generator | None):
 def dense_init(gen, d_in, d_out, *, bias=False, dtype=torch.bfloat16,
                scale=None, lead=()):
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    p = {"w": (_randn(gen, (*lead, d_in, d_out)) * scale).to(dtype)}
+    # in place: one f32 draw beside the result, not two (a stacked
+    # (32, 6144, 24576) leaf is 19.3 GB in f32); the same values
+    p = {"w": _randn(gen, (*lead, d_in, d_out)).mul_(scale).to(dtype)}
     if bias:
         p["b"] = torch.zeros((*lead, d_out), dtype=dtype,
                              device=_device(gen))
@@ -82,7 +85,10 @@ def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
 
 
 _ACTS = {
-    "silu": F.silu,
+    # the reference's jax.nn.silu, x * sigmoid(x): in bf16 the sigmoid is
+    # rounded before the product (F.silu rounds once, and misses the
+    # reference's bf16 logits at twice as many elements)
+    "silu": lambda x: x * torch.sigmoid(x),
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "relu2": lambda x: torch.square(F.relu(x)),
 }
@@ -289,28 +295,85 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.bfloat16, lead=()):
 
 
 def attention_apply(p, cfg: ModelConfig, x, positions, *, mode="full",
-                    local: bool = False):
-    """GQA self-attention over a whole sequence (the reference's
-    ``mode="full"`` without a cache). local=True uses
-    cfg.rglru.local_window (hybrid) or cfg.sliding_window."""
-    if mode != "full":
-        raise NotImplementedError(
-            "attention_apply: only mode='full' is ported; decode waits for "
-            "the serving slice (ROADMAP.md)")
+                    state=None, local: bool = False):
+    """GQA self-attention; returns (y, new_state). local=True uses
+    cfg.rglru.local_window (hybrid) or cfg.sliding_window.
+
+    ``mode="full"``: flash attention over the whole sequence; with a
+    ``state`` (prefill), the sequence's last T keys and values are also
+    written into it. ``mode="step"`` (S == 1, decode): the token's key
+    and value are written at ``pos % T`` and it attends densely over the
+    whole cache, to the slots holding positions ``<= pos`` (and ``> pos
+    - window`` when windowed). Either writes the cache in place, into
+    the tensors of ``state``, and returns that same dict: a caller who
+    kept an older ``state`` sees it change."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = None
     if local:
         window = cfg.rglru.local_window if cfg.rglru else cfg.sliding_window
+    scale = Dh ** -0.5
     q = dense(p["wq"], x).reshape(B, S, H, Dh)
     k = dense(p["wk"], x).reshape(B, S, KV, Dh)
     v = dense(p["wv"], x).reshape(B, S, KV, Dh)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
-    out = flash_attention(q, k, v, q_pos=positions, kv_pos=positions,
-                          causal=True, window=window, scale=Dh ** -0.5,
-                          softcap=cfg.logit_softcap)
-    return dense(p["wo"], out.reshape(B, S, H * Dh))
+    if mode == "full":
+        out = flash_attention(q, k, v, q_pos=positions, kv_pos=positions,
+                              causal=True, window=window, scale=scale,
+                              softcap=cfg.logit_softcap)
+        if state is not None:
+            state = _cache_fill(state, k, v, positions)
+    elif mode == "step":
+        state = _cache_append(state, k, v, positions)
+        cpos = state["pos_abs"]
+        mask = (cpos <= positions) & (cpos >= 0)
+        if window is not None:
+            mask &= cpos > positions - window
+        out = _attend_dense(q, state["k"], state["v"], mask[:, None, None, :],
+                            scale, cfg.logit_softcap)
+    else:
+        raise ValueError(f"attention_apply: mode {mode!r}, not 'full' or "
+                         f"'step'")
+    return dense(p["wo"], out.reshape(B, S, H * Dh)), state
+
+
+def init_attn_cache(cfg: ModelConfig, B, max_len, *, window=None,
+                    dtype=torch.bfloat16, device=None):
+    """One attention layer's decode cache: ``k``, ``v`` (B, T, KV, Dh)
+    zeros and ``pos_abs`` (B, T) int32, -1 marking an empty slot; T =
+    min(window, max_len) when windowed, else max_len."""
+    T = min(window, max_len) if window else max_len
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((B, T, KV, Dh), dtype=dtype, device=device),
+        "v": torch.zeros((B, T, KV, Dh), dtype=dtype, device=device),
+        "pos_abs": torch.full((B, T), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _cache_write(state, bidx, slot, k, v, pos):
+    state["k"].index_put_((bidx, slot), k.to(state["k"].dtype))
+    state["v"].index_put_((bidx, slot), v.to(state["v"].dtype))
+    state["pos_abs"].index_put_((bidx, slot), pos.to(torch.int32))
+    return state
+
+
+def _cache_append(state, k, v, pos):
+    """Write one token (S == 1) at pos (B, 1), slot ``pos % T``: a ring
+    buffer when windowed."""
+    T = state["k"].shape[1]
+    bidx = torch.arange(k.shape[0], device=k.device)
+    return _cache_write(state, bidx, (pos[:, 0] % T).long(), k[:, 0],
+                        v[:, 0], pos[:, 0])
+
+
+def _cache_fill(state, k, v, pos):
+    """Bulk prefill: write the last T positions, each at ``pos % T``."""
+    T = state["k"].shape[1]
+    k, v, pos = k[:, -T:], v[:, -T:], pos[:, -T:]
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    return _cache_write(state, bidx, (pos % T).long(), k, v, pos)
 
 # ----------------------------------------------------------------------
 # MLP

@@ -4,8 +4,11 @@
   init(generator[, dtype])           -> params on the generator's device
                                         (None: the default one)
   forward_train(params, batch)       -> (logits, aux_loss)   [full seq]
-for the dense decoder family; the other families, prefill and decode
-are not ported yet and raise.
+  prefill(params, batch, states)     -> (logits, states)
+  decode_step(params, batch, states) -> (logits, states)     [S == 1]
+  init_states(params, B, max_len)    -> per-layer decode state
+for the dense decoder family; the other families are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -24,8 +27,44 @@ class Model:
     def init(self, generator: torch.Generator | None, dtype=torch.bfloat16):
         return T.init_lm(generator, self.cfg, dtype)
 
-    def forward_train(self, params, batch, *, remat: bool = False):
-        return T.forward(params, self.cfg, batch, mode="full", remat=remat)
+    def forward_train(self, params, batch, *, unroll: bool = False,
+                      remat: bool = False):
+        logits, _, aux = T.forward(params, self.cfg, batch, mode="full",
+                                   unroll=unroll, remat=remat)
+        return logits, aux
+
+    def prefill(self, params, batch, states, *, last_logits_only=False,
+                unroll=False):
+        """The prompt's forward, filling ``states`` in place."""
+        logits, states, _ = T.forward(params, self.cfg, batch, mode="full",
+                                      states=states, unroll=unroll,
+                                      last_logits_only=last_logits_only)
+        return logits, states
+
+    def decode_step(self, params, batch, states):
+        """One token a row (``batch``: tokens and positions, (B, 1))
+        against ``states``, whose caches it writes in place and returns:
+        a caller who kept an older ``states`` sees it change."""
+        logits, states, _ = T.forward(params, self.cfg, batch, mode="step",
+                                      states=states)
+        return logits, states
+
+    def init_states(self, params, B: int, max_len: int, batch=None,
+                    dtype=torch.bfloat16):
+        """Empty decode states on the device of ``params["embed"]``.
+        ``batch`` (the reference's whisper encoder input) is unused: the
+        dense family's states need none."""
+        return T.init_states(self.cfg, B, max_len, dtype,
+                             device=params["embed"].device)
+
+
+def states_max_len(states) -> int:
+    """The slots of the first attention cache in ``states`` (0 with
+    none). The reference's whisper branch waits for its family."""
+    for st in states:
+        if isinstance(st, dict) and "k" in st:
+            return st["k"].shape[1]
+    return 0
 
 
 PORTED_FAMILIES = ("dense",)

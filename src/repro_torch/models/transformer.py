@@ -1,6 +1,7 @@
 """Decoder-only LM over the dense block: the port of
 ``repro.models.transformer`` (``layer_plan``, ``_period``, ``init_lm``,
-``embed_inputs``, ``forward`` over a whole sequence, ``unembed``).
+``embed_inputs``, ``forward`` over a whole sequence or one decode step,
+``unembed``, ``init_states``).
 
 A *layer* is a (mixer, channel) pair with pre-norm residuals. Layers are
 stored STACKED per pattern slot, as in the reference: ``params["stack"]
@@ -75,17 +76,19 @@ def _init_layer(gen, cfg, mixer, channel, dtype, lead):
     return p
 
 
-def _apply_layer(p, cfg, mixer, channel, x, positions):
+def _apply_layer(p, cfg, mixer, channel, x, positions, mode, state):
+    """Returns (x, new_state)."""
     h_in = L.apply_norm(p["mixer_norm"], x, cfg.norm)
     local = mixer == "attn_local" or cfg.sliding_window is not None
-    h = L.attention_apply(p["mixer"], cfg, h_in, positions, local=local)
+    h, state = L.attention_apply(p["mixer"], cfg, h_in, positions,
+                                 mode=mode, state=state, local=local)
     if cfg.parallel_block and channel != "none":
-        return x + h + L.mlp_apply(p["channel"], cfg, h_in)
+        return x + h + L.mlp_apply(p["channel"], cfg, h_in), state
     x = x + h
     if channel == "mlp":
         x = x + L.mlp_apply(p["channel"], cfg,
                             L.apply_norm(p["channel_norm"], x, cfg.norm))
-    return x
+    return x, state
 
 
 def init_lm(gen: torch.Generator | None, cfg: ModelConfig,
@@ -128,28 +131,44 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict):
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "full",
-            remat: bool = False):
-    """Full-sequence forward. Returns (logits f32, aux_loss)."""
-    if mode != "full":
-        raise NotImplementedError("forward: only mode='full' is ported; "
-                                  "decode waits for the serving slice")
+            states: list | None = None, unroll: bool = False,
+            remat: bool = False, last_logits_only: bool = False):
+    """Returns (logits f32, new_states, aux_loss).
+
+    mode="full" runs the whole sequence (and, with ``states``, fills the
+    caches: prefill); mode="step" runs one token per row against
+    ``states`` (decode), whose caches are written in place. ``states``:
+    per-layer decode states in plan order (``init_states``), or None for
+    the stateless train forward; ``new_states`` is that list again (a
+    list of None without states). ``unroll`` changes nothing: the
+    port's forward is always the loop over the stacked params that the
+    reference's ``unroll=True`` is. remat=True checkpoints each layer.
+    last_logits_only keeps only the last position for the unembedding
+    (serving prefill)."""
     if params["prologue"]:
         raise _unported("a prologue of dense layers (MoE)")
     plan = layer_plan(cfg)
     period = _period(cfg)
     n_cycles = len(plan) // period
     x, positions = embed_inputs(params, cfg, batch)
+    new_states: list = [None] * len(plan)
     for c in range(n_cycles):
         for s in range(period):
+            li = c * period + s
             lp = tree_map(lambda a: a[c], params["stack"][s])
+            st = None if states is None else states[li]
             if remat:
-                x = checkpoint(_apply_layer, lp, cfg, *plan[s], x, positions,
-                               use_reentrant=False)
+                x, new_states[li] = checkpoint(
+                    _apply_layer, lp, cfg, *plan[s], x, positions, mode, st,
+                    use_reentrant=False)
             else:
-                x = _apply_layer(lp, cfg, *plan[s], x, positions)
+                x, new_states[li] = _apply_layer(lp, cfg, *plan[s], x,
+                                                 positions, mode, st)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    if last_logits_only:
+        x = x[:, -1:]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(params, cfg, x), aux
+    return unembed(params, cfg, x), new_states, aux
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -158,3 +177,22 @@ def unembed(params, cfg: ModelConfig, x):
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+def init_states(cfg: ModelConfig, B: int, max_len: int,
+                dtype=torch.bfloat16, device=None) -> list:
+    """Per-layer decode state in plan order: one attention cache a layer
+    (``layers.init_attn_cache``), windowed for ``attn_local`` layers and
+    under ``cfg.sliding_window``."""
+    states = []
+    for mixer, _ in layer_plan(cfg):
+        if mixer == "attn":
+            window = cfg.sliding_window
+        elif mixer == "attn_local":
+            window = (cfg.rglru.local_window if cfg.rglru
+                      else cfg.sliding_window)
+        else:
+            raise _unported(f"the decode state of mixer {mixer!r}")
+        states.append(L.init_attn_cache(cfg, B, max_len, window=window,
+                                        dtype=dtype, device=device))
+    return states

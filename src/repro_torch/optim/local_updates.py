@@ -111,13 +111,20 @@ def _steps(step_fn, params, opt_state, batches):
 
 
 def local_updates_round(step_fn, params, opt_state, batches,
-                        cfg: LocalUpdatesConfig, codec_state=None):
-    """One shard's round with no data axis (the reference's
-    ``axis_name=None``): the steps of ``batches``' leading axis (H of
-    them), nothing exchanged. step_fn(params, opt_state, batch) ->
-    (params, opt_state, metrics) must not synchronise gradients. With
-    ``codec_state`` the return grows a fourth element, the state
-    unchanged."""
+                        cfg: LocalUpdatesConfig, axis_name=None,
+                        codec_state=None):
+    """One shard's round with no data axis (``axis_name=None``): the
+    steps of ``batches``' leading axis (H of them), nothing exchanged.
+    step_fn(params, opt_state, batch) -> (params, opt_state, metrics)
+    must not synchronise gradients. With ``codec_state`` the return
+    grows a fourth element, the state unchanged. The reference's
+    exchange across a data axis is not ported: any ``axis_name`` raises
+    (ROADMAP.md, Queue 1 item 14)."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"local_updates_round: axis_name={axis_name!r}: the exchange "
+            f"across a data axis is not ported yet (ROADMAP.md, Queue 1 "
+            f"item 14); K shards on one device are virtual_round")
     pH, oH, metrics = _steps(step_fn, params, opt_state, batches)
     if codec_state is None:
         return pH, oH, metrics

@@ -21,13 +21,17 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(model, params, batch, *, z_loss_coef: float = 1e-4,
-            remat: bool = False):
+            mtp_coef: float = 0.3, unroll: bool = False, remat: bool = False):
     """Full train loss of a dense decoder. batch needs tokens + labels
-    (labels already shifted; -100 = ignore)."""
+    (labels already shifted; -100 = ignore). ``mtp_coef`` weighs the
+    multi-token-prediction loss, which a config without MTP does not
+    have (as in the reference); ``unroll`` changes nothing (the port has
+    no scan to unroll)."""
     if model.cfg.mtp_depth > 0:
         raise NotImplementedError("lm_loss: multi-token prediction is not "
                                   "ported yet (ROADMAP.md)")
-    logits, aux = model.forward_train(params, batch, remat=remat)
+    logits, aux = model.forward_train(params, batch, unroll=unroll,
+                                      remat=remat)
     loss, metrics = softmax_xent(logits, batch["labels"], z_loss_coef)
     loss = loss + aux
     metrics["aux_loss"] = aux

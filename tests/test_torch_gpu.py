@@ -1179,3 +1179,56 @@ def test_launch_train_reduced_runs_on_the_card(cuda, capsys, tmp_path):
     assert "round 1 (H=2)" in out and "saved" in out
     import os
     assert os.path.exists(ckpt) and os.path.exists(ckpt + ".meta.json")
+
+
+def test_reduced_serving_on_the_card_equals_the_cpu(cuda):
+    """The three dense archs at ``.reduced()`` in f32 on the same params:
+    the same greedy ids, and, with f32 caches, the prefill's and every
+    decode step's logits at rtol 1e-4 with atol 1e-5 of the largest."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_map
+    full_f32_matmul()
+    rng = np.random.default_rng(0)
+    B, S, n = 4, 24, 12
+    for arch in ARCHS:
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg)
+        params = m.init(torch.Generator().manual_seed(0), torch.float32)
+        prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               dtype=torch.int32)
+        ids = greedy_generate(m, params, prompts, max_new=n)
+        out, logits = {}, {}
+        for dev in ("cpu", cuda):
+            p = tree_map(lambda a: a.to(dev), params)
+            out[str(dev)] = greedy_generate(m, p, prompts.to(dev),
+                                            max_new=n).cpu()
+            st = m.init_states(p, B, S + n, dtype=torch.float32)
+            with torch.inference_mode():
+                lg, st = m.prefill(p, {"tokens": prompts.to(dev)}, st)
+                rows = [lg[:, -1:]]
+                for t in range(n - 1):
+                    lg, st = m.decode_step(p, {
+                        "tokens": ids[:, t:t + 1].to(dev),
+                        "positions": torch.full((B, 1), S + t,
+                                                dtype=torch.int32,
+                                                device=dev)}, st)
+                    rows.append(lg)
+            logits[str(dev)] = torch.cat(rows, 1).cpu().numpy()
+        assert torch.equal(out["cpu"], out[str(cuda)]), arch
+        want = logits["cpu"]
+        np.testing.assert_allclose(logits[str(cuda)], want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=arch)
+
+
+def test_launch_serve_reduced_runs_on_the_card(cuda, capsys):
+    """``python -m repro_torch.launch.serve --reduced`` on the card by
+    default."""
+    from repro_torch.launch import serve
+    serve.main(["--reduced", "--batch", "2", "--prompt-len", "16",
+                "--max-new", "8"])
+    out = capsys.readouterr().out
+    assert "generated (2, 8)" in out and "on cuda" in out

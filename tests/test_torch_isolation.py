@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.registry", "models.transformer", "models.carry",
                  "optim.local_updates", "train.step", "checkpoint.np_ckpt",
                  "data.tokens", "utils.trees", "launch.train",
-                 "examples.train_lm"):
+                 "examples.train_lm", "configs.nemotron4",
+                 "configs.command_r", "serve", "serve.decode",
+                 "launch.serve", "examples.serve_lm"):
         assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -96,6 +98,12 @@ def test_entry_points_raise_without_a_card():
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_lm.main(["--steps", "1"])
+    from repro_torch.examples import serve_lm
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_lm.main([])
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):

@@ -2,7 +2,8 @@
 ``get_config("tinyllama-1.1b").reduced()`` (2 layers, d_model 256, vocab
 512), with the reference's params carried across (``models.carry``):
 configs, logits and loss, grads per leaf, flash attention against dense
-attention, RoPE and the norm, and the carry itself.
+attention, RoPE and the norm, and the carry itself; the configs, logits
+and loss of nemotron-4-15b and command-r-35b too.
 
 Tolerances: bf16 loss at rtol = atol = 2e-2 (the bf16 tolerance of
 ``tests/test_models_smoke.py``), bf16 logits as close to the jitted
@@ -40,6 +41,9 @@ from repro_torch.utils.trees import (tree_flatten_with_path, tree_leaves,
                                      tree_params, tree_unflatten)
 
 ARCH = "tinyllama-1.1b"
+# dense archs with partial RoPE, relu2 and layernorm (nemotron), and a
+# parallel block with tied embeddings (command-r)
+NEW_ARCHS = ("nemotron-4-15b", "command-r-35b")
 B, S = 2, 64
 
 
@@ -67,9 +71,8 @@ def _ref_grads(rm, params, batch):
     return [np.asarray(x).astype(np.float32) for x in jax.tree.leaves(g)]
 
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_config_equals_reference(reduced):
-    ref, port = ref_get_config(ARCH), get_config(ARCH)
+def _config_equals_reference(arch, reduced):
+    ref, port = ref_get_config(arch), get_config(arch)
     if reduced:
         ref, port = ref.reduced(), port.reduced()
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -77,9 +80,20 @@ def test_config_equals_reference(reduced):
     assert T._period(port) == RT._period(ref)
 
 
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_equals_reference(reduced):
+    _config_equals_reference(ARCH, reduced)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_new_config_equals_reference(arch, reduced):
+    _config_equals_reference(arch, reduced)
+
+
 def test_registry_names_every_reference_arch():
     assert set(ARCHS) | set(PENDING) == set(REF_ARCHS)
-    assert ARCHS == (ARCH,)
+    assert ARCHS == (ARCH,) + NEW_ARCHS
 
 
 @pytest.mark.parametrize("arch", PENDING)
@@ -182,6 +196,34 @@ def test_logits_match_reference_f32(setup):
     logits, _ = m.forward_train(params, setup["tbatch"])
     np.testing.assert_allclose(logits.numpy(), np.asarray(r_logits),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_logits_and_loss_match_reference(arch):
+    """At ``.reduced()`` on the reference's carried params: f32 logits at
+    rtol 1e-4 (atol 1e-5 of the largest), bf16 logits within 2e-2 of
+    the largest, the bf16 loss at rtol = atol = 2e-2."""
+    rcfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
+    rm, m = ref_build_model(rcfg), build_model(cfg)
+    batch = TokenStream(cfg.vocab_size, S, B, seed=1).next_batch()
+    tbatch = {k: torch.tensor(v) for k, v in batch.items()}
+    for dt in (jnp.float32, jnp.bfloat16):
+        ref = jax.device_get(jax.jit(lambda k: rm.init(k, dt))(
+            jax.random.key(0)))
+        params = params_from_reference(ref, cfg, device="cpu")
+        r_logits = np.asarray(jax.jit(lambda p, b: rm.forward_train(p, b)[0])(
+            ref, batch))
+        logits, _ = m.forward_train(params, tbatch)
+        if dt == jnp.float32:
+            np.testing.assert_allclose(logits.numpy(), r_logits, rtol=1e-4,
+                                       atol=1e-5 * np.abs(r_logits).max())
+            continue
+        assert (np.abs(logits.numpy() - r_logits).max()
+                <= 2e-2 * np.abs(r_logits).max())
+        r_loss, _ = jax.jit(lambda p, b: ref_lm_loss(rm, p, b))(ref, batch)
+        loss, _ = lm_loss(m, params, tbatch)
+        np.testing.assert_allclose(float(loss), float(r_loss), rtol=2e-2,
+                                   atol=2e-2)
 
 
 def test_grads_match_reference_bf16(setup):
