@@ -205,7 +205,44 @@ JSON line:
      traces of 5 decode steps and of one prefill (kernels, busy share,
      matrix products' device time, top kernels);
      then the three archs at ``.reduced()`` in f32 on the same params on
-     the card and on the CPU: equal greedy ids, logits at rtol 1e-4.
+     the card and on the CPU: equal greedy ids, logits at rtol 1e-4;
+  12. the local-update rounds across ranks
+     (``local_updates_round(..., axis_name=<Fabric>)``), phase 10's model
+     and settings, 2 rounds a path with the opt state synced, the launch
+     counters set to 0 just before each path and read just after. 12a: a
+     1-rank NCCL group in this process, tinyllama-1.1b at all 22 layers,
+     ``int8`` and ``ef:topk(r=0.01)``: ``virtual_round`` at K = 1 twice
+     first (the card's step must be deterministic), then every round's
+     params SHA-256 equal to it, the delta exchange's logged operands
+     equal to the encoded parts' bytes, the opt-state sync's to mu's and
+     nu's, no copy staged, the codec's kernels once a leaf a round, and
+     in round 1 at ``embed`` and the largest other leaf this rank's
+     encoded row, the decode+mean of the gathered parts (and the ``ef:``
+     residual) equal to the plain versions' on the same inputs bit for
+     bit, as each kernel's output where it is timed; printed: tokens/s, each round split by CUDA events (local steps /
+     delta exchange / opt-state sync), the calls into the group (events
+     and host seconds), each kernel at the largest leaf's (1, L) row
+     beside its bound, its plain version and (K4) ``torch.topk``, the
+     peak memory. 12b: 4 gloo ranks on ``cuda:0`` at the deepest depth
+     whose ranks fit 64 GB (one rank's peak fitted from one-shard rounds
+     at 2 and 4 layers, plus 1 GB of context each), ``f32``, ``int8`` and
+     ``ef:topk(r=0.01)``, against ``virtual_round`` at K = 4 run twice
+     first: every rank's hash equal each round, round 1 equal to the
+     virtual run's under a lossy codec and within one bf16 ulp of it
+     under ``f32`` (the all-reduce adds in gloo's order), the bytes
+     derived from every rank's delta and opt-sync calls equal to
+     ``delta_wire_bytes`` and to 2 K 4 bytes a float of mu and nu, the
+     wire dtypes, the launches, the loss falling, and on every rank
+     12a's check against the plain versions at round 1's two leaves
+     (``embed`` and a layer stack); printed: each round's
+     split, the host's seconds inside the group's calls and in the
+     staging copies, tokens/s (time-slicing on one card, not a
+     multi-GPU number), each rank's peak; then 2 steps of
+     ``make_train_step(grad_sync_axis=...)`` on the same ranks, whose
+     params must agree;
+  13. ``python -m repro_torch.analysis --cells all --inject wire-f32`` on
+     4 gloo ranks on ``cuda:0``: every reference cell free of error
+     findings, the injected cell tripping wire-dtype and bytes-match.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -336,6 +373,23 @@ SERVE_TF_TOL = 0.15          # tests/test_models_smoke.py's decode bound
 SERVE_TRACE_STEPS = 5
 # the small card-vs-CPU run: the ported archs at .reduced() in f32
 SERVE_SMALL = (4, 24, 12)
+# the local-update rounds across ranks (12): phase 10's model and
+# settings, one process a data shard, each round's delta exchange and
+# opt-state sync through comm.collectives.Fabric, LU_ROUNDS rounds a path
+# with the opt state synced. 12a: a 1-rank NCCL group in this process at
+# all 22 layers, against virtual_round at K = 1 by params hash. 12b: LU_K
+# gloo ranks on the one card at the deepest depth whose ranks' peaks, plus
+# LU_CONTEXT_BYTES of CUDA context each (an allowance, not a
+# measurement), fit LU_GLOO_BYTES, a rank's peak fitted from one-shard
+# rounds at LU_PROBE_LAYERS; then LU_GRAD_SYNC_STEPS steps of
+# make_train_step(grad_sync_axis=...) on the same ranks. virtual_round
+# runs twice on each path first: hashes compare only if the card's step
+# is deterministic
+LU_NCCL_PATHS = ("int8", "ef:topk(r=0.01)")
+LU_GLOO_PATHS = ("f32", "int8", "ef:topk(r=0.01)")
+LU_ROUNDS, LU_K, LU_GRAD_SYNC_STEPS = 2, 4, 2
+LU_GLOO_BYTES, LU_CONTEXT_BYTES = 64e9, 1e9
+LU_PROBE_LAYERS = (2, 4)
 # device_trace's guard on each side of the traced window: marker
 # kernels (``torch.cuda._sleep``, named "spin_kernel"), left out of every
 # sum. A profiler session in a process that has traced before loses its
@@ -814,6 +868,59 @@ def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
     return out
 
 
+def time_codec_kernels(torch, codec_, e, parts, K: int) -> dict:
+    """Each kernel of ``codec_``'s exchange at one leaf: its encode (K2,
+    or K4) on the (K, L) stack ``e`` and (K3) its decode+mean of
+    ``parts``, by events and by the device time of a trace, beside its
+    bound, its plain version and (K4) ``torch.topk``, and whether its
+    output equals the plain version's on the same inputs bit for bit
+    (``equal_to_plain``). The caller restores the launch counters: these
+    launches do not count."""
+    from repro_torch.kernels import dequant, quant, topk
+    L = e.shape[1]
+    base = getattr(codec_, "base", codec_)
+    if "topk" in codec_.name:
+        k = base._k(L)
+        fns = {"topk": (lambda: topk.topk_select(e, k),
+                        lambda: topk.topk_select_ref(e, k))}
+        lib = {"topk": lambda: torch.topk(e.abs(), k, dim=1, sorted=True)}
+    else:
+        c = base.name
+        p_, s_ = parts
+        enc, dec = (getattr(quant, f"quantize_pack_{c}"),
+                    getattr(dequant, f"decode_reduce_{c}"))
+        enc_ref = getattr(quant, f"quantize_pack_{c}_ref")
+        dec_ref = getattr(dequant, f"decode_reduce_{c}_ref")
+        fns = {c: (lambda: enc(e), lambda: enc_ref(e)),
+               f"decode_{c}": (lambda: dec(p_, s_, L, mean=True),
+                               lambda: dec_ref(p_, s_, L, mean=True))}
+        lib, k = {}, 1
+    b = codec_bounds(K, L, k)
+    timing = {}
+    for key, (fn, ref) in fns.items():
+        guards = []
+        timing[key] = dict(
+            shape=[K, L], k=k if key == "topk" else None,
+            ms=time_ms(torch, fn, LM_REPS, warmup=1),
+            device_ms=device_ms(torch, fn, LM_REPS, KERNEL_NAMES[key],
+                                guards),
+            plain_ms=time_ms(torch, ref, 1, warmup=0),
+            library_ms=(time_ms(torch, lib[key], 1, warmup=1)
+                        if key in lib else None),
+            bound_ms=b[key][0], bound_by=b[key][1], trace_guard=guards[0])
+        got, want = fn(), ref()
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        timing[key].update(
+            equal_to_plain=all(bits_equal(torch, a, b)
+                               for a, b in zip(got, want)),
+            max_abs_err=max(max_err(a, b) for a, b in zip(got, want)))
+        del got, want
+        if isinstance(timing[key]["device_ms"], float):
+            timing[key]["bound_ratio"] = (timing[key]["device_ms"]
+                                          / b[key][0])
+    return timing
+
+
 def transformer_phase(torch, counters, device="cuda") -> dict:
     """Phase 10: each path of ``LM_PATHS`` at peak learning rate
     ``LM_LR``, with the launch counters set to 0 just before and read just after;
@@ -825,7 +932,6 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
     from repro_torch.comm.codec import get_codec
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.kernels import dequant, quant, topk
     from repro_torch.models import build_model
     from repro_torch.optim import (AdamWConfig, LocalUpdatesConfig,
                                    adamw_init, cosine_schedule,
@@ -912,7 +1018,7 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
             del parts_p, mean_p
             checks[L] = res
             if L == largest:
-                kept.update(e=e, parts=parts_k, codec=codec_, L=L)
+                kept.update(e=e, parts=parts_k, codec=codec_)
             for fn, n in saved.items():
                 fn.launches = n
             return out
@@ -922,46 +1028,13 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
             the round: events, its device time, the plain version and, for
             K4, torch.topk; these launches do not count."""
             saved = {fn: fn.launches for fn in counters}
-            e, codec_, L = kept["e"], kept["codec"], kept["L"]
+            e, codec_ = kept["e"], kept["codec"]
             free(torch)         # the round's cached blocks back to the card
             timing_ctx.update(
                 memory_allocated=torch.cuda.memory_allocated(),
                 memory_reserved=torch.cuda.memory_reserved())
-            base = getattr(codec_, "base", codec_)
-            if "topk" in codec_.name:
-                k = base._k(L)
-                fns = {"topk": (lambda: topk.topk_select(e, k),
-                                lambda: topk.topk_select_ref(e, k))}
-                lib = {"topk": lambda: torch.topk(e.abs(), k, dim=1,
-                                                  sorted=True)}
-            else:
-                c = base.name
-                p_, s_ = kept["parts"]
-                enc, dec = (getattr(quant, f"quantize_pack_{c}"),
-                            getattr(dequant, f"decode_reduce_{c}"))
-                enc_ref = getattr(quant, f"quantize_pack_{c}_ref")
-                dec_ref = getattr(dequant, f"decode_reduce_{c}_ref")
-                fns = {c: (lambda: enc(e), lambda: enc_ref(e)),
-                       f"decode_{c}": (
-                           lambda: dec(p_, s_, L, mean=True),
-                           lambda: dec_ref(p_, s_, L, mean=True))}
-                lib, k = {}, 1
-            b = codec_bounds(K, L, k)
-            for key, (fn, ref) in fns.items():
-                guards = []
-                timing[key] = dict(
-                    shape=[K, L], k=k if key == "topk" else None,
-                    ms=time_ms(torch, fn, LM_REPS, warmup=1),
-                    device_ms=device_ms(torch, fn, LM_REPS,
-                                        KERNEL_NAMES[key], guards),
-                    plain_ms=time_ms(torch, ref, 1, warmup=0),
-                    library_ms=(time_ms(torch, lib[key], 1, warmup=1)
-                                if key in lib else None),
-                    bound_ms=b[key][0], bound_by=b[key][1],
-                    trace_guard=guards[0])
-                if isinstance(timing[key]["device_ms"], float):
-                    timing[key]["bound_ratio"] = (
-                        timing[key]["device_ms"] / b[key][0])
+            timing.update(time_codec_kernels(torch, codec_, e, kept["parts"],
+                                             K))
             kept.clear()
             for fn, n in saved.items():
                 fn.launches = n
@@ -1035,6 +1108,8 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
         ok = dict(loss_falls=last < first, finite=finite,
                   launches=launches == want,
                   bytes=all(w == want_bytes for w in wire),
+                  timed_equal_plain=all(t_["equal_to_plain"]
+                                        for t_ in timing.values()),
                   plain=(all(all(v for k_, v in c_.items()
                                  if k_ != "max_abs_err")
                              for c_ in checks.values())
@@ -1343,6 +1418,684 @@ def serve_phase(torch, counters, device="cuda") -> None:
     if not all(v["ids_equal"] and v["close"] for v in small.values()):
         raise SystemExit("chip_smoke: reduced serving on the card and on "
                          "the CPU disagree (see the serve_card_vs_cpu line)")
+
+
+def tree_sha256(torch, tree) -> str:
+    """SHA-256 of every leaf's bytes in leaf order (a bf16 leaf as its
+    16-bit patterns)."""
+    import hashlib
+
+    from repro_torch.utils.trees import tree_leaves
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().contiguous().reshape(-1).view(
+            torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def lu_model(torch, layers, device):
+    """Phase 10's model and step at ``layers`` layers (None: all 22):
+    (cfg, model, params (bf16, seed 0), the AdamW config, a step factory
+    taking ``grad_sync_axis``: remat, lr ``LM_LR`` warmed up over one
+    round's H steps of ``LU_ROUNDS``)."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    opt_cfg = AdamWConfig(lr=LM_LR)
+    schedule = functools.partial(cosine_schedule, warmup=LM_H,
+                                 total=LU_ROUNDS * LM_H)
+
+    def step_of(grad_sync_axis=None):
+        return make_train_step(model, opt_cfg, remat=True, schedule=schedule,
+                               grad_sync_axis=grad_sync_axis)
+    return cfg, model, params, opt_cfg, step_of
+
+
+def lu_batches(torch, cfg, K: int, device) -> list:
+    """Each round's (K, H, batch, seq) token batches from
+    ``TokenStream(seed=0)``, drawn as phase 10 draws them (shard k's H
+    batches, then shard k + 1's)."""
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenStream
+    ts = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0)
+    out = []
+    for _ in range(LU_ROUNDS):
+        bs = [[ts.next_batch() for _ in range(LM_H)] for _ in range(K)]
+        out.append({n: torch.tensor(np.stack([np.stack(
+            [b[n] for b in row]) for row in bs])).to(device)
+            for n in ("tokens", "labels")})
+    return out
+
+
+def lu_virtual(torch, step, params, opt_cfg, lc, batches, keep=None):
+    """``virtual_round`` over each round's batches from ``params``; per
+    round the params' SHA-256 and the shards' losses. ``keep(t, params)``
+    sees each round's params."""
+    from repro_torch.optim import adamw_init, init_delta_codec_state
+    from repro_torch.optim import virtual_round
+    K = batches[0]["tokens"].shape[0]
+    p, o = params, adamw_init(params, opt_cfg)
+    st = init_delta_codec_state(params, lc, shards=K)
+    out = []
+    for t, b in enumerate(batches, 1):
+        res = virtual_round(step, p, o, b, lc, st)
+        p, o, m = res[:3]
+        st = res[3] if st is not None else None
+        if keep is not None:
+            keep(t, p)
+        out.append(dict(hash=tree_sha256(torch, p),
+                        loss=m["loss"].float().cpu().tolist()))
+    return out
+
+
+def exchange_vs_plain(torch, codec_, e, rank: int, out) -> dict:
+    """One rank's :func:`_codec_mean` of a leaf held bit for bit against
+    the plain versions on the same inputs: its row of the gathered parts
+    against the plain encode of its ``(1, L)`` row ``e`` (the delta plus
+    any residual), the mean against the plain decode+mean of the same
+    gathered parts (K3's oracle; the topk decode has no kernel), and an
+    ``ef:`` residual against ``e`` less the decoded plain row."""
+    mean, state, gathered = out
+    L = e.shape[1]
+    plain = codec_.encode_ref(e)
+    res = dict(shape=list(gathered[0].shape[:1]) + [L], parts=all(
+        bits_equal(torch, g[rank:rank + 1], p_)
+        for g, p_ in zip(gathered, plain)))
+    base = getattr(codec_, "base", codec_)
+    if hasattr(base, "decode_reduce_ref"):
+        want = base.decode_reduce_ref(gathered, L, mean=True)
+        res.update(mean=bits_equal(torch, mean.reshape(-1), want),
+                   max_abs_err=max_err(mean.reshape(-1), want))
+    if state is not None:
+        res["residual"] = bits_equal(
+            torch, state, (e - codec_.decode_stacked(plain, L))[0])
+    return res
+
+
+def plain_held(res: dict, want: int) -> bool:
+    """Every check of :func:`exchange_vs_plain` passed, at ``want``
+    leaves."""
+    return len(res) == want and all(
+        v for r in res.values() for v in r.values() if isinstance(v, bool))
+
+
+def lu_dist_rounds(torch, step, params, opt_cfg, lc, batches, fabric,
+                   counters, time_leaf=False, keep=None):
+    """``local_updates_round`` over ``fabric`` for each round's batches
+    (this rank's row). Per round: the params' SHA-256, the losses,
+    ``wire_bytes``, the split by CUDA events (local steps / delta
+    exchange / opt-state sync), the calls into the group by op (CUDA
+    events around each, and the host's seconds inside them and inside the
+    staging copies), and the delta exchange's and the opt-state sync's
+    calls, recorded apart. Round 1 also holds this rank's exchange of
+    ``embed`` and of the largest other leaf against the plain versions
+    (:func:`exchange_vs_plain`, ``plain_vs_kernel`` by leaf length). With
+    ``time_leaf``, each kernel of the codec at round 1's largest leaf
+    after that round (``time_codec_kernels``, launches not counted).
+    Returns (the last params, the rounds, the kernel times)."""
+    from repro_torch.comm.collectives import recording as record_calls
+    from repro_torch.optim import (adamw_init, init_delta_codec_state,
+                                   local_updates, local_updates_round)
+    from repro_torch.utils.trees import tree_leaves
+
+    steps_fn = local_updates._steps
+    sync_fn = local_updates._sync_opt_state
+    mean_fn = local_updates._codec_mean
+    sizes = [x.numel() for x in tree_leaves(params)]
+    largest, embed_len = max(sizes), params["embed"].numel()
+    held = {embed_len, max(n for n in sizes if n != embed_len)}
+    marks, opt_logs, kept, calls, host, plain = {}, [], {}, [], {}, {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    def steps_hook(*a):
+        out = steps_fn(*a)
+        mark("local_end")
+        return out
+
+    def sync_hook(o, f):
+        mark("sync_start")
+        with record_calls() as log:
+            out = sync_fn(o, f)
+        mark("sync_end")
+        opt_logs.append(list(log))
+        return out
+
+    def mean_hook(delta, codec_, f, state=None):
+        out = mean_fn(delta, codec_, f, state)
+        n = delta.numel()
+        if f.round != 1 or n not in held:
+            return out
+        row = delta.reshape(1, -1)
+        e = row if state is None else row + state.reshape(1, -1)
+        if n not in plain:
+            plain[n] = exchange_vs_plain(torch, codec_, e, f.rank, out)
+        if time_leaf and n == largest:
+            kept.update(codec=codec_, parts=out[2], e=e)
+        return out
+
+    def timed(op, fn):
+        def call(x):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            a.record()
+            out = fn(x)
+            b.record()
+            host[op] = host.get(op, 0.0) + time.perf_counter() - h0
+            calls.append((op, a, b))
+            return out
+        return call
+
+    fabric.all_gather = timed("all_gather", fabric.all_gather)
+    fabric.all_reduce = timed("all_reduce", fabric.all_reduce)
+    stage = fabric._stage
+
+    def stage_timed(x):
+        h0 = time.perf_counter()
+        out = stage(x)
+        host["staging"] = host.get("staging", 0.0) + time.perf_counter() - h0
+        return out
+
+    fabric._stage = stage_timed
+    local_updates._steps = steps_hook
+    local_updates._sync_opt_state = sync_hook
+    local_updates._codec_mean = mean_hook
+    p, o = params, adamw_init(params, opt_cfg)
+    st = init_delta_codec_state(params, lc)
+    rounds, timing = [], {}
+    try:
+        for t, b in enumerate(batches, 1):
+            fabric.round = t
+            mine = {n: v[fabric.rank] for n, v in b.items()}
+            opt_logs.clear()
+            calls.clear()
+            host.clear()
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            mark("start")
+            with record_calls() as log:
+                out = local_updates_round(step, p, o, mine, lc, fabric, st)
+            mark("end")
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - h0
+            p, o, m = out[:3]
+            st = out[3] if st is not None else None
+            if keep is not None:
+                keep(t, p)
+            ms = {op: 0.0 for op, _, _ in calls}
+            for op, a, b_ in calls:
+                ms[op] += a.elapsed_time(b_)
+            rounds.append(dict(
+                hash=tree_sha256(torch, p),
+                loss=m["loss"].float().cpu().tolist(), wire=m["wire_bytes"],
+                round_ms=marks["start"].elapsed_time(marks["end"]),
+                local_ms=marks["start"].elapsed_time(marks["local_end"]),
+                exchange_ms=marks["local_end"].elapsed_time(
+                    marks["sync_start"]),
+                opt_sync_ms=marks["sync_start"].elapsed_time(
+                    marks["sync_end"]),
+                host_s=host_s, calls_ms=ms, calls_host_s=dict(host),
+                delta_log=list(log), opt_log=opt_logs[0],
+                plain_vs_kernel={str(n): r for n, r in plain.items()}))
+            plain.clear()
+            if kept:
+                saved = {fn: fn.launches for fn in counters}
+                timing = time_codec_kernels(torch, kept["codec"], kept["e"],
+                                            kept["parts"], fabric.K)
+                kept.clear()
+                for fn, n in saved.items():
+                    fn.launches = n
+    finally:
+        local_updates._steps = steps_fn
+        local_updates._sync_opt_state = sync_fn
+        local_updates._codec_mean = mean_fn
+        fabric.round = None
+        for name in ("all_gather", "all_reduce", "_stage"):
+            del fabric.__dict__[name]
+    return p, rounds, timing
+
+
+def lu_round_summary(rnd: dict, want_delta: int, want_opt: int, K: int,
+                     wire_dtype) -> dict:
+    """A round of :func:`lu_dist_rounds` without its logs: the bytes
+    derived from the delta exchange's calls (2 K x the operands; 0 at
+    K = 1 by the rule, so the operands too) and from the opt-state
+    sync's, beside the models, and the wire dtypes."""
+    from types import SimpleNamespace
+
+    from repro_torch.analysis.traffic import (derived_round_traffic,
+                                              payload_collectives,
+                                              quantized_wire_dtypes)
+    fused = SimpleNamespace(backend="xla",
+                            scheme=SimpleNamespace(transport="compressed"))
+    delta, opt = rnd.pop("delta_log"), rnd.pop("opt_log")
+    rnd.update(
+        delta_operand_bytes=sum(c.nbytes for c in delta),
+        delta_derived_bytes=derived_round_traffic(delta, fused, K),
+        opt_operand_bytes=sum(c.nbytes for c in opt),
+        opt_derived_bytes=derived_round_traffic(opt, fused, K),
+        calls=len(delta) + len(opt), staged=sum(c.staged for c in delta + opt),
+        quantized_dtypes=sorted(quantized_wire_dtypes(delta)),
+        f32_payloads_over_4_bytes=sum(
+            c.dtype == "float32" and c.nbytes > 4
+            for c in payload_collectives(delta)))
+    rnd["bytes_ok"] = (rnd["wire"] == want_delta
+                       and (rnd["delta_derived_bytes"] == want_delta
+                            if K > 1 else
+                            2 * rnd["delta_operand_bytes"] == want_delta)
+                       and rnd["opt_operand_bytes"] * 2 * K == want_opt
+                       and (K == 1 or rnd["opt_derived_bytes"] == want_opt))
+    rnd["dtypes_ok"] = (rnd["quantized_dtypes"] == sorted(
+        {wire_dtype} - {None}) and (wire_dtype is None
+                                    or not rnd["f32_payloads_over_4_bytes"]))
+    return rnd
+
+
+def lu_expected(lc, params, K: int, rounds: int, counters) -> tuple:
+    """(the delta exchange's modelled bytes, the opt-state sync's: 2 K 4
+    bytes a float element of mu and nu, the codec's wire dtype, each
+    counter's expected launches: the codec's kernels once a leaf a
+    round)."""
+    from repro_torch.analysis.traffic import codec_wire_dtype
+    from repro_torch.comm.codec import get_codec
+    from repro_torch.optim import delta_wire_bytes
+    from repro_torch.utils.trees import tree_leaves, tree_params
+    codec = get_codec(lc.codec)
+    own = own_kernels(None if codec.lossless else "topk"
+                      if "topk" in codec.name
+                      else codec.name.removeprefix("ef:"))
+    want = {fn.__name__: 0 for fn in counters}
+    want.update({n: len(tree_leaves(params)) * rounds for n in own})
+    return (delta_wire_bytes(params, lc, K), 2 * K * 4 * 2
+            * tree_params(params), codec_wire_dtype(lc.codec), want)
+
+
+def lu_nccl_phase(torch, counters, work, device="cuda") -> dict:
+    """Phase 12a: each codec of ``LU_NCCL_PATHS`` at full width on a
+    1-rank NCCL group in this process, against ``virtual_round`` at K = 1
+    (run twice first) by params hash; returns each codec kernel's
+    launches and times at the largest leaf by path."""
+    import numpy as np
+    import torch.distributed as tdist
+
+    from repro_torch.comm.collectives import Fabric
+    from repro_torch.launch.dist import init_group
+    from repro_torch.optim import LocalUpdatesConfig
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_params
+
+    full_f32_matmul()
+    free(torch)
+    cfg, _, params, opt_cfg, step_of = lu_model(torch, None, device)
+    step = step_of()
+    batches = lu_batches(torch, cfg, 1, device)
+    out = {}
+    init_group("nccl", "file://" + os.path.join(work, "lu_nccl"), 1, 0)
+    try:
+        fab = Fabric()
+        for codec_name in LU_NCCL_PATHS:
+            t0 = time.perf_counter()
+            lc = LocalUpdatesConfig(H=LM_H, codec=codec_name)
+            virt = [lu_virtual(torch, step, params, opt_cfg, lc, batches)
+                    for _ in range(2)]
+            virtual_s = time.perf_counter() - t0
+            free(torch)
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t1 = time.perf_counter()
+            rounds, timing = lu_dist_rounds(
+                torch, step, params, opt_cfg, lc, batches, fab, counters,
+                time_leaf=True)[1:]
+            dist_s = time.perf_counter() - t1
+            launches = {fn.__name__: fn.launches for fn in counters}
+            peak = torch.cuda.max_memory_allocated()
+            free(torch)
+            want_delta, want_opt, wire_dt, want_l = lu_expected(
+                lc, params, 1, LU_ROUNDS, counters)
+            rounds = [lu_round_summary(r, want_delta, want_opt, 1, wire_dt)
+                      for r in rounds]
+            hashes = [r["hash"] for r in rounds]
+            checks = dict(
+                deterministic=virt[0] == virt[1],
+                same_as_virtual=hashes == [v["hash"] for v in virt[0]],
+                bytes=all(r["bytes_ok"] for r in rounds),
+                dtypes=all(r["dtypes_ok"] for r in rounds),
+                staged=not any(r["staged"] for r in rounds),
+                launches=launches == want_l,
+                plain=plain_held(rounds[0]["plain_vs_kernel"], 2),
+                timed_equal_plain=all(t_["equal_to_plain"]
+                                      for t_ in timing.values()))
+            tokens = LM_H * LM_BATCH * LM_SEQ
+            line = dict(
+                path=codec_name, group="nccl", K=1, arch=cfg.name,
+                layers=cfg.num_layers, params=tree_params(params), H=LM_H,
+                batch=LM_BATCH, seq=LM_SEQ, rounds=LU_ROUNDS, lr=LM_LR,
+                sync_opt_state=True, checks=checks, launches=launches,
+                expected_launches=want_l, delta_wire_bytes=want_delta,
+                opt_sync_model_bytes=want_opt, rounds_detail=rounds,
+                virtual_losses=[v["loss"] for v in virt[0]],
+                tokens_per_round=tokens,
+                tokens_per_s=[tokens / r["round_ms"] * 1e3 for r in rounds],
+                kernels_at_largest_leaf=timing,
+                memory_allocated_before=held, max_memory_allocated=peak,
+                virtual_seconds=virtual_s, dist_seconds=dist_s)
+            phase_done(torch, "lu_nccl_path", t0, **line)
+            if not all(checks.values()):
+                raise SystemExit(f"chip_smoke: the 1-rank NCCL local-update "
+                                 f"path {codec_name} failed a check {checks} "
+                                 f"(see its lu_nccl_path line)")
+            out[codec_name] = dict(launches=launches, timing=timing,
+                                   median_round_ms=float(np.median(
+                                       [r["round_ms"] for r in rounds])))
+    finally:
+        tdist.destroy_process_group()
+    del params, step
+    free(torch)
+    return out
+
+
+def lu_gloo_rank(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of phase 12b: shard ``rank`` of each codec of
+    ``job["paths"]`` at ``job["layers"]`` layers over the gloo group's
+    Fabric, then ``LU_GRAD_SYNC_STEPS`` steps with the grads averaged over
+    the group; rank 0 also holds the ``f32`` path's round 1 against the
+    virtual run's params (``job["dir"]``)."""
+    import torch
+
+    from repro_torch.comm.collectives import Fabric
+    from repro_torch.kernels import dequant, quant
+    from repro_torch.kernels.topk import topk_select
+    from repro_torch.optim import LocalUpdatesConfig, adamw_init
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_leaves
+
+    full_f32_matmul()
+    started = time.time() - job["spawned_at"]
+    counters = ([topk_select]
+                + [getattr(quant, f"quantize_pack_{c}") for c in CODECS]
+                + [getattr(dequant, f"decode_reduce_{c}") for c in CODECS])
+    cfg, _, params, opt_cfg, step_of = lu_model(torch, job["layers"], device)
+    step = step_of()
+    batches = lu_batches(torch, cfg, world, device)
+    fab = Fabric()
+    out = {"paths": {}, "started_s": started,
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}
+    for codec_name in job["paths"]:
+        t0 = time.perf_counter()
+        lc = LocalUpdatesConfig(H=LM_H, codec=codec_name)
+        seen = {}
+
+        def keep(t, p):
+            if t == 1 and codec_name == "f32" and rank == 0:
+                virt = torch.load(os.path.join(job["dir"], "virtual_f32.pt"))
+                seen.update(f32_vs_virtual(torch, tree_leaves(p), virt))
+            if t == 1:
+                free_, total = torch.cuda.mem_get_info(device)
+                seen["card_used_bytes"] = total - free_
+
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(device)
+        rounds = lu_dist_rounds(torch, step, params, opt_cfg, lc, batches,
+                                fab, counters, keep=keep)[1]
+        want_delta, want_opt, wire_dt, want_l = lu_expected(
+            lc, params, world, LU_ROUNDS, counters)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        out["paths"][codec_name] = dict(
+            rounds=[lu_round_summary(r, want_delta, want_opt, world, wire_dt)
+                    for r in rounds],
+            launches=launches, launches_ok=launches == want_l,
+            max_memory_allocated=torch.cuda.max_memory_allocated(device),
+            seconds=time.perf_counter() - t0, **seen)
+        free(torch)
+    # synchronous data parallelism on the same ranks
+    t0 = time.perf_counter()
+    synced = step_of(grad_sync_axis=fab)
+    p, o = params, adamw_init(params, opt_cfg)
+    mine = {n: v[rank] for n, v in batches[0].items()}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for h in range(LU_GRAD_SYNC_STEPS):
+        p, o, m = synced(p, o, {n: v[h] for n, v in mine.items()})
+    end.record()
+    torch.cuda.synchronize(device)
+    out["grad_sync"] = dict(hash=tree_sha256(torch, p),
+                            steps_ms=start.elapsed_time(end),
+                            seconds=time.perf_counter() - t0)
+    return out
+
+
+def f32_vs_virtual(torch, got: list, want: list) -> dict:
+    """The ``f32`` path's params against the virtual run's, leaf by leaf:
+    the largest difference in units of the bf16 ulp at the virtual
+    value (a mean that differs in its last f32 bits can round a param to
+    its bf16 neighbour), and how many elements differ."""
+    worst, differ, n = 0.0, 0, 0
+    for a, b in zip(got, want):
+        b = b.to(a.device).float()
+        # |b| = m 2^e with m in [0.5, 1): bf16 keeps 8 significant bits
+        ulp = torch.ldexp(torch.ones_like(b), torch.frexp(b).exponent - 8)
+        diff = torch.abs(a.float() - b)
+        worst = max(worst, float(torch.max(diff / ulp)))
+        differ += int(torch.count_nonzero(diff))
+        n += a.numel()
+    return dict(f32_max_diff_bf16_ulps=worst, f32_elements_differing=differ,
+                f32_elements=n)
+
+
+def lu_gloo_phase(torch, counters, work, device="cuda") -> dict:
+    """Phase 12b: the depth whose ``LU_K`` ranks fit (one rank's peak
+    fitted from one-shard rounds at ``LU_PROBE_LAYERS``), ``virtual_round``
+    at K = ``LU_K`` on each path twice, then ``LU_K`` gloo ranks on the
+    one card (:func:`lu_gloo_rank`) held to it; returns each codec
+    kernel's launches on rank 0 by path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dist import spawn
+    from repro_torch.optim import (LocalUpdatesConfig, adamw_init,
+                                   init_delta_codec_state, virtual_round)
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_leaves, tree_params
+
+    full_f32_matmul()
+    t0 = time.perf_counter()
+    probe = {}
+    for layers in LU_PROBE_LAYERS:
+        free(torch)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, _, params, opt_cfg, step_of = lu_model(torch, layers, device)
+        lc = LocalUpdatesConfig(H=LM_H, codec=LU_GLOO_PATHS[-1])
+        virtual_round(step_of(), params, adamw_init(params, opt_cfg),
+                      {n: v[:1] for n, v in lu_batches(
+                          torch, cfg, 1, device)[0].items()}, lc,
+                      init_delta_codec_state(params, lc, shards=1))
+        torch.cuda.synchronize()
+        probe[layers] = torch.cuda.max_memory_allocated() - held
+        del params, step_of
+    free(torch)
+    (l0, p0), (l1, p1) = sorted(probe.items())
+    per_layer = (p1 - p0) / (l1 - l0)
+
+    def rank_bytes(layers):
+        return p0 + per_layer * (layers - l0) + LU_CONTEXT_BYTES
+
+    full_depth = get_config(LM_ARCH).num_layers
+    layers = max((d for d in range(1, full_depth + 1)
+                  if LU_K * rank_bytes(d) <= LU_GLOO_BYTES), default=None)
+    if layers is None:
+        raise SystemExit(f"chip_smoke: {LU_K} ranks of one layer need "
+                         f"{LU_K * rank_bytes(1):.4g} bytes, over "
+                         f"{LU_GLOO_BYTES:.4g} (probe peaks {probe})")
+    probe_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, _, params, opt_cfg, step_of = lu_model(torch, layers, device)
+    step = step_of()
+    batches = lu_batches(torch, cfg, LU_K, device)
+    virtual = {}
+    for codec_name in LU_GLOO_PATHS:
+        lc = LocalUpdatesConfig(H=LM_H, codec=codec_name)
+
+        def keep(t, p):
+            if t == 1 and codec_name == "f32":
+                torch.save([x.cpu() for x in tree_leaves(p)],
+                           os.path.join(work, "virtual_f32.pt"))
+        # the second run covers round 1, the one held to the ranks
+        virtual[codec_name] = [
+            lu_virtual(torch, step, params, opt_cfg, lc, batches, keep=keep),
+            lu_virtual(torch, step, params, opt_cfg, lc, batches[:1])]
+    n_params = tree_params(params)
+    want = {c: lu_expected(LocalUpdatesConfig(H=LM_H, codec=c), params,
+                           LU_K, LU_ROUNDS, counters) for c in LU_GLOO_PATHS}
+    del params, step, step_of, batches
+    free(torch)
+    virtual_s = time.perf_counter() - t0
+    parent_held = torch.cuda.memory_allocated()
+
+    t0 = time.perf_counter()
+    job = dict(layers=layers, paths=LU_GLOO_PATHS, dir=work,
+               spawned_at=time.time())
+    ranks = spawn(LU_K, lu_gloo_rank, backend="gloo", device="cuda",
+                  init_file=os.path.join(work, "lu_gloo"), args=(job,),
+                  timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    out, ok = {}, True
+    for codec_name in LU_GLOO_PATHS:
+        got = [r["paths"][codec_name] for r in ranks]
+        virt = virtual[codec_name]
+        hashes = [[rd["hash"] for rd in g["rounds"]] for g in got]
+        losses = np.array([[rd["loss"] for rd in g["rounds"]] for g in got])
+        checks = dict(
+            ranks_agree=all(h == hashes[0] for h in hashes),
+            deterministic=virt[0][0] == virt[1][0],
+            bytes=all(rd["bytes_ok"] for g in got for rd in g["rounds"]),
+            dtypes=all(rd["dtypes_ok"] for g in got for rd in g["rounds"]),
+            launches=all(g["launches_ok"] for g in got),
+            # the shards' mean at the first step against the last round's
+            # last step
+            loss_falls=float(losses[:, -1, -1].mean())
+            < float(losses[:, 0, 0].mean()))
+        checks["plain"] = all(plain_held(
+            g["rounds"][0]["plain_vs_kernel"], 0 if codec_name == "f32"
+            else 2) for g in got)
+        if codec_name == "f32":
+            f = got[0]
+            checks["f32_within_a_bf16_ulp"] = (
+                f["f32_max_diff_bf16_ulps"] <= 1.0
+                and f["f32_elements_differing"] <= 1e-5 * f["f32_elements"])
+        else:
+            checks["round1_equals_virtual"] = (hashes[0][0]
+                                               == virt[0][0]["hash"])
+        ok &= all(checks.values())
+        tokens = LU_K * LM_H * LM_BATCH * LM_SEQ
+        r0 = got[0]["rounds"]
+        line = dict(
+            path=codec_name, group="gloo", K=LU_K, ranks_on="cuda:0",
+            arch=cfg.name, layers=layers, params=n_params, H=LM_H,
+            batch=LM_BATCH, seq=LM_SEQ, rounds=LU_ROUNDS, lr=LM_LR,
+            sync_opt_state=True, checks=checks,
+            delta_wire_bytes=want[codec_name][0],
+            opt_sync_model_bytes=want[codec_name][1],
+            launches_rank0=got[0]["launches"],
+            loss_by_rank=losses.tolist(),
+            virtual_round1_hash_equal_by_rank=[
+                h[0] == virt[0][0]["hash"] for h in hashes],
+            rounds_rank0=r0,
+            plain_vs_kernel_by_rank=[g["rounds"][0]["plain_vs_kernel"]
+                                     for g in got],
+            round_ms_by_rank=[[rd["round_ms"] for rd in g["rounds"]]
+                              for g in got],
+            opt_sync_ms_by_rank=[[rd["opt_sync_ms"] for rd in g["rounds"]]
+                                 for g in got],
+            tokens_per_s=[tokens / rd["round_ms"] * 1e3 for rd in r0],
+            tokens_per_s_label=(f"{LU_K} processes time-sharing one card in "
+                                f"a gloo group, every payload through the "
+                                f"host: not a multi-GPU number"),
+            max_memory_allocated_by_rank=[g["max_memory_allocated"]
+                                          for g in got],
+            card_used_bytes_by_rank=[g["card_used_bytes"] for g in got],
+            seconds_by_rank=[g["seconds"] for g in got],
+            **({k: got[0][k] for k in ("f32_max_diff_bf16_ulps",
+                                         "f32_elements_differing",
+                                         "f32_elements")}
+               if codec_name == "f32" else {}))
+        emit(phase="lu_gloo_path", **line)
+        out[codec_name] = dict(launches=got[0]["launches"])
+    gs = [r["grad_sync"] for r in ranks]
+    grad_ok = len({g["hash"] for g in gs}) == 1
+    alloc = [r["alloc_conf"] for r in ranks]
+    phase_done(torch, "lu_gloo", t0, K=LU_K, layers=layers,
+               full_depth=full_depth, probe_peak_bytes=probe,
+               per_layer_bytes=per_layer,
+               rank_bytes_model=rank_bytes(layers),
+               context_bytes_assumed=LU_CONTEXT_BYTES,
+               budget_bytes=LU_GLOO_BYTES, probe_seconds=probe_s,
+               parent_memory_allocated=parent_held,
+               virtual_seconds=virtual_s, spawn_seconds=spawn_s,
+               rank_started_seconds=[r["started_s"] for r in ranks],
+               alloc_conf_by_rank=alloc,
+               grad_sync=dict(steps=LU_GRAD_SYNC_STEPS, ranks_agree=grad_ok,
+                              steps_ms_by_rank=[g["steps_ms"] for g in gs]))
+    if not (ok and grad_ok and alloc == [os.environ.get(
+            "PYTORCH_CUDA_ALLOC_CONF")] * LU_K):
+        raise SystemExit("chip_smoke: a gloo local-update path failed a "
+                         "check (see its lu_gloo_path line and the lu_gloo "
+                         "line)")
+    return out
+
+
+def analysis_phase(torch, work) -> None:
+    """Phase 13: ``python -m repro_torch.analysis --cells all --inject
+    wire-f32`` on ``LU_K`` gloo ranks on the card, in one group: every
+    reference cell clean, the injected cell tripping wire-dtype and
+    bytes-match (so the CLI's exit code is 1)."""
+    import io
+
+    from repro_torch.analysis import run as analysis_run
+    from repro_torch.analysis.cells import all_cells
+    t0 = time.perf_counter()
+    path = os.path.join(work, "ANALYSIS.json")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = analysis_run.main(["--cells", "all", "--devices", str(LU_K),
+                                "--inject", "wire-f32", "--out", path])
+    with open(path) as f:
+        report = json.load(f)
+    errors = [x for x in report["findings"] if x["severity"] == "error"]
+    injected = [x for x in errors if "injected-f32-wire" in x["cell"]]
+    checks = dict(
+        exit_code=rc == 1,
+        clean=len(injected) == len(errors),
+        tripped={x["rule"] for x in injected} == {"bytes-match",
+                                                  "wire-dtype"},
+        cells=report["summary"]["cells"] == len(all_cells()) + 1)
+    phase_done(torch, "analysis", t0, K=LU_K, ranks_on="cuda:0",
+               cells=report["summary"]["cells"], summary=report["summary"],
+               rules=[r["id"] for r in report["rules"]], checks=checks,
+               findings_outside_the_injected_cell=len(errors) - len(injected),
+               injected_findings=len(injected), exit_code=rc)
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: the analysis sweep found an error or "
+                         "missed the injected one (see the analysis line):\n"
+                         + printed.getvalue()[-4000:])
 
 
 def main(argv=None) -> int:
@@ -2757,6 +3510,23 @@ def main(argv=None) -> int:
     emit(phase="serve", seconds=time.perf_counter() - t11,
          paths=[arch for arch, *_ in SERVE_PATHS])
 
+    # -- 12. local-update rounds across ranks: 1-rank NCCL, gloo ranks --
+    t12 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_lu")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        lu_nccl = lu_nccl_phase(torch, counters, work)
+        lu_gloo = lu_gloo_phase(torch, counters, work)
+        emit(phase="local_updates_dist", seconds=time.perf_counter() - t12)
+
+        # -- 13. the analysis sweep over the recorded logs --------------
+        t13 = time.perf_counter()
+        analysis_phase(torch, work)
+        emit(phase="analysis_sweep", seconds=time.perf_counter() - t13)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the
     # baselines' (which never launch K1)
@@ -2832,6 +3602,20 @@ def main(argv=None) -> int:
         # its times at the largest leaf of that path's model
         entry["transformer"] = lm_entries.get(
             name, "not on the transformer paths")
+        # phase 12: launches by path (12a on the NCCL rank, 12b on gloo
+        # rank 0) and 12a's times at the largest leaf, one (1, L) row
+        dist_l = {f"nccl {c_}": v["launches"][name]
+                  for c_, v in lu_nccl.items() if v["launches"][name]}
+        dist_l.update({f"gloo rank 0 {c_}": v["launches"].get(name, 0)
+                       for c_, v in lu_gloo.items()
+                       if v["launches"].get(name, 0)})
+        tkey = {"topk_select": "topk"}.get(name, name.replace(
+            "quantize_pack_", "").replace("decode_reduce_", "decode_"))
+        timed = {c_: v["timing"][tkey] for c_, v in lu_nccl.items()
+                 if tkey in v["timing"]}
+        entry["local_updates_dist"] = (
+            dict(launches=dist_l, at_largest_leaf=timed) if dist_l
+            else "not on the local-update paths")
     by_key["scd_solve"]["tradeoff_device_ms_by_H"] = {
         str(H_): t for H_, t in k1_by_H.items()}
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,9 @@ The sharded driver runs one process per worker in a
 ``torch.distributed`` process group. Every call into the group goes
 through one :class:`Fabric`, which knows the group's size and this
 rank, stages tensors where the group's backend needs them and records
-what it moved. On top of it two backends, under the reference's names
+what it moved; :func:`data_fabric` makes one of a data-axis argument
+and :func:`pmean` averages over it (the local-update rounds and the
+train step's gradient sync). On top of it two backends, under the reference's names
 so that every exchange spec parses as it does there:
 
   * ``xla``   one fused ``torch.distributed`` call per exchange
@@ -67,13 +69,15 @@ class LoggedCall:
     ``all_gather``, ``reduce_scatter``, ``send`` or ``broadcast``), the
     operand's dtype (``torch`` name: ``float32``, ``int8``, ...), the
     operand bytes this rank put in, whether the operand was copied to
-    the host for the group, and the 1-based round it belongs to
-    (``None`` outside a round)."""
+    the host for the group, the 1-based round it belongs to (``None``
+    outside a round) and, for a ``send``, the global rank it went to
+    (``None`` for every other op)."""
     op: str
     dtype: str
     nbytes: int
     staged: bool
     round: int | None
+    peer: int | None = None
 
 
 class CollectiveLog(list):
@@ -141,12 +145,13 @@ class Fabric:
             return x.cpu(), True
         return x, False
 
-    def _record(self, op: str, x: torch.Tensor, staged: bool) -> None:
+    def _record(self, op: str, x: torch.Tensor, staged: bool,
+                peer: int | None = None) -> None:
         log = _RECORDING.get()
         if log is not None:
             log.append(LoggedCall(op, str(x.dtype).removeprefix("torch."),
                                   x.numel() * x.element_size(), staged,
-                                  self.round))
+                                  self.round, peer))
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x``."""
@@ -186,12 +191,12 @@ class Fabric:
             return x
         h, staged = self._stage(x)
         buf = torch.empty_like(h)
-        ops = [tdist.P2POp(tdist.isend, h, self._global((self.rank + 1)
-                                                        % self.K), self.group),
+        dst = self._global((self.rank + 1) % self.K)
+        ops = [tdist.P2POp(tdist.isend, h, dst, self.group),
                tdist.P2POp(tdist.irecv, buf, self._global((self.rank - 1)
                                                           % self.K),
                            self.group)]
-        self._record("send", h, staged)
+        self._record("send", h, staged, dst)
         for req in tdist.batch_isend_irecv(ops):
             req.wait()
         return buf.to(x.device) if staged else buf
@@ -203,6 +208,28 @@ class Fabric:
         self._record("broadcast", h, staged)
         tdist.broadcast(h, self._global(0), group=self.group)
         return h.to(x.device) if staged else h
+
+
+def data_fabric(axis_name) -> Fabric | None:
+    """The fabric a round exchanges over: ``None`` (no exchange), a
+    :class:`Fabric`, or a ``torch.distributed`` process group wrapped in
+    one. The port has no device mesh, so a mesh-axis name raises."""
+    if axis_name is None or isinstance(axis_name, Fabric):
+        return axis_name
+    if isinstance(axis_name, tdist.ProcessGroup):
+        return Fabric(axis_name)
+    raise TypeError(
+        f"data axis {axis_name!r}: takes None, a repro_torch.comm."
+        f"collectives.Fabric or a torch.distributed process group; the "
+        f"port has no device mesh, so no mesh-axis name (ROADMAP.md, "
+        f"Queue 1 item 13)")
+
+
+def pmean(x: torch.Tensor, fabric: Fabric) -> torch.Tensor:
+    """The mean of every rank's ``x`` in its own dtype: the all-reduced
+    sum divided by K as a tensor (a true quotient on the card)."""
+    total = fabric.all_reduce(x)
+    return total / torch.full_like(total, float(fabric.K))
 
 
 # ---------------------------------------------------------------------------

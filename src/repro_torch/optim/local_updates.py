@@ -16,16 +16,24 @@ decode. An ``ef:`` codec carries a per-shard residual of every leaf
 
 Two drivers:
 
-* :func:`local_updates_round` runs one shard's H steps with no data
-  axis: the reference's ``axis_name=None`` (what its launcher runs).
+* :func:`local_updates_round` runs this shard's H steps and then, with
+  ``axis_name`` a :class:`~repro_torch.comm.collectives.Fabric` or a
+  ``torch.distributed`` process group (one process a data shard), the
+  exchange across its ranks through the fabric: under ``f32`` the
+  reference's ``pmean`` (one ``all_reduce`` of the f32 delta a leaf,
+  divided by K); under a lossy codec :func:`_codec_mean` (this rank's
+  delta encoded as one ``(1, L)`` row, each wire part all-gathered in
+  rank order, one decode+mean of the ``(K, ...)`` parts). With
+  ``axis_name=None`` nothing is exchanged (what the launcher runs).
 * :func:`virtual_round` runs K shards held on one device, one after
   another, then the exchange leaf by leaf in leaf order: the K f32
   deltas ``pH - p0`` as a ``(K, L)`` stack, encoded in one launch,
   decoded and averaged in worker order in one launch, and ``p0 + mean``
-  written back in the param dtype. It is the counterpart of the
-  reference's ``_codec_mean`` under ``shard_map`` (the all-gather of a
-  stack held on one device is the stack itself), as
-  ``core.distributed.build_virtual_round`` is for CoCoA.
+  written back in the param dtype. The all-gather of a stack held on
+  one device is the stack itself, so a rank's codec row is encoded and
+  the gathered rows decoded as here: the two drivers agree bit for bit
+  under a lossy codec, and under ``f32`` and for the opt state up to
+  the order of the all-reduce's sum.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.comm import get_codec
 from repro_torch.comm.codec import FP_ITEMSIZE
+from repro_torch.comm.collectives import Fabric, data_fabric, pmean
 from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
 
 
@@ -97,35 +106,117 @@ def init_delta_codec_state(params, cfg: LocalUpdatesConfig,
 
 
 def _steps(step_fn, params, opt_state, batches):
-    """One shard's steps over the leading axis of ``batches``; the
-    metrics stacked over the steps."""
-    n = next(iter(batches.values())).shape[0]
+    """One shard's steps over the leading axis of every leaf of
+    ``batches`` (any tree: a dict, a tuple ``(X, Y)``); the metrics
+    stacked over the steps."""
+    n = tree_leaves(batches)[0].shape[0]
     ms = []
     for h in range(n):
         params, opt_state, m = step_fn(params, opt_state,
-                                       {k: v[h] for k, v in batches.items()})
+                                       tree_map(lambda v: v[h], batches))
         ms.append(m)
     metrics = {k: torch.stack([torch.as_tensor(m[k]) for m in ms])
                for k in ms[0]}
     return params, opt_state, metrics
 
 
+def _pmean_f32(x: torch.Tensor, fabric: Fabric) -> torch.Tensor:
+    """:func:`pmean` in f32, cast back to ``x``'s dtype."""
+    return pmean(x.float(), fabric).to(x.dtype)
+
+
+def _codec_mean(delta: torch.Tensor, codec, fabric: Fabric, state=None):
+    """The lossy replacement for the f32 pmean of one leaf's f32 delta,
+    the reference's ``_codec_mean``: this rank's delta as one ``(1, L)``
+    row, encoded (K2, or K4, on the card; through ``encode_with_state``
+    with this rank's ``(L,)`` residual), each wire part all-gathered into
+    ``(K, ...)`` in rank order, and one decode+mean of the gathered parts
+    (K3, or the topk decode). Returns (the mean, shaped as ``delta``, the
+    new ``(L,)`` residual or None, the gathered parts)."""
+    row = delta.reshape(1, -1)
+    if state is None:
+        parts = codec.encode(row)
+    else:
+        parts, state = codec.encode_with_state(row, state.reshape(1, -1))
+        state = state.reshape(-1)
+    gathered = tuple(fabric.all_gather(p) for p in parts)
+    mean = codec.decode_stacked_mean(gathered, row.shape[1])
+    return mean.reshape(delta.shape), state, gathered
+
+
+def _exchange_deltas(p0, shard: list, codec, fabric: Fabric, states=None):
+    """The delta exchange, leaf by leaf in leaf order: ``p0 + mean`` of
+    the ranks' f32 deltas ``shard - p0`` in the param dtype (each of the
+    ``shard`` leaves is dropped from the list once spent). Returns (the
+    new params' leaves, the new residuals or None, the wire bytes: twice
+    the bytes of every rank's encoded parts, as :func:`virtual_round`
+    counts them)."""
+    new, new_states, wire = [], [], 0
+    for i, p in enumerate(tree_leaves(p0)):
+        p0f = p.float().reshape(-1)
+        delta = shard[i].float().reshape(-1) - p0f
+        shard[i] = None
+        if codec.lossless:
+            mean, st, parts = pmean(delta, fabric), None, (delta,)
+            wire += 2 * fabric.K * delta.numel() * delta.element_size()
+        else:
+            mean, st, parts = _codec_mean(
+                delta, codec, fabric, None if states is None else states[i])
+            wire += 2 * sum(t.numel() * t.element_size() for t in parts)
+        del delta, parts
+        new_states.append(st)
+        new.append((p0f + mean).reshape(p.shape).to(p.dtype))
+    return new, (None if states is None else new_states), wire
+
+
+def _sync_opt_state(opt_state, fabric: Fabric):
+    """The opt state's float leaves averaged over the ranks in f32 and
+    cast back; the step ``count`` as it is."""
+    return tree_map(lambda x: _pmean_f32(x, fabric)
+                    if x.is_floating_point() else x, opt_state)
+
+
 def local_updates_round(step_fn, params, opt_state, batches,
                         cfg: LocalUpdatesConfig, axis_name=None,
                         codec_state=None):
-    """One shard's round with no data axis (``axis_name=None``): the
-    steps of ``batches``' leading axis (H of them), nothing exchanged.
+    """Run cfg.H local steps, then average across the ranks of
+    ``axis_name``.
+
     step_fn(params, opt_state, batch) -> (params, opt_state, metrics)
-    must not synchronise gradients. With ``codec_state`` the return
-    grows a fourth element, the state unchanged. The reference's
-    exchange across a data axis is not ported: any ``axis_name`` raises
-    (ROADMAP.md, Queue 1 item 14)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"local_updates_round: axis_name={axis_name!r}: the exchange "
-            f"across a data axis is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 14); K shards on one device are virtual_round")
+    must not synchronise gradients. ``batches`` is a tree (a dict, a
+    tuple ``(X, Y)``) whose leaves have a leading axis H: this shard's
+    microbatches. ``axis_name``: ``None`` runs the steps alone, nothing
+    exchanged; a :class:`Fabric` or a ``torch.distributed`` process
+    group (one process a shard) exchanges across its ranks
+    (:func:`data_fabric`): the deltas under ``cfg.average="delta"``
+    (the f32 pmean, or :func:`_codec_mean` under a lossy codec), the
+    params' f32 pmean under ``"params"``, then with
+    ``cfg.sync_opt_state`` the opt state's float leaves.
+    ``codec_state`` (:func:`init_delta_codec_state`, this shard's own
+    ``(L,)`` residual a leaf) carries an ``ef:`` codec's residual; when
+    passed, the return grows a fourth element, the new state. Across
+    ranks ``metrics`` also holds ``wire_bytes``: twice the bytes of the
+    K ranks' operands of the exchange (the encoded parts under a lossy
+    codec), ``delta_wire_bytes`` for a delta exchange."""
+    fabric = data_fabric(axis_name)
     pH, oH, metrics = _steps(step_fn, params, opt_state, batches)
+    if fabric is not None:
+        if cfg.average == "delta":
+            states = (None if codec_state is None
+                      else tree_leaves(codec_state))
+            shard = tree_leaves(pH)
+            pH = None
+            new, states, metrics["wire_bytes"] = _exchange_deltas(
+                params, shard, get_codec(cfg.codec), fabric, states)
+            pH = tree_unflatten(params, new)
+            if states is not None:
+                codec_state = tree_unflatten(codec_state, states)
+        else:
+            pH = tree_map(lambda x: _pmean_f32(x, fabric), pH)
+            metrics["wire_bytes"] = 2 * fabric.K * FP_ITEMSIZE * sum(
+                _numel(p) for p in tree_leaves(pH))
+        if cfg.sync_opt_state:
+            oH = _sync_opt_state(oH, fabric)
     if codec_state is None:
         return pH, oH, metrics
     return pH, oH, metrics, codec_state
@@ -161,7 +252,8 @@ def virtual_round(step_fn, params, opt_state, batches,
     """A round over K shards held on one device.
 
     ``params``: the round's start, the same on every shard. ``batches``:
-    tensors with leading axes (K, H): shard k's H microbatches.
+    a tree of tensors with leading axes (K, H): shard k's H
+    microbatches.
     ``opt_state``: one tree every shard starts from, or a list of K (the
     shards' own, when ``cfg.sync_opt_state`` is off). ``codec_state``:
     the ``(K, L)`` residuals of ``init_delta_codec_state(..., shards=K)``
@@ -175,9 +267,10 @@ def virtual_round(step_fn, params, opt_state, batches,
     finishes), else each shard keeps its own. Returns (params, opt_state
     (one tree, or the list of K), metrics with leading axes (K, H) plus
     ``wire_bytes``, twice the bytes of the encoded parts: what the
-    exchange put on a wire, up and back) and, with ``codec_state``, the
-    new residuals."""
-    K = next(iter(batches.values())).shape[0]
+    exchange put on a wire, up and back; the f32 params under
+    ``average="params"``) and, with ``codec_state``, the new
+    residuals."""
+    K = tree_leaves(batches)[0].shape[0]
     opts = opt_state if isinstance(opt_state, list) else [opt_state] * K
     if len(opts) != K:
         raise ValueError(f"virtual_round: {len(opts)} opt states for "
@@ -186,7 +279,7 @@ def virtual_round(step_fn, params, opt_state, batches,
     shard_params, shard_opts, ms, opt_sum = [], [], [], None
     for k in range(K):
         pH, oH, m = _steps(step_fn, params, opts[k],
-                           {n: v[k] for n, v in batches.items()})
+                           tree_map(lambda v: v[k], batches))
         shard_params.append(tree_leaves(pH))
         ms.append(m)
         if not cfg.sync_opt_state:
@@ -208,6 +301,7 @@ def virtual_round(step_fn, params, opt_state, batches,
             new.append(_mean_rows([s[i] for s in shard_params]).to(p.dtype))
             for s in shard_params:
                 s[i] = None
+            wire += 2 * K * FP_ITEMSIZE * p.numel()
             continue
         p0f = p.float().reshape(-1)
         stack = torch.empty((K, p0f.shape[0]), dtype=torch.float32,

@@ -1,10 +1,10 @@
 """Train-step factory: the port of ``repro.train.step`` (loss + grad +
-AdamW, with optional per-layer remat and gradient accumulation over
-microbatches). A step never synchronises gradients: the local-update
-rounds (``repro_torch.optim.local_updates``) exchange parameter deltas
-instead, and the reference's ``grad_sync_axis`` belongs to its
-``shard_map`` driver, which the port does not have for this workload
-yet.
+AdamW, with optional per-layer remat, gradient accumulation over
+microbatches, and optional gradient averaging across the ranks of a
+``torch.distributed`` group: synchronous data parallelism, one process
+a data shard). Inside local-update rounds
+(``repro_torch.optim.local_updates``) a step does not synchronise: the
+round exchanges parameter deltas instead.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.comm.collectives import data_fabric, pmean
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.train.loss import lm_loss
@@ -24,16 +25,25 @@ def batch_to(batch: dict, device) -> dict:
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
-                    schedule: Callable | None = None,
+                    grad_sync_axis=None, schedule: Callable | None = None,
                     microbatch: int | None = None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics), all tensors on the params' device (no host sync).
+    metrics), all tensors on the params' device (no host sync without
+    ``grad_sync_axis``).
 
     remat: checkpoint each layer (the reference's per-layer-cycle
-    policy). microbatch: gradient-accumulate over N sequential
-    microbatches (the batch's leading dim split N ways), in f32.
-    schedule(step_no) -> lr scale; the cosine schedule by default.
+    policy). grad_sync_axis: ``None`` (no sync), a
+    :class:`~repro_torch.comm.collectives.Fabric` or a
+    ``torch.distributed`` process group: every gradient leaf is averaged
+    across its ranks in the leaf's own dtype (the reference's ``pmean``:
+    an all-reduce, then a division by K as a tensor), after the
+    microbatch accumulation and before AdamW. microbatch:
+    gradient-accumulate over N sequential microbatches (the batch's
+    leading dim split N ways), in f32. schedule(step_no) -> lr scale;
+    the cosine schedule by default.
     """
+    fabric = data_fabric(grad_sync_axis)
+
     def grads_of(params, batch):
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
@@ -64,6 +74,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
             grads = g_acc
         else:
             _, metrics, grads = grads_of(params, batch)
+        if fabric is not None:
+            grads = [pmean(g, fabric) for g in grads]
         grads = tree_unflatten(params, grads)
         step_no = opt_state["count"] + 1
         lr_scale = (schedule(step_no) if schedule is not None

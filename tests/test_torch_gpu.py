@@ -1167,6 +1167,90 @@ def test_one_full_width_round_launches_and_bytes(cuda):
     assert bool(tree_allfinite(p))
 
 
+def _reduced_round_inputs(device, K: int, H: int = 2):
+    """The reduced tinyllama in f32 (seed 0) on ``device``, its step and
+    K shards' H batches (2 x 32 tokens each), all made on the device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.utils.device import full_f32_matmul
+    full_f32_matmul()
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        torch.float32)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    gen = torch.Generator(device=device).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (K, H, 2, 32), device=device,
+                        generator=gen)
+    return (make_train_step(model, opt_cfg), params,
+            adamw_init(params, opt_cfg), {"tokens": tok, "labels": tok})
+
+
+def _same_bits(a, b) -> bool:
+    from repro_torch.utils.trees import tree_leaves
+    return all(torch.equal(_bits(x), _bits(y))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def test_local_updates_round_on_a_one_rank_nccl_group(cuda, one_rank_group):
+    """One ``int8`` round over a 1-rank NCCL group (K2 and K3 once a
+    leaf, no copy staged) equals ``virtual_round`` at K = 1 bit for
+    bit."""
+    from repro_torch.comm.collectives import Fabric, recording
+    from repro_torch.kernels import dequant, quant
+    from repro_torch.optim import (LocalUpdatesConfig, local_updates_round,
+                                   virtual_round)
+    step, params, opt, batches = _reduced_round_inputs(cuda, 1)
+    lc = LocalUpdatesConfig(H=2, codec="int8")
+    want = virtual_round(step, params, opt, batches, lc)
+    one_rank_group("nccl")
+    fns = (quant.quantize_pack_int8, dequant.decode_reduce_int8)
+    before = [f.launches for f in fns]
+    with recording() as log:
+        got = local_updates_round(step, params, opt,
+                                  {n: v[0] for n, v in batches.items()}, lc,
+                                  Fabric())
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [12, 12]
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert got[2]["wire_bytes"] == want[2]["wire_bytes"]
+    assert not any(c.staged for c in log)
+
+
+def _gloo_ef_topk_rank(rank, world, device):
+    """Rank ``rank`` of a 2-rank gloo group on the card: one
+    ``ef:topk(r=0.125)`` round of shard ``rank``; rank 0 also runs
+    ``virtual_round`` at K = 2 and compares."""
+    from repro_torch.comm.collectives import Fabric
+    from repro_torch.optim import (LocalUpdatesConfig,
+                                   init_delta_codec_state,
+                                   local_updates_round, virtual_round)
+    from repro_torch.utils.trees import tree_map
+    step, params, opt, batches = _reduced_round_inputs(device, world)
+    lc = LocalUpdatesConfig(H=2, codec="ef:topk(r=0.125)")
+    got = local_updates_round(step, params, opt,
+                              {n: v[rank] for n, v in batches.items()}, lc,
+                              Fabric(), init_delta_codec_state(params, lc))
+    want = virtual_round(step, params, opt, batches, lc,
+                         init_delta_codec_state(params, lc, shards=world))
+    return dict(params=_same_bits(got[0], want[0]),
+                opt=_same_bits(got[1], want[1]),
+                residual=_same_bits(got[3], tree_map(lambda x: x[rank],
+                                                     want[3])))
+
+
+def test_local_updates_round_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on ``cuda:0`` (every payload through the host),
+    ``ef:topk(r=0.125)``: each rank's params, opt state and residual row
+    equal ``virtual_round``'s at K = 2 bit for bit."""
+    from repro_torch.launch.dist import spawn
+    res = spawn(2, _gloo_ef_topk_rank, device="cuda",
+                init_file=str(tmp_path / "init"), timeout_s=240)
+    assert res == [dict(params=True, opt=True, residual=True)] * 2
+
+
 def test_launch_train_reduced_runs_on_the_card(cuda, capsys, tmp_path):
     """``python -m repro_torch.launch.train --reduced`` with local rounds
     under ``compressed:int8`` and a checkpoint, on the card by default."""

@@ -47,7 +47,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "data.tokens", "utils.trees", "launch.train",
                  "examples.train_lm", "configs.nemotron4",
                  "configs.command_r", "serve", "serve.decode",
-                 "launch.serve", "examples.serve_lm"):
+                 "launch.serve", "examples.serve_lm", "analysis.findings",
+                 "analysis.cells", "analysis.rules", "analysis.run"):
         assert f"repro_torch.{name}" in mods, name
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -104,6 +105,9 @@ def test_entry_points_raise_without_a_card():
         serve.main(["--reduced"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_lm.main([])
+    from repro_torch.analysis import run as analysis_run
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        analysis_run.main(["--cells", "codec", "--out", ""])
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):

@@ -6,7 +6,9 @@ of ``tests/test_distributed.py``): ``local_updates_round`` under
 ``shard_map`` for one K = 4 round (H = 2) of the reduced tinyllama in
 f32 under ``f32``, ``int8``, ``ef:int4`` and ``topk(r=0.125)``; and its
 ``_codec_mean`` alone, jitted under ``shard_map``, on the deltas its own
-shards' local steps produced. The port's ``virtual_round`` runs the same
+shards' local steps produced; and H steps of its
+``make_train_step(grad_sync_axis="data")``, shard k on its own batches.
+The port's ``virtual_round`` runs the same
 round on the carried params and the same batches, and its
 ``exchange_leaf`` takes the same deltas.
 
@@ -25,12 +27,31 @@ its last bits can move a code across a rounding edge, or a value across
 the top-k threshold): 5e-7 (int8), 2e-6 (int4) and 1e-5 (topk), with
 such elements under 0.5% of a leaf; an ``ef:`` residual within a whole
 code step (K times that).
+
+One spawned group of 4 gloo ranks (one CPU thread each, ``file://``
+init) runs ``local_updates_round`` with the group's ``Fabric`` as its
+``axis_name``, on the same carried params and batches, rank k shard k:
+against the reference's round at the tolerances above, and against
+``virtual_round`` (run here with one thread too). The codec paths are
+bit for bit: a rank's ``(1, L)`` row is encoded as row k of the
+virtual stack and the gathered rows decoded in worker order, as there.
+The ``f32`` mean and the opt-state sync add in gloo's order: within
+5e-7 (params) and rtol 1e-6 plus 1e-6 of a leaf's largest |value|
+(mu/nu) at K = 4, and bit for bit at K = 2 (a two-rank subgroup), where
+a sum of two does not depend on order. The same group runs the
+reference's H = 1 and codec toy rounds (``tests/test_distributed.py``)
+and ``make_train_step(grad_sync_axis=...)``, held to the reference's
+grad-synced steps at the ``f32`` round's tolerances. The delta exchange and the
+opt-state sync are recorded apart (the sync's calls into a recording of
+their own), every round.
 """
+import hashlib
 import json
 import math
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +71,11 @@ from repro.optim import cosine_schedule as ref_cosine
 from repro.optim import local_updates as ref_lu
 from repro.train import make_train_step as ref_make_train_step
 from repro.utils import trees as ref_trees
+from repro_torch.analysis.traffic import (derived_round_traffic,
+                                          payload_collectives,
+                                          quantized_wire_dtypes)
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.comm.collectives import CollectiveLog, Fabric, recording
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models import build_model
@@ -61,10 +86,13 @@ from repro_torch.optim import (AdamWConfig, LocalUpdatesConfig, adamw_init,
                                init_delta_codec_state, local_updates_round,
                                suggest_H, virtual_round)
 from repro_torch.comm import get_codec
+from repro_torch.launch.dist import spawn
+from repro_torch.optim import local_updates
 from repro_torch.train import make_train_step
+from repro_torch.train.loss import lm_loss
 from repro_torch.utils.trees import (tree_allfinite, tree_bytes,
                                      tree_flatten_with_path, tree_leaves,
-                                     tree_map, tree_params)
+                                     tree_map, tree_params, tree_unflatten)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "tinyllama-1.1b"
@@ -75,6 +103,15 @@ EXACT = ("int8", "int2", "topk(r=0.125)", "ef:topk(r=0.125)")
 ULP_CAVEAT = ("int4", "ef:int4")
 CODEC_NAMES = ("f32", "int8", "int4", "int2", "topk(r=0.125)",
                "ef:int4", "ef:int2", "ef:topk(r=0.125)")
+# the codecs the 4-rank group runs; all but f32 are held to virtual_round
+# bit for bit, K2 the two-rank subgroup's
+DIST_CODECS = ("f32", "int8", "int2", "ef:int4", "topk(r=0.125)",
+               "ef:topk(r=0.125)")
+LOSSY = DIST_CODECS[1:]
+K2_CODECS = ("f32", "int8")
+WIRE = {"f32": set(), "int8": {"int8"}, "int2": {"uint8"},
+        "ef:int4": {"uint8"}, "topk(r=0.125)": set(),
+        "ef:topk(r=0.125)": set()}
 
 REFERENCE = f"""
 import sys
@@ -171,6 +208,20 @@ for codec in {list(EXACT + ULP_CAVEAT)!r}:
                       mesh, in_specs=P("data"), out_specs=P())
         means = jax.jit(f)(deltas)
     put(means, codec + "/exchange")
+
+# synchronous data parallelism: H steps of the grad-synced step, shard k
+# on its own H batches
+synced = make_train_step(model, opt_cfg, grad_sync_axis="data")
+def dp(p, o, b):
+    b = jax.tree.map(lambda x: x[0], b)
+    for h in range(H):
+        p, o, _ = synced(p, o, jax.tree.map(lambda x: x[h], b))
+    return p, o
+pS, oS = jax.jit(shard_map(dp, mesh, in_specs=(P(), P(), P("data")),
+                           out_specs=(P(), P())))(params, opt, batches)
+put(pS, "grad_sync/params")
+put(oS["mu"], "grad_sync/mu")
+put(oS["nu"], "grad_sync/nu")
 np.savez(sys.argv[1], **out)
 print("OK")
 """
@@ -505,6 +556,372 @@ def test_virtual_round_without_opt_sync_and_by_params(reduced):
                                    atol=1e-9)
     with pytest.raises(ValueError, match="opt states"):
         virtual_round(step, params, opts[:2], bt, LocalUpdatesConfig(H=H))
+
+
+def _sgd(lr):
+    """The reference test's plain SGD step on ``mean((x @ w - y)^2)``,
+    batches the tuple ``(x, y)``."""
+    def step(w, o, b):
+        x, y = b
+        live = w.detach().requires_grad_(True)
+        g, = torch.autograd.grad(torch.mean((x @ live - y) ** 2), live)
+        return w - lr * g, o, {}
+    return step
+
+
+def test_a_tuple_batch_gives_what_the_same_data_in_a_dict_gives():
+    """``local_updates_round`` scans the leading axis of any tree of
+    batches, as the reference's ``lax.scan`` does."""
+    rng = np.random.default_rng(1)
+    X = torch.tensor(rng.standard_normal((3, 6, 4)), dtype=torch.float32)
+    Y = torch.tensor(rng.standard_normal((3, 6)), dtype=torch.float32)
+    w0 = torch.tensor(rng.standard_normal(4), dtype=torch.float32)
+    cfg = LocalUpdatesConfig(H=3)
+    by_tuple, _, _ = local_updates_round(_sgd(0.1), w0, {}, (X, Y), cfg)
+    sgd = _sgd(0.1)
+    by_dict, _, _ = local_updates_round(
+        lambda w, o, b: sgd(w, o, (b["x"], b["y"])), w0, {},
+        {"x": X, "y": Y}, cfg)
+    assert not torch.equal(by_tuple, w0)
+    assert torch.equal(by_tuple, by_dict)
+
+
+def _hash(tree) -> str:
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _grads(model, params, batch):
+    """The step's gradients of ``batch``'s loss at ``params`` (no sync)."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    loss, _ = lm_loss(model, tree_unflatten(params, live), batch)
+    return list(torch.autograd.grad(loss, live))
+
+
+def _toy_data():
+    """The reference tests' toy problems: (X, Y) of the H = 1 test, and
+    (X, Y, w0) of the codec test."""
+    rng = np.random.default_rng(0)
+    rng.standard_normal((8, 4, 3))            # the reference's dead draw
+    def f32(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+
+    sync = (f32((4, 1, 6, 3)), f32((4, 1, 6)))
+    rng = np.random.default_rng(0)
+    codec = (f32((4, 2, 6, 3)), f32((4, 2, 6)), f32(3))
+    return sync, codec
+
+
+def _lu_rank(rank, world, device, params, batches):
+    """Rank ``rank`` (shard ``rank``) of the 4-rank group: every round the
+    tests read. Rank 0 returns the params and opt states; every rank its
+    params' hash, its residuals and its recorded calls, the delta
+    exchange's and the opt-state sync's apart."""
+    import torch.distributed as tdist
+    fab = Fabric()
+    pair = tdist.new_group([0, 1])          # every rank takes part
+    model = build_model(get_config(ARCH).reduced())
+    opt_cfg = AdamWConfig(lr=1e-3)
+    step = make_train_step(model, opt_cfg)
+    mine = {n: v[rank] for n, v in batches.items()}
+    sync, opt_logs = local_updates._sync_opt_state, []
+
+    def sync_recorded(o, f):
+        with recording() as log:
+            out = sync(o, f)
+        opt_logs.append(list(log))
+        return out
+
+    local_updates._sync_opt_state = sync_recorded
+
+    def rounds(codec, n, fabric=fab, full=rank == 0, **kw):
+        cfg = LocalUpdatesConfig(H=H, codec=codec, **kw)
+        p, o = params, adamw_init(params, opt_cfg)
+        st = init_delta_codec_state(params, cfg)
+        outs = []
+        for t in range(1, n + 1):
+            fabric.round = t
+            opt_logs.clear()
+            with recording() as log:
+                out = local_updates_round(step, p, o, mine, cfg, fabric, st)
+            p, o, m = out[:3]
+            st = out[3] if st is not None else None
+            outs.append(dict(
+                hash=_hash(p), state=st, wire=m["wire_bytes"],
+                loss=m["loss"], delta_log=list(log),
+                opt_log=opt_logs[0] if opt_logs else None,
+                **(dict(params=p, mu=o["mu"], nu=o["nu"],
+                        count=int(o["count"])) if full else {})))
+        return outs
+
+    out = {"one": {c: rounds(c, 1) for c in DIST_CODECS},
+           "two": {c: rounds(c, 2, sync_opt_state=False)
+                   for c in DIST_CODECS},
+           "by_params": rounds("f32", 1, average="params")}
+    if rank < 2:
+        out["pair"] = {c: rounds(c, 1, fabric=Fabric(pair)) for c in K2_CODECS}
+    # the reference's toy rounds: H = 1 SGD (tuple batches), the codecs
+    (Xs, Ys), (Xc, Yc, w0) = _toy_data()
+    out["h1"] = local_updates_round(_sgd(0.1), torch.zeros(3), {},
+                                    (Xs[rank], Ys[rank]),
+                                    LocalUpdatesConfig(H=1), fab)[0]
+    out["toy"] = {(c, lr): local_updates_round(
+        _sgd(lr), w0, {}, (Xc[rank], Yc[rank]),
+        LocalUpdatesConfig(H=2, codec=c), fab)[0]
+        for c, lr in [(c, 0.05) for c in ("f32", "int8", "int4", "int2")]
+        + [(c, 0.0) for c in ("f32", "int8", "int4", "int2",
+                              "topk(r=0.25)", "ef:int4")]}
+    # synchronous data parallelism: two steps with the grads averaged
+    # over the group's Fabric, and over the pair's process group
+    p, o = params, adamw_init(params, opt_cfg)
+    synced = make_train_step(model, opt_cfg, grad_sync_axis=fab)
+    for h in range(H):
+        p, o, _ = synced(p, o, {n: v[h] for n, v in mine.items()})
+    out["grad_sync"] = _hash(p)
+    if rank == 0:
+        out["grad_sync_state"] = dict(params=p, mu=o["mu"], nu=o["nu"])
+    if rank < 2:
+        p2, o2 = params, adamw_init(params, opt_cfg)
+        synced = make_train_step(model, opt_cfg, grad_sync_axis=pair)
+        for h in range(H):
+            p2, o2, _ = synced(p2, o2, {n: v[h] for n, v in mine.items()})
+        out["pair_grad_sync"] = _hash(p2)
+    if rank == 0:
+        # one process: AdamW on (g0 + g1) / 2
+        p, o = params, adamw_init(params, opt_cfg)
+        for h in range(H):
+            g0, g1 = (_grads(model, p, {n: v[k, h] for n, v in
+                                        batches.items()}) for k in (0, 1))
+            g = [(a + b) / torch.full_like(a, 2.0) for a, b in zip(g0, g1)]
+            p, o, _ = adamw_update(p, tree_unflatten(p, g), o, opt_cfg,
+                                   cosine_schedule(o["count"] + 1))
+        out["pair_grad_sync_one_process"] = _hash(p)
+    return out
+
+
+@pytest.fixture(scope="module")
+def dist(reduced, tmp_path_factory):
+    init = tmp_path_factory.mktemp("lu_dist") / "init"
+    return spawn(K, _lu_rank, device="cpu", init_file=str(init),
+                 args=(reduced["params"], _batches()), timeout_s=240)
+
+
+@pytest.fixture(scope="module")
+def dist_virtual(reduced):
+    """``virtual_round`` on the group's batches with one thread, as each
+    rank runs: two rounds without the opt-state sync a lossy codec (the
+    params and residuals after each), one ``f32`` round with it, and one
+    round at K = 2 (shards 0 and 1) a codec of ``K2_CODECS``."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        params, bt = reduced["params"], _batches()
+        step = make_train_step(reduced["m"], AdamWConfig(lr=1e-3))
+        opt = adamw_init(params, AdamWConfig(lr=1e-3))
+        out = {}
+        for c in LOSSY:
+            cfg = LocalUpdatesConfig(H=H, codec=c, sync_opt_state=False)
+            p, o = params, opt
+            st = init_delta_codec_state(params, cfg, shards=K)
+            out[c] = []
+            for _ in range(2):
+                res = virtual_round(step, p, o, bt, cfg, st)
+                p, o = res[:2]
+                st = res[3] if st is not None else None
+                out[c].append(dict(params=p, state=st))
+        out["f32"] = virtual_round(step, params, opt, bt,
+                                   LocalUpdatesConfig(H=H))
+        for c in K2_CODECS:
+            out["pair", c] = virtual_round(
+                step, params, opt, {n: v[:2] for n, v in bt.items()},
+                LocalUpdatesConfig(H=H, codec=c))
+        return out
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _equal(a, b) -> bool:
+    return all(x.dtype == y.dtype and torch.equal(x.view(torch.int32),
+                                                  y.view(torch.int32))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("codec", list(ROUND_CODECS))
+def test_rounds_across_ranks_match_the_sharded_reference(sharded, dist,
+                                                         codec):
+    """One K = 4 round over the 4-rank group against the reference's
+    ``shard_map`` round: the tolerances of the module docstring; rank
+    k's ``ef:`` residual against the reference's shard k."""
+    got = dist[0]["one"][codec][0]
+    np.testing.assert_allclose(got["loss"].numpy(),
+                               sharded[codec + "/loss"][0], rtol=1e-5)
+    atol = ROUND_CODECS[codec]
+    for (key, a), b in zip(tree_flatten_with_path(got["params"]),
+                           _leaves(sharded, codec + "/params")):
+        a = a.numpy()
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=key)
+        assert np.mean(np.abs(a - b) > 2e-7) < 5e-3, key
+    for name in ("mu", "nu"):
+        for a, b in zip(tree_leaves(got[name]),
+                        _leaves(sharded, f"{codec}/{name}")):
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                       atol=1e-6 * np.abs(b).max())
+    assert got["count"] == H
+    if got["state"] is not None:
+        ref = _leaves(sharded, codec + "/state")
+        for r in range(K):
+            for a, b in zip(tree_leaves(dist[r]["one"][codec][0]["state"]),
+                            ref):
+                np.testing.assert_allclose(a.numpy(), b[r], rtol=0,
+                                           atol=K * atol)
+                assert np.mean(np.abs(a.numpy() - b[r]) > 2e-7) < 5e-3
+
+
+@pytest.mark.parametrize("codec", LOSSY)
+def test_rounds_across_ranks_equal_virtual_round(dist, dist_virtual, codec):
+    """Under a lossy codec every rank ends each round with
+    ``virtual_round``'s params, bit for bit (one round with the opt-state
+    sync, two without), and rank k's residual is row k of the virtual
+    ``(K, L)`` residual."""
+    want = dist_virtual[codec]
+    assert _equal(dist[0]["one"][codec][0]["params"], want[0]["params"])
+    assert _equal(dist[0]["two"][codec][1]["params"], want[1]["params"])
+    for r in range(K):
+        for run, t in (("one", 0), ("two", 0), ("two", 1)):
+            got = dist[r][run][codec][t]
+            assert got["hash"] == _hash(want[t]["params"]), (r, run, t)
+            if got["state"] is not None:
+                assert _equal(got["state"], tree_map(lambda x: x[r],
+                                                     want[t]["state"]))
+
+
+def test_f32_and_the_opt_state_follow_the_all_reduce(dist, dist_virtual):
+    """The ``f32`` mean and the opt-state sync add in gloo's order: at
+    K = 4 within 5e-7 (params) and rtol 1e-6 plus 1e-6 of each leaf's
+    largest |value| (mu, nu: every codec's, which round 1 leaves equal);
+    at K = 2 bit for bit."""
+    want = dist_virtual["f32"]
+    for a, b in zip(tree_leaves(dist[0]["one"]["f32"][0]["params"]),
+                    tree_leaves(want[0])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=5e-7)
+    for c in DIST_CODECS:
+        got = dist[0]["one"][c][0]
+        for name in ("mu", "nu"):
+            for a, b in zip(tree_leaves(got[name]),
+                            tree_leaves(want[1][name])):
+                np.testing.assert_allclose(
+                    a.numpy(), b.numpy(), rtol=1e-6,
+                    atol=1e-6 * float(b.abs().max()))
+    for c in K2_CODECS:
+        got, (p, o, _) = dist[0]["pair"][c][0], dist_virtual["pair", c]
+        assert _equal(got["params"], p)
+        assert _equal(got["mu"], o["mu"]) and _equal(got["nu"], o["nu"])
+        assert dist[1]["pair"][c][0]["hash"] == got["hash"]
+
+
+def test_average_by_params_equals_by_delta_across_ranks(dist):
+    by_p = dist[0]["by_params"][0]["params"]
+    for a, b in zip(tree_leaves(by_p),
+                    tree_leaves(dist[0]["one"]["f32"][0]["params"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=5e-7)
+    assert all(d["by_params"][0]["hash"] == dist[0]["by_params"][0]["hash"]
+               for d in dist)
+
+
+@pytest.mark.parametrize("codec", DIST_CODECS)
+def test_recorded_bytes_and_wire_dtypes_across_ranks(reduced, dist, codec):
+    """Every rank, every round: the delta exchange's recorded calls come
+    to ``delta_wire_bytes`` (and ``metrics["wire_bytes"]`` says so); the
+    opt-state sync's, recorded apart, to 2 K 4 bytes a float element of
+    mu and nu, and to nothing without the sync; the payload travels in
+    the codec's wire dtype, never as an f32 over 4 bytes when the codec
+    quantizes."""
+    params = reduced["params"]
+    want = delta_wire_bytes(params, LocalUpdatesConfig(codec=codec), K)
+    opt_bytes = 2 * K * 4 * 2 * tree_params(params)
+    fused = SimpleNamespace(backend="xla",
+                            scheme=SimpleNamespace(transport="compressed"))
+    for r in range(K):
+        runs = dist[r]["one"][codec] + dist[r]["two"][codec]
+        for t, got in enumerate(runs):
+            log = CollectiveLog(got["delta_log"])
+            assert derived_round_traffic(log, fused, K) == want
+            assert got["wire"] == want
+            assert quantized_wire_dtypes(log) == WIRE[codec]
+            if WIRE[codec]:
+                assert not any(c.dtype == "float32" and c.nbytes > 4
+                               for c in payload_collectives(log))
+            if t == 0:
+                assert derived_round_traffic(got["opt_log"], fused,
+                                             K) == opt_bytes
+            else:
+                assert got["opt_log"] is None
+            assert {c.round for c in log} == {1 if t < 2 else 2}
+
+
+def test_H1_sgd_equals_synchronous_data_parallelism_across_ranks(dist):
+    """``tests/test_distributed.py``'s property on the 4-rank group: one
+    H = 1 round of plain SGD (tuple batches, the Fabric as ``axis_name``)
+    is one step on the whole batch."""
+    (X, Y), _ = _toy_data()
+    w = torch.zeros(3).requires_grad_(True)
+    g, = torch.autograd.grad(torch.mean((X.reshape(-1, 3) @ w
+                                         - Y.reshape(-1)) ** 2), w)
+    w_ref = -0.1 * g
+    for d in dist:
+        assert float(torch.max(torch.abs(d["h1"] - w_ref))) < 1e-6
+
+
+def test_codec_delta_exchange_across_ranks(dist):
+    """The reference's codec test on the 4-rank group: int8, int4 and
+    int2 track the exact f32 round within their grid's multiple, and an
+    all-zero delta (lr = 0) comes back exactly zero under every codec."""
+    _, (_, _, w0) = _toy_data()
+    toy = dist[0]["toy"]
+    d_f32 = float(torch.max(torch.abs(toy["f32", 0.05] - w0)))
+    assert d_f32 > 0
+    for codec, mult in (("int8", 1.0), ("int4", 17.0), ("int2", 85.0)):
+        err = float(torch.max(torch.abs(toy[codec, 0.05] - toy["f32", 0.05])))
+        assert err <= 0.02 * mult * max(d_f32, 1e-9), (codec, err, d_f32)
+    for codec in ("f32", "int8", "int4", "int2", "topk(r=0.25)", "ef:int4"):
+        assert torch.equal(toy[codec, 0.0], w0), codec
+    for d in dist[1:]:
+        for key, w in d["toy"].items():
+            assert torch.equal(w, toy[key]), key
+
+
+def test_grad_sync_axis_keeps_every_rank_equal(dist):
+    """``make_train_step(grad_sync_axis=...)``: after two steps every
+    rank of the group holds the same params, and the pair's (a process
+    group) are, bit for bit, one process's AdamW steps on (g0 + g1) / 2."""
+    assert len({d["grad_sync"] for d in dist}) == 1
+    assert dist[0]["pair_grad_sync"] == dist[1]["pair_grad_sync"] == \
+        dist[0]["pair_grad_sync_one_process"]
+    assert dist[0]["grad_sync"] != dist[0]["pair_grad_sync"]
+
+
+def test_grad_sync_axis_matches_the_sharded_reference(sharded, dist):
+    """Two steps of ``make_train_step(grad_sync_axis=<Fabric>)`` on the
+    4-rank group, rank k on shard k's batches, against the reference's
+    ``make_train_step(grad_sync_axis="data")`` under ``shard_map`` on
+    the same carried params and batches: the f32 round's tolerances."""
+    got = dist[0]["grad_sync_state"]
+    assert len(_leaves(sharded, "grad_sync/params")) == len(
+        tree_leaves(got["params"]))
+    for (key, a), b in zip(tree_flatten_with_path(got["params"]),
+                           _leaves(sharded, "grad_sync/params")):
+        a = a.numpy()
+        np.testing.assert_allclose(a, b, rtol=0, atol=ROUND_CODECS["f32"],
+                                   err_msg=key)
+        assert np.mean(np.abs(a - b) > 2e-7) < 5e-3, key
+    for name in ("mu", "nu"):
+        for a, b in zip(tree_leaves(got[name]),
+                        _leaves(sharded, f"grad_sync/{name}")):
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                       atol=1e-6 * np.abs(b).max())
 
 
 # -- checkpoint -------------------------------------------------------------

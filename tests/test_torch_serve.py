@@ -47,6 +47,7 @@ from repro_torch.optim import local_updates_round
 from repro_torch.serve import greedy_generate, make_serve_step
 from repro_torch.train import make_train_step
 from repro_torch.train.loss import lm_loss
+from repro_torch.utils.trees import tree_leaves
 
 B, S, N = 2, 16, 4          # batch, prompt, decode steps fed seeded tokens
 TF_TOL = 0.15               # tests/test_models_smoke.py's decode bound
@@ -392,7 +393,11 @@ def test_serve_example_on_the_cpu(capsys):
 
 # -- API repairs: the reference's keywords and positions ---------------------
 
-def test_local_updates_round_takes_axis_name_sixth():
+def test_local_updates_round_takes_axis_name_sixth(tmp_path):
+    """The sixth parameter is the reference's ``axis_name``: a mesh-axis
+    name raises (the port has no mesh), a one-rank process group returns
+    what ``None`` does, and ``codec_state`` comes after it."""
+    import torch.distributed as tdist
     cfg = get_config("tinyllama-1.1b").reduced()
     m = build_model(cfg)
     params = m.init(torch.Generator().manual_seed(0))
@@ -402,15 +407,27 @@ def test_local_updates_round_takes_axis_name_sixth():
     bs = [ts.next_batch() for _ in range(2)]
     batches = {k: torch.tensor(np.stack([b[k] for b in bs])) for k in bs[0]}
     lc = LocalUpdatesConfig(H=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(TypeError, match="Queue 1 item 13"):
         local_updates_round(step, params, adamw_init(params, opt_cfg),
                             batches, lc, "data", codec_state=None)
-    p1, _, m1 = local_updates_round(step, params, adamw_init(params, opt_cfg),
-                                    batches, lc, None)
+    p1, o1, m1 = local_updates_round(step, params,
+                                     adamw_init(params, opt_cfg), batches,
+                                     lc, None)
     p2, _, m2, st = local_updates_round(
         step, params, adamw_init(params, opt_cfg), batches, lc,
         codec_state={"r": torch.zeros(3)})
     assert torch.equal(m1["loss"], m2["loss"]) and "r" in st
+    tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/g",
+                             world_size=1, rank=0)
+    try:
+        p3, o3, m3 = local_updates_round(
+            step, params, adamw_init(params, opt_cfg), batches, lc,
+            tdist.group.WORLD)
+    finally:
+        tdist.destroy_process_group()
+    assert torch.equal(m1["loss"], m3["loss"])
+    for a, b in zip(tree_leaves((p1, o1)), tree_leaves((p3, o3))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_forward_train_and_lm_loss_take_the_reference_keywords(runs):
