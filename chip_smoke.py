@@ -188,24 +188,33 @@ JSON line:
      of one local step (the top kernels, the matrix products' share, the
      busy share), and the peak memory;
   11. serving (``repro_torch.serve.greedy_generate``) at full width,
-     random bf16 params (seed 0), seeded prompts over the whole vocab:
-     tinyllama-1.1b (22 layers, B = 8, prompt 512, 64 new tokens) and
-     nemotron-4-15b (arXiv:2402.16819: 32 layers, d_model 6144, 48/8
-     heads, d_ff 24,576, vocab 256,000; B = 8, prompt 512, 32 new), the
-     launch counters set to 0 just before each and read just after
-     (none of K1-K4 or ``bmv`` may launch). Checks: the prefill's logits
-     equal ``forward_train``'s; every decoded position's log-softmax
-     within 0.15 of the full forward over the prompt and the ids before
-     it (teacher forcing), and each id its argmax where that forward's
-     top-two gap exceeds 0.15; each row's ``pos_abs`` 0 ... S + n - 2;
-     the cache bytes B T (2 L KV Dh 2 + 4 L). Printed beside their
-     bounds: prefill ms and decode ms a step (median and max after the
-     first; CUDA events), tokens/s, parameter and cache bytes, peak
+     random bf16 params (seed 0), seeded prompts over the whole vocab,
+     all layers: tinyllama-1.1b (22 layers, B = 8, prompt 512, 64 new
+     tokens), nemotron-4-15b (arXiv:2402.16819: 32 layers, d_model 6144,
+     48/8 heads, d_ff 24,576, vocab 256,000), mamba2-2.7b
+     (arXiv:2405.21060: 64 SSD layers, d_model 2560, 80 heads of 64,
+     state 128), recurrentgemma-9b (arXiv:2402.19427: 36 layers, 24
+     RG-LRU of width 4096 and 12 local attention, window 2048) and, last,
+     command-r-35b (40 layers, d_model 8192, d_ff 22,528; 60.6 GB of
+     weights); B = 8, prompt 512, 32 new each; the launch counters set
+     to 0 just before each and read just after (none of K1-K4 or ``bmv``
+     may launch). Checks: the prefill's logits equal ``forward_train``'s;
+     every decoded position's log-softmax within 0.15 of the full
+     forward over the prompt and the ids before it (teacher forcing),
+     and each id its argmax where that forward's top-two gap exceeds
+     0.15; for mamba2, recurrentgemma and command-r (at 16 layers) that
+     pair held on a second run in f32 within 1e-3, the bf16 run's drift
+     printed (``SERVE_PATHS``); each attention cache's ``pos_abs`` the positions 0 ... S + n
+     - 2 at ``pos % T``; the state bytes as ``state_bytes`` gives them
+     (a KV cache B T (2 KV Dh 2 + 4), ``{h, conv}`` B (h 4 + (d_conv -
+     1) width 2)). Printed beside their bounds and the card's name and
+     power limit: prefill ms and decode ms a step (median and max after
+     the first; CUDA events), tokens/s, parameter and state bytes, peak
      memory over init, prefill and decode, and ``torch.profiler``
      traces of 5 decode steps and of one prefill (kernels, busy share,
      matrix products' device time, top kernels);
-     then the three archs at ``.reduced()`` in f32 on the same params on
-     the card and on the CPU: equal greedy ids, logits at rtol 1e-4;
+     then the ported archs at ``.reduced()`` in f32 on the same params
+     on the card and on the CPU: equal greedy ids, logits at rtol 1e-4;
   12. the local-update rounds across ranks
      (``local_updates_round(..., axis_name=<Fabric>)``), phase 10's model
      and settings, 2 rounds a path with the opt state synced, the launch
@@ -366,10 +375,28 @@ LM_REPS = 3
 # the serving phase (11): greedy generation through
 # repro_torch.serve.greedy_generate at full width, random bf16 params
 # (seed 0) and seeded prompts over the whole vocab. Paths: (arch, batch,
-# prompt, new tokens); all layers. command-r-35b's bf16 weights (60.6 GB)
-# and its f32 init draw do not fit beside them: ROADMAP follow-up
-SERVE_PATHS = (("tinyllama-1.1b", 8, 512, 64), ("nemotron-4-15b", 8, 512, 32))
+# prompt, new tokens); all layers. command-r-35b comes last, with the
+# card otherwise empty: 60.6 GB of weights, and its checks hold two
+# (8, 512, 256,000) f32 logits blocks, 4.2 GB each. The last two fields
+# are the dtype whose run holds the decode against teacher forcing and,
+# for f32, its layers (None: all). In bf16 two computations of the same
+# positions that differ only in their shapes (a decode step's 8 rows, a
+# forward's 4,344) round apart, and through a deep random model the
+# difference grows past 0.15: about 0.2 at 36-40 layers, and along the
+# decoded positions of mamba2 to 0.59, in the reference too (mamba2 at 16
+# layers, B 1, prompt 256: 0.094 -> 0.199 on the CPU, jax;
+# tests/torch_bf16_witness.py, PERF.md). So
+# those paths are held in f32 (params from the same seed, f32 states;
+# command-r-35b's f32 weights fit at 16 of its 40 layers), their bf16
+# drift printed beside it
+SERVE_PATHS = (("tinyllama-1.1b", 8, 512, 64, "bf16", None),
+               ("nemotron-4-15b", 8, 512, 32, "bf16", None),
+               ("mamba2-2.7b", 8, 512, 32, "f32", None),
+               ("recurrentgemma-9b", 8, 512, 32, "f32", None),
+               ("command-r-35b", 8, 512, 32, "f32", 16))
 SERVE_TF_TOL = 0.15          # tests/test_models_smoke.py's decode bound
+# in f32: ten times the f32 logits' rtol of 1e-4, at logits of ~10
+SERVE_TF_TOL_F32 = 1e-3
 SERVE_TRACE_STEPS = 5
 # the small card-vs-CPU run: the ported archs at .reduced() in f32
 SERVE_SMALL = (4, 24, 12)
@@ -1200,20 +1227,89 @@ class ServeRecorder:
         return [a.elapsed_time(b) for a, b in self.marks]
 
 
+def mixer_products(cfg, mixer: str) -> list:
+    """The (d_in, d_out) of a mixer's bf16 projections."""
+    d = cfg.d_model
+    if mixer == "rglru":
+        W = cfg.rglru.lru_width or d
+        return [(d, W), (d, W), (W, W), (W, W), (W, d)]
+    if mixer == "ssd":
+        s = cfg.ssm
+        din = s.d_inner(d)
+        return [(d, 2 * din + 2 * s.n_groups * s.d_state + s.n_heads(d)),
+                (din, d)]
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return [(d, H * Dh), (d, KV * Dh), (d, KV * Dh), (H * Dh, d)]
+
+
 def dense_products(cfg, tokens: int) -> tuple[float, float]:
-    """The bf16 matrix products of a forward over ``tokens`` positions:
+    """The bf16 matrix products of a forward over ``tokens`` positions,
+    each layer's mixer and channel projections and the unembedding:
     (flops, bytes), each weight, input and output read or written once
-    (the attention's score products run in f32 and are not counted)."""
+    (the attention's score products and the SSD and RG-LRU scans run in
+    f32 and are not counted)."""
     from repro_torch.configs import padded_vocab
-    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    layer = [(d, H * Dh), (d, KV * Dh), (d, KV * Dh), (H * Dh, d),
-             (d, cfg.d_ff), (cfg.d_ff, d)]
-    if cfg.mlp_gated:
-        layer.append((d, cfg.d_ff))
-    shapes = layer * cfg.num_layers + [(d, padded_vocab(cfg))]
+    from repro_torch.models.transformer import layer_plan
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = []
+    for mixer, channel in layer_plan(cfg):
+        shapes += mixer_products(cfg, mixer)
+        if channel == "mlp":
+            shapes += [(d, f), (f, d)] + ([(d, f)] if cfg.mlp_gated else [])
+    shapes.append((d, padded_vocab(cfg)))
     flops = sum(2 * tokens * a * b for a, b in shapes)
     nbytes = sum(2 * (tokens * a + a * b + tokens * b) for a, b in shapes)
     return flops, nbytes
+
+
+def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
+    """The bytes of ``init_states(cfg, B, max_len)`` in bf16, from the
+    config alone: (attention caches, ``{h, conv}`` states). A KV cache
+    holds T = min(window, max_len) slots of bf16 k and v and int32
+    ``pos_abs``; an RG-LRU or SSD state an f32 ``h`` and a bf16 conv
+    tail of d_conv - 1 rows."""
+    from repro_torch.models.transformer import layer_plan
+    attn = rec = 0
+    for mixer, _ in layer_plan(cfg):
+        if mixer == "rglru":
+            W = cfg.rglru.lru_width or cfg.d_model
+            rec += B * (W * 4 + (cfg.rglru.d_conv - 1) * W * 2)
+        elif mixer == "ssd":
+            s = cfg.ssm
+            conv = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+            rec += B * (s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+                        + (s.d_conv - 1) * conv * 2)
+        else:
+            window = cfg.sliding_window
+            if mixer == "attn_local" and cfg.rglru:
+                window = cfg.rglru.local_window
+            T = min(window, max_len) if window else max_len
+            attn += B * T * (2 * cfg.num_kv_heads * cfg.head_dim * 2 + 4)
+    return attn, rec
+
+
+def teacher_forcing(torch, model, params, prompts, ids, logits,
+                    tol: float) -> dict:
+    """Every decoded position (``logits``: the prefill's last row and
+    each step's) against teacher forcing, the full forward over the
+    prompt and the ids before it: the largest log-softmax difference
+    (and by position), and whether each id is that forward's argmax
+    where its top-two gap exceeds ``tol``."""
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        seq = torch.cat([prompts, ids[:, :-1]], dim=1)
+        tf, _ = model.forward_train(params, {"tokens": seq})
+        tf = torch.log_softmax(tf[:, S - 1:], dim=-1)
+        got = torch.log_softmax(logits, dim=-1)
+        top2 = tf.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > tol
+        return dict(
+            err=max_err(got, tf),
+            err_by_position=(got - tf).abs().amax(dim=(0, 2)).tolist(),
+            argmax_ok=bool((ids == tf.argmax(-1).to(torch.int32))[sure]
+                           .all()),
+            positions_with_top2_gap_over_tol=int(sure.sum()),
+            positions=int(sure.numel()), tolerance=tol)
 
 
 def serve_phase(torch, counters, device="cuda") -> None:
@@ -1226,12 +1322,14 @@ def serve_phase(torch, counters, device="cuda") -> None:
 
     from repro_torch.configs import ARCHS, get_config, padded_vocab
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import layer_plan
     from repro_torch.serve import greedy_generate
     from repro_torch.utils.device import full_f32_matmul
     from repro_torch.utils.trees import tree_bytes, tree_map, tree_params
 
     full_f32_matmul()
-    for arch, B, S, n in SERVE_PATHS:
+    card = nvidia_smi()
+    for arch, B, S, n, held_in, held_layers in SERVE_PATHS:
         t0 = time.perf_counter()
         free(torch)
         held_before = torch.cuda.memory_allocated()
@@ -1265,37 +1363,35 @@ def serve_phase(torch, counters, device="cuda") -> None:
             full, _ = model.prefill(params, {"tokens": prompts},
                                     model.init_states(params, B, S + n))
             train, _ = model.forward_train(params, {"tokens": prompts})
-            prefill_diff = max_err(full, train)
+            # a row at a time: command-r's (8, 512, 256,000) blocks leave
+            # no room for a whole difference beside its weights
+            prefill_diff = max(max_err(f, t) for f, t in zip(full, train))
             del full, train
-            # 2-3. every decoded position against teacher forcing: the
-            # full forward over the prompt and the ids before it
-            seq = torch.cat([prompts, ids[:, :-1]], dim=1)
-            tf, _ = model.forward_train(params, {"tokens": seq})
-            tf = torch.log_softmax(tf[:, S - 1:], dim=-1)
-            got = torch.log_softmax(rec.logits(), dim=-1)
-            tf_err = max_err(got, tf)
-            tf_err_by_pos = (got - tf).abs().amax(dim=(0, 2)).tolist()
-            top2 = tf.topk(2, dim=-1).values
-            sure = (top2[..., 0] - top2[..., 1]) > SERVE_TF_TOL
-            argmax_ok = bool((ids == tf.argmax(-1).to(torch.int32))[sure]
-                             .all())
-            del tf, got
-        # 4. each row's positions: 0 ... S + n - 2, the last slot empty
-        want_pos = torch.cat([torch.arange(S + n - 1, dtype=torch.int32),
-                              torch.tensor([-1], dtype=torch.int32)])
-        pos_ok = all(bool((st["pos_abs"].cpu() == want_pos).all())
-                     for st in rec.states)
-        L_, T_ = cfg.num_layers, S + n
+        # 2-3. every decoded position against teacher forcing
+        tf_bf16 = teacher_forcing(torch, model, params, prompts, ids,
+                                  rec.logits(), SERVE_TF_TOL)
+        # 4. each attention cache's positions: 0 ... S + n - 2, each at
+        # slot pos % T (the last slot empty where T = S + n)
+        pos_ok = True
+        for st in rec.states:
+            if "pos_abs" not in st:
+                continue
+            want_pos = torch.full((st["pos_abs"].shape[1],), -1,
+                                  dtype=torch.int32)
+            for p_ in range(S + n - 1):
+                want_pos[p_ % len(want_pos)] = p_
+            pos_ok &= bool((st["pos_abs"].cpu() == want_pos).all())
         cache_bytes = tree_bytes(rec.states)
-        want_cache = (B * T_ * 2 * L_ * cfg.num_kv_heads * cfg.head_dim * 2
-                      + B * T_ * 4 * L_)
+        attn_bytes, rec_bytes = state_bytes(cfg, B, S + n)
+        want_cache = attn_bytes + rec_bytes
         param_bytes = tree_bytes(params)
         embed_bytes = tree_bytes(params["embed"])
         # decode: every weight byte but the embedding table (a step
         # gathers B rows of it; read whole where it is also the
-        # unembedding), and the whole cache, which a step reads
+        # unembedding), the whole KV cache, which a step reads, and the
+        # {h, conv} states, which a step reads and writes whole
         read = (param_bytes - (0 if cfg.tie_embeddings else embed_bytes)
-                + B * cfg.d_model * 2 + cache_bytes)
+                + B * cfg.d_model * 2 + cache_bytes + rec_bytes)
         decode_bound = bound_ms(read, dense_products(cfg, B)[0],
                                 BF16_FLOPS_PER_S)
         pre_flops, pre_bytes = dense_products(cfg, B * S)
@@ -1324,25 +1420,59 @@ def serve_phase(torch, counters, device="cuda") -> None:
         p_trace = device_trace(torch, prefill)
         p_kern = p_trace.get("kernels", {})
         del st
+        held, f32_peak = tf_bf16, None
+        n_params = tree_params(params)
+        if held_in == "f32":
+            # the same greedy generation on f32 params from the same seed
+            # and f32 states, the bf16 params freed first
+            del params
+            rec.states = None
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            m32 = build_model(dataclasses.replace(
+                cfg, num_layers=held_layers or cfg.num_layers))
+            p32 = m32.init(torch.Generator(device=device).manual_seed(0),
+                           torch.float32)
+            rec32 = ServeRecorder(torch, m32, events=False,
+                                  cache_dtype=torch.float32)
+            ids32 = greedy_generate(rec32, p32, prompts, max_new=n)
+            held = teacher_forcing(torch, m32, p32, prompts, ids32,
+                                   rec32.logits(), SERVE_TF_TOL_F32)
+            held["layers"] = m32.cfg.num_layers
+            f32_peak = torch.cuda.max_memory_allocated()
+            del m32, p32, rec32, ids32
+            params = None
         median = float(np.median(steady))
         checks = dict(
             prefill_equals_forward_train=prefill_diff == 0.0,
-            decode_vs_teacher_forcing=tf_err < SERVE_TF_TOL,
-            ids_are_teacher_forced_argmax=argmax_ok,
+            decode_vs_teacher_forcing=held["err"] < held["tolerance"],
+            ids_are_teacher_forced_argmax=held["argmax_ok"],
+            logits_finite=bool(torch.isfinite(rec.logits()).all()),
             pos_abs=pos_ok, cache_bytes=cache_bytes == want_cache,
             no_kernel_launched=not any(launches.values()) and not any(
                 fn.launches for fn in counters),
             shape=tuple(ids.shape) == (B, n) and ids.dtype == torch.int32)
         line = dict(
-            arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+            arch=arch, card=card, layers=cfg.num_layers,
+            mixers=sorted({mx for mx, _ in layer_plan(cfg)}),
+            d_model=cfg.d_model,
             heads=[cfg.num_heads, cfg.num_kv_heads], d_ff=cfg.d_ff,
-            vocab=padded_vocab(cfg), params=tree_params(params),
+            vocab=padded_vocab(cfg), params=n_params,
             batch=B, prompt=S, max_new=n, checks=checks,
             prefill_max_abs_diff_vs_forward_train=prefill_diff,
-            teacher_forcing_max_abs_logsoftmax_err=tf_err,
-            teacher_forcing_err_by_position=tf_err_by_pos,
-            positions_with_top2_gap_over_tol=int(sure.sum()),
-            positions=int(sure.numel()),
+            teacher_forcing_held_in=held_in,
+            teacher_forcing_layers=held.get("layers", cfg.num_layers),
+            teacher_forcing_max_abs_logsoftmax_err=held["err"],
+            teacher_forcing_err_by_position=held["err_by_position"],
+            positions_with_top2_gap_over_tol=held[
+                "positions_with_top2_gap_over_tol"],
+            positions=held["positions"],
+            teacher_forcing_tolerance=held["tolerance"],
+            bf16_teacher_forcing=(None if held is tf_bf16 else dict(
+                max_abs_logsoftmax_err=tf_bf16["err"],
+                err_by_position=tf_bf16["err_by_position"],
+                ids_are_argmax_where_gap_over_tol=tf_bf16["argmax_ok"])),
+            f32_check_peak_memory=f32_peak,
             prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound[0],
             prefill_bound_by=prefill_bound[1],
             prefill_bf16_tflop=pre_flops / 1e12,
@@ -1354,7 +1484,8 @@ def serve_phase(torch, counters, device="cuda") -> None:
             decode_tokens_per_s=B / median * 1e3,
             generate_seconds_host=generate_s,
             param_bytes=param_bytes, cache_bytes=cache_bytes,
-            cache_bytes_formula=want_cache,
+            cache_bytes_formula=want_cache, kv_cache_bytes=attn_bytes,
+            recurrent_state_bytes=rec_bytes,
             max_memory_allocated=peak, init_peak_memory=init_peak,
             memory_allocated_before=held_before, init_seconds=init_s,
             launches=launches, sample_ids=ids[0, :16].tolist(),
@@ -1412,7 +1543,7 @@ def serve_phase(torch, counters, device="cuda") -> None:
             largest_logit=scale,
             close=bool(torch.allclose(lg_d, lg_c, rtol=1e-4,
                                       atol=1e-5 * scale)))
-    phase_done(torch, "serve_card_vs_cpu", t0, batch=B, prompt=S,
+    phase_done(torch, "serve_card_vs_cpu", t0, card=card, batch=B, prompt=S,
                max_new=n, dtype="float32", archs=small,
                tolerance="rtol 1e-4, atol 1e-5 of the largest logit")
     if not all(v["ids_equal"] and v["close"] for v in small.values()):

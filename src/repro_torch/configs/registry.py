@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
 The reference knows ten architectures (``repro.configs.registry``); the
-port has the configs of the dense ones it trains and serves. The others
+port has the configs of the ones it trains and serves: the dense family,
+the SSM (mamba2) and the hybrid RG-LRU one (recurrentgemma). The others
 are named, so that asking for one says where it stands instead of
 calling it unknown.
 """
@@ -15,11 +16,13 @@ _MODULES = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama",
     "nemotron-4-15b": "repro_torch.configs.nemotron4",
     "command-r-35b": "repro_torch.configs.command_r",
+    "mamba2-2.7b": "repro_torch.configs.mamba2",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma",
 }
 
 # the reference's other architectures, not ported yet
 PENDING = ("llama4-maverick-400b-a17b", "qwen2-vl-72b", "deepseek-v3-671b",
-           "chatglm3-6b", "recurrentgemma-9b", "whisper-tiny", "mamba2-2.7b")
+           "chatglm3-6b", "whisper-tiny")
 
 ARCHS = tuple(_MODULES)
 
@@ -28,7 +31,7 @@ def get_config(arch: str) -> ModelConfig:
     if arch in PENDING:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP.md, Queue 1 item 12: "
-            f"MoE / MLA / RG-LRU / SSD / whisper and the other configs); "
+            f"MoE / MLA / whisper and the other configs); "
             f"ported: {list(ARCHS)}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: "

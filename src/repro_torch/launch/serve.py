@@ -1,7 +1,7 @@
 """Serving launcher: batched prefill + greedy decode on the card
 (``--device cpu`` for the host). The port of ``repro.launch.serve`` for
-the dense family (the reference's audio and vlm inputs wait for their
-families).
+the dense, SSM and hybrid families (the reference's audio and vlm inputs
+wait for their families).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --reduced --batch 4 --prompt-len 32 --max-new 16 [--device cpu]

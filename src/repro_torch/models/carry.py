@@ -70,9 +70,10 @@ def params_to_reference(params):
 
 
 def states_from_reference(np_states, device=None) -> list:
-    """The reference's per-layer decode states (a list of ``{k, v,
-    pos_abs}`` dicts of numpy arrays, as ``jax.device_get`` gives them)
-    as the port's tensors on ``device`` (the card by default), every bit
+    """The reference's per-layer decode states (a list of dicts of numpy
+    arrays, as ``jax.device_get`` gives them: ``{k, v, pos_abs}`` for an
+    attention layer, ``{h, conv}`` for an RG-LRU or SSD layer) as the
+    port's tensors on ``device`` (the card by default), every bit
     kept."""
     dev = resolve_device(device)
     return [tree_map(lambda a: tensor_from_numpy(a, dev), st)

@@ -14,12 +14,17 @@ attention takes its logits, softmax and sums in f32.
 Here so far: ``dense``, the norms, the activations, full and partial
 RoPE, dense attention (``_attend_dense``), flash attention with a
 backward that recomputes the score blocks, the GQA attention block with
-its decode cache (a ring buffer under a window) and the (gated) MLP.
-MLA, MoE, RG-LRU and SSD are not ported yet (ROADMAP.md, Queue 1 item
-12), nor is the reference's sharding (``constrain``, item 13).
+its decode cache (a ring buffer under a window), the (gated) MLP, the
+causal depthwise conv1d, the RG-LRU block (griffin) and the SSD block
+(mamba2), each with its decode state. Every decode state is written in
+place: the attention cache's slots, the recurrent ``h`` and the conv
+tail, so a state's tensors keep their addresses across steps. MLA and
+MoE are not ported yet (ROADMAP.md, Queue 1 item 12), nor is the
+reference's sharding (``constrain``, item 13).
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -44,12 +49,38 @@ def _device(gen: torch.Generator | None):
     return None if gen is None else gen.device
 
 
+# a leaf whose f32 draw takes at most this many bytes is drawn whole
+_WHOLE_DRAW_BYTES = 1 << 31
+
+
+def _normal(gen, shape, scale, dtype, lead=()) -> torch.Tensor:
+    """``scale`` times a standard normal draw of ``(*lead, *shape)`` in
+    ``dtype``. A leaf whose f32 draw exceeds ``_WHOLE_DRAW_BYTES`` is
+    drawn one slot of ``lead`` at a time, so that the f32 transient is
+    one slot's (command-r-35b's stacked (40, 8192, 22528) ``w_gate`` is
+    29.5 GB in f32, a slot 0.74 GB); a smaller one whole, as it always
+    was. On the CPU generator both give the same values wherever a slot
+    holds a multiple of 16 elements; on the CUDA one they do not, so the
+    whole draw keeps the smaller configs' random models (tinyllama-1.1b's
+    among them) as they were."""
+    if 4 * math.prod(lead) * math.prod(shape) <= _WHOLE_DRAW_BYTES:
+        return _randn(gen, (*lead, *shape)).mul_(scale).to(dtype)
+    out = torch.empty((*lead, *shape), dtype=dtype, device=_device(gen))
+    for idx in itertools.product(*map(range, lead)):
+        out[idx] = _randn(gen, shape).mul_(scale)
+    return out
+
+
+def _uniform(gen, shape, lo, hi) -> torch.Tensor:
+    """Uniform f32 on [lo, hi) from ``gen`` on its device."""
+    return torch.empty(shape, dtype=torch.float32,
+                       device=_device(gen)).uniform_(lo, hi, generator=gen)
+
+
 def dense_init(gen, d_in, d_out, *, bias=False, dtype=torch.bfloat16,
                scale=None, lead=()):
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    # in place: one f32 draw beside the result, not two (a stacked
-    # (32, 6144, 24576) leaf is 19.3 GB in f32); the same values
-    p = {"w": _randn(gen, (*lead, d_in, d_out)).mul_(scale).to(dtype)}
+    p = {"w": _normal(gen, (d_in, d_out), scale, dtype, lead)}
     if bias:
         p["b"] = torch.zeros((*lead, d_out), dtype=dtype,
                              device=_device(gen))
@@ -84,14 +115,66 @@ def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
     return (y * p["scale"]).to(x.dtype)
 
 
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (``lax.logistic``): ``1 / (1 + exp(-x))``, each
+    op rounded in x's dtype, which is how the reference computes it in
+    bf16 (``torch.sigmoid`` rounds once and differs at a third of the
+    bf16 elements); its derivative ``s * (1 - s)`` from the output, as
+    jax's, so that ``exp(-x) = inf`` gives 0 and not NaN. Four kernels
+    where ``torch.sigmoid`` is one: the SSD block takes it, the MLP's
+    silu keeps ``torch.sigmoid`` (see ``_ACTS``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def _sigmoid(x):
+    """``jax.nn.sigmoid``: op by op (``_Logistic``) below f32; in f32
+    ``torch.sigmoid``, within an ulp of it."""
+    return torch.sigmoid(x) if x.dtype == torch.float32 else (
+        _Logistic.apply(x))
+
+
+def _rounded(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype``: jax rounds a Python scalar to the
+    array's dtype before the op, PyTorch keeps it at full precision."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
+def _gelu(x):
+    """``jax.nn.gelu`` (``approximate=True``), op by op in x's dtype with
+    its constants rounded to it; ``F.gelu(approximate="tanh")`` rounds
+    once and misses recurrentgemma's bf16 logits at 1.9-2.0x the
+    elements the reference's own op-by-op run does."""
+    c = _rounded(math.sqrt(2 / math.pi), x.dtype)
+    k = _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x ** 3)))))
+
+
 _ACTS = {
     # the reference's jax.nn.silu, x * sigmoid(x): in bf16 the sigmoid is
     # rounded before the product (F.silu rounds once, and misses the
-    # reference's bf16 logits at twice as many elements)
+    # reference's bf16 logits at twice as many elements). The dense MLPs
+    # meet the reference's bf16 logits with torch.sigmoid; _sigmoid's
+    # op-by-op form slowed tinyllama's train step by ~5% (PERF.md)
     "silu": lambda x: x * torch.sigmoid(x),
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": _gelu,
     "relu2": lambda x: torch.square(F.relu(x)),
 }
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (F.softplus
+    returns x itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 # ----------------------------------------------------------------------
 # RoPE (full / partial)
@@ -398,3 +481,251 @@ def mlp_apply(p, cfg: ModelConfig, x):
     h = act(dense(p["w_up"], x)) if "w_gate" not in p else (
         act(dense(p["w_gate"], x)) * dense(p["w_up"], x))
     return dense(p["w_down"], h)
+
+# ----------------------------------------------------------------------
+# causal depthwise conv1d (griffin / mamba2 frontends)
+# ----------------------------------------------------------------------
+
+
+def init_conv1d(gen, width, d, dtype=torch.bfloat16, lead=()):
+    return {"w": _normal(gen, (width, d), 1.0 / math.sqrt(width), dtype,
+                         lead),
+            "b": torch.zeros((*lead, d), dtype=dtype, device=_device(gen))}
+
+
+def conv1d_apply(p, x, *, mode, state):
+    """x (B,S,d); ``state`` (B,width-1,d) holds the trailing context, or
+    None. ``mode="full"`` pads width-1 zeros in front and writes the last
+    width-1 rows of the padded input into ``state``; ``mode="step"``
+    (S == 1) convolves the state and the token and shifts the token into
+    the state. The state is written in place (in its own dtype) and
+    returned."""
+    width = p["w"].shape[0]
+    if mode == "full":
+        xp = F.pad(x, (0, 0, width - 1, 0))
+        y = sum(xp[:, i: i + x.shape[1]] * p["w"][i] for i in range(width))
+        if state is not None:
+            state.copy_(xp[:, -(width - 1):])
+        return y + p["b"], state
+    ctx = torch.cat([state.to(x.dtype), x], 1)                 # (B,width,d)
+    y = torch.einsum("bwd,wd->bd", ctx, p["w"])[:, None] + p["b"]
+    state.copy_(ctx[:, 1:])
+    return y, state
+
+# ----------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma / griffin)
+# ----------------------------------------------------------------------
+
+
+def init_rglru(gen, cfg: ModelConfig, dtype=torch.bfloat16, lead=()):
+    width = cfg.rglru.lru_width or cfg.d_model
+    d = cfg.d_model
+    return {
+        "w_x": dense_init(gen, d, width, dtype=dtype, lead=lead),
+        "w_gate_branch": dense_init(gen, d, width, dtype=dtype, lead=lead),
+        "conv": init_conv1d(gen, cfg.rglru.d_conv, width, dtype=dtype,
+                            lead=lead),
+        "w_rec_gate": dense_init(gen, width, width, dtype=dtype, lead=lead),
+        "w_in_gate": dense_init(gen, width, width, dtype=dtype, lead=lead),
+        # lam s.t. a = exp(-c*softplus(lam)) lands in ~(0.9, 0.999) at r=1
+        "lam": torch.log(torch.expm1(_uniform(gen, (*lead, width), 0.0001,
+                                              0.013))),
+        "w_out": dense_init(gen, width, d, dtype=dtype, lead=lead),
+    }
+
+
+_RGLRU_C = 8.0
+
+
+def _rglru_scan(x, r, i, lam):
+    """x,r,i (B,S,W) f32. The scan over time of
+    h_t = a_t h_{t-1} + sqrt(1-a_t^2) (i_t * x_t), a_t = a^(c r_t), in
+    ceil(log2 S) doubling passes (Hillis-Steele): pass o adds a_t h_{t-o}
+    to h_t and multiplies a_t by a_{t-o}, each from the previous pass.
+    The reference's ``lax.associative_scan`` computes the same
+    recurrence in another rounding order."""
+    log_a = -_RGLRU_C * r * _softplus(lam)                    # log a_t
+    a = torch.exp(log_a)
+    h = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * (
+        i * x)
+    o = 1
+    while o < x.shape[1]:
+        h = torch.cat([h[:, :o], h[:, o:] + a[:, o:] * h[:, :-o]], 1)
+        a = torch.cat([a[:, :o], a[:, o:] * a[:, :-o]], 1)
+        o *= 2
+    return h
+
+
+def rglru_apply(p, cfg: ModelConfig, x, positions, *, mode, state):
+    """Griffin recurrent block: gate branch (gelu) * recurrent branch
+    (conv1d -> RG-LRU), then out-projection. ``state`` ({h (B,W) f32,
+    conv (B,d_conv-1,W)}) is written in place and returned."""
+    gate = _ACTS["gelu"](dense(p["w_gate_branch"], x))
+    u = dense(p["w_x"], x)
+    u, _ = conv1d_apply(p["conv"], u, mode=mode,
+                        state=None if state is None else state["conv"])
+    uf = u.float()
+    r = _sigmoid(dense(p["w_rec_gate"], u).float())
+    i = _sigmoid(dense(p["w_in_gate"], u).float())
+    lam = p["lam"]
+    if mode == "full":
+        h = _rglru_scan(uf, r, i, lam)
+        if state is not None:
+            state["h"].copy_(h[:, -1])
+    else:
+        log_a = -_RGLRU_C * r[:, 0] * _softplus(lam)
+        a = torch.exp(log_a)
+        g = torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-6)) * (
+            i[:, 0] * uf[:, 0])
+        h = state["h"].mul_(a).add_(g)[:, None]
+    y = dense(p["w_out"], h.to(x.dtype) * gate)
+    return y, state
+
+
+def init_rglru_state(cfg: ModelConfig, B, dtype=torch.bfloat16,
+                     device=None):
+    width = cfg.rglru.lru_width or cfg.d_model
+    return {"h": torch.zeros((B, width), dtype=torch.float32, device=device),
+            "conv": torch.zeros((B, cfg.rglru.d_conv - 1, width),
+                                dtype=dtype, device=device)}
+
+# ----------------------------------------------------------------------
+# Mamba-2 SSD block (state-space duality, chunked)
+# ----------------------------------------------------------------------
+
+
+def init_ssd(gen, cfg: ModelConfig, dtype=torch.bfloat16, lead=()):
+    s = cfg.ssm
+    d = cfg.d_model
+    din = s.d_inner(d)
+    nh = s.n_heads(d)
+    conv_dim = din + 2 * s.n_groups * s.d_state
+    return {
+        # in_proj -> [z (din), x (din), B (G*N), C (G*N), dt (nh)]
+        "w_in": dense_init(gen, d, 2 * din + 2 * s.n_groups * s.d_state + nh,
+                           dtype=dtype, lead=lead),
+        "conv": init_conv1d(gen, s.d_conv, conv_dim, dtype=dtype, lead=lead),
+        "A_log": torch.log(_uniform(gen, (*lead, nh), 1.0, 16.0)),
+        "D": torch.ones((*lead, nh), dtype=torch.float32,
+                        device=_device(gen)),
+        "dt_bias": torch.log(torch.expm1(_uniform(gen, (*lead, nh), 1e-3,
+                                                  1e-1))),
+        "out_norm": norm_init(din, lead=lead, device=_device(gen)),
+        "w_out": dense_init(gen, din, d, dtype=dtype, lead=lead),
+    }
+
+
+def _ssd_chunked(x, dt, A, Bm, Cm, chunk):
+    """Minimal SSD (mamba2 §6): x (B,S,H,P); dt (B,S,H); A (H,);
+    Bm/Cm (B,S,G,N). Returns y (B,S,H,P), final_state (B,H,P,N).
+
+    The reference's 4-operand einsums run here as pairwise products in
+    the order of its equations, so that no (b,nc,c,c,H,P) tensor is
+    made; the scan over chunks is a loop over them."""
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if S % chunk:
+        raise ValueError(f"_ssd_chunked: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    nc = S // chunk
+    rep = H // G
+    x_ = x.reshape(b, nc, chunk, H, P)
+    dt_ = dt.reshape(b, nc, chunk, H)
+    B_ = Bm.reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    C_ = Cm.reshape(b, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    dA = dt_ * (-torch.exp(A))                                # (b,nc,c,H) <=0
+    dA_cum = torch.cumsum(dA, dim=2)
+    # intra-chunk (quadratic within chunk). Mask BEFORE exp: the
+    # upper-triangle segments are positive and exp() of them overflows,
+    # which poisons gradients (inf * 0 = NaN in the backward pass).
+    seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (b,nc,c,c,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))
+    Lm = torch.exp(torch.where(causal[:, :, None], seg,
+                               torch.full_like(seg, -math.inf)))
+    scores = torch.einsum("bzchn,bzshn->bzcsh", C_, B_)       # (b,nc,c,c,H)
+    w = scores * Lm * dt_[:, :, None]                          # (b,nc,c,s,H)
+    y_diag = torch.einsum("bzcsh,bzshp->bzchp", w, x_)
+    # chunk end-states
+    decay_to_end = torch.exp(dA_cum[:, :, -1:] - dA_cum)      # (b,nc,c,H)
+    states = torch.einsum("bzchn,bzchp->bzhpn",
+                          (decay_to_end * dt_)[..., None] * B_, x_)
+    # inter-chunk recurrence over nc
+    chunk_decay = torch.exp(dA_cum[:, :, -1])                  # (b,nc,H)
+    h = torch.zeros((b, H, P, N), dtype=x.dtype, device=x.device)
+    h_prev = []
+    for z in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, z, :, None, None] + states[:, z]
+    h_prev = torch.stack(h_prev, 1)                            # (b,nc,H,P,N)
+    decay_in = torch.exp(dA_cum)                               # (b,nc,c,H)
+    y_off = torch.einsum("bzchn,bzhpn->bzchp", C_, h_prev) * decay_in[
+        ..., None]
+    y = (y_diag + y_off).reshape(b, S, H, P)
+    return y, h
+
+
+def ssd_apply(p, cfg: ModelConfig, x, positions, *, mode, state):
+    """Mamba-2 block: in-projection, conv1d and silu over (x, B, C), the
+    chunked SSD over the sequence (``mode="full"``) or one recurrent step
+    (``"step"``), the D skip, a gated RMSNorm and the out-projection.
+    ``state`` ({h (B,nh,P,N) f32, conv (B,d_conv-1,conv_dim)}) is written
+    in place and returned."""
+    s = cfg.ssm
+    B, S, d = x.shape
+    din = s.d_inner(d)
+    nh = s.n_heads(d)
+    G, N, P = s.n_groups, s.d_state, s.head_dim
+
+    def silu(v):
+        # the sigmoid op by op, as jax's: with torch.sigmoid, mamba2's
+        # bf16 logits miss the reference's at 4.4-6.1x the elements its
+        # own op-by-op run does (the count rule allows 2x)
+        return v * _sigmoid(v)
+    zxbcdt = dense(p["w_in"], x)
+    z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * G * N, nh], dim=-1)
+    xbc, _ = conv1d_apply(p["conv"], xbc, mode=mode,
+                          state=None if state is None else state["conv"])
+    xbc = silu(xbc)
+    xs, Bm, Cm = torch.split(xbc, [din, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, S, nh, P)
+    Bm = Bm.reshape(B, S, G, N)
+    Cm = Cm.reshape(B, S, G, N)
+    dt = _softplus(dt.float() + p["dt_bias"])                  # (B,S,nh)
+    A = p["A_log"]
+    if mode == "full":
+        # the padded steps have dt = 0 (padded after the softplus): they
+        # leave the final state unchanged
+        pad = (-S) % s.chunk
+        y, hT = _ssd_chunked(
+            F.pad(xs.float(), (0, 0, 0, 0, 0, pad)),
+            F.pad(dt, (0, 0, 0, pad)), A,
+            F.pad(Bm.float(), (0, 0, 0, 0, 0, pad)),
+            F.pad(Cm.float(), (0, 0, 0, 0, 0, pad)), s.chunk)
+        y = y[:, :S]
+        if state is not None:
+            state["h"].copy_(hT)
+    else:
+        # recurrent step: h = exp(dt A) h + dt B x ; y = C h
+        dA = torch.exp(dt[:, 0] * (-torch.exp(A)))             # (B,nh)
+        B_rep = Bm[:, 0].repeat_interleave(nh // G, dim=1)     # (B,nh,N)
+        C_rep = Cm[:, 0].repeat_interleave(nh // G, dim=1)
+        Bx = (B_rep.float()[:, :, None, :] * xs[:, 0].float()[..., None]
+              * dt[:, 0, :, None, None])                       # (B,nh,P,N)
+        h = state["h"].mul_(dA[..., None, None]).add_(Bx)
+        y = torch.einsum("bhpn,bhn->bhp", h, C_rep.float())[:, None]
+    y = y + xs.float() * p["D"][None, None, :, None]
+    y = y.reshape(B, S, din).to(x.dtype)
+    y = apply_norm(p["out_norm"], y * silu(z))
+    return dense(p["w_out"], y), state
+
+
+def init_ssd_state(cfg: ModelConfig, B, dtype=torch.bfloat16, device=None):
+    s = cfg.ssm
+    d = cfg.d_model
+    nh = s.n_heads(d)
+    conv_dim = s.d_inner(d) + 2 * s.n_groups * s.d_state
+    return {"h": torch.zeros((B, nh, s.head_dim, s.d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((B, s.d_conv - 1, conv_dim), dtype=dtype,
+                                device=device)}

@@ -7,8 +7,9 @@
   prefill(params, batch, states)     -> (logits, states)
   decode_step(params, batch, states) -> (logits, states)     [S == 1]
   init_states(params, B, max_len)    -> per-layer decode state
-for the dense decoder family; the other families are not ported yet and
-raise.
+for the dense decoder family, the SSM one (mamba2: SSD layers) and the
+hybrid one (recurrentgemma: RG-LRU and local attention); the other
+families are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -51,23 +52,25 @@ class Model:
 
     def init_states(self, params, B: int, max_len: int, batch=None,
                     dtype=torch.bfloat16):
-        """Empty decode states on the device of ``params["embed"]``.
-        ``batch`` (the reference's whisper encoder input) is unused: the
-        dense family's states need none."""
+        """Empty decode states on the device of ``params["embed"]``: a
+        KV cache for an attention layer, ``{h, conv}`` for an RG-LRU or
+        SSD layer. ``batch`` (the reference's whisper encoder input) is
+        unused: the ported families' states need none."""
         return T.init_states(self.cfg, B, max_len, dtype,
                              device=params["embed"].device)
 
 
 def states_max_len(states) -> int:
     """The slots of the first attention cache in ``states`` (0 with
-    none). The reference's whisper branch waits for its family."""
+    none, as for mamba2's ``{h, conv}`` states). The reference's whisper
+    branch waits for its family."""
     for st in states:
         if isinstance(st, dict) and "k" in st:
             return st["k"].shape[1]
     return 0
 
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def build_model(cfg: ModelConfig) -> Model:

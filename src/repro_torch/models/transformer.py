@@ -1,9 +1,11 @@
-"""Decoder-only LM over the dense block: the port of
+"""Decoder-only LM over the dense, SSM and hybrid blocks: the port of
 ``repro.models.transformer`` (``layer_plan``, ``_period``, ``init_lm``,
 ``embed_inputs``, ``forward`` over a whole sequence or one decode step,
 ``unembed``, ``init_states``).
 
-A *layer* is a (mixer, channel) pair with pre-norm residuals. Layers are
+A *layer* is a (mixer, channel) pair with pre-norm residuals; the
+mixers ported are ``attn``, ``attn_local``, ``rglru`` and ``ssd``, the
+channels ``mlp`` and ``none`` (``ssd`` has no channel block). Layers are
 stored STACKED per pattern slot, as in the reference: ``params["stack"]
 [s]`` holds slot ``s`` of every layer cycle, each leaf with a leading
 axis of ``n_cycles``, so that the leaves (and so the delta exchange's
@@ -57,18 +59,23 @@ def _period(cfg: ModelConfig) -> int:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 12: MoE, MLA, "
-        f"RG-LRU, SSD and whisper follow the dense block)")
+        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 12: MoE, MLA "
+        f"with multi-token prediction, and whisper follow the dense, SSD "
+        f"and RG-LRU blocks)")
+
+
+_MIXER_INIT = {"attn": L.init_attention, "attn_local": L.init_attention,
+               "rglru": L.init_rglru, "ssd": L.init_ssd}
 
 
 def _init_layer(gen, cfg, mixer, channel, dtype, lead):
-    if mixer not in ("attn", "attn_local"):
+    if mixer not in _MIXER_INIT:
         raise _unported(f"mixer {mixer!r}")
     if channel not in ("mlp", "none"):
         raise _unported(f"channel {channel!r}")
     p = {"mixer_norm": L.norm_init(cfg.d_model, cfg.norm, lead=lead,
                                    device=L._device(gen)),
-         "mixer": L.init_attention(gen, cfg, dtype, lead=lead)}
+         "mixer": _MIXER_INIT[mixer](gen, cfg, dtype, lead=lead)}
     if channel == "mlp":
         p["channel"] = L.init_mlp(gen, cfg, dtype=dtype, lead=lead)
         p["channel_norm"] = L.norm_init(cfg.d_model, cfg.norm, lead=lead,
@@ -76,12 +83,21 @@ def _init_layer(gen, cfg, mixer, channel, dtype, lead):
     return p
 
 
+def _apply_mixer(p, cfg, mixer, x, positions, mode, state):
+    if mixer == "rglru":
+        return L.rglru_apply(p, cfg, x, positions, mode=mode, state=state)
+    if mixer == "ssd":
+        return L.ssd_apply(p, cfg, x, positions, mode=mode, state=state)
+    local = mixer == "attn_local" or cfg.sliding_window is not None
+    return L.attention_apply(p, cfg, x, positions, mode=mode, state=state,
+                             local=local)
+
+
 def _apply_layer(p, cfg, mixer, channel, x, positions, mode, state):
     """Returns (x, new_state)."""
     h_in = L.apply_norm(p["mixer_norm"], x, cfg.norm)
-    local = mixer == "attn_local" or cfg.sliding_window is not None
-    h, state = L.attention_apply(p["mixer"], cfg, h_in, positions,
-                                 mode=mode, state=state, local=local)
+    h, state = _apply_mixer(p["mixer"], cfg, mixer, h_in, positions, mode,
+                            state)
     if cfg.parallel_block and channel != "none":
         return x + h + L.mlp_apply(p["channel"], cfg, h_in), state
     x = x + h
@@ -181,18 +197,26 @@ def unembed(params, cfg: ModelConfig, x):
 
 def init_states(cfg: ModelConfig, B: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> list:
-    """Per-layer decode state in plan order: one attention cache a layer
+    """Per-layer decode state in plan order: an attention cache
     (``layers.init_attn_cache``), windowed for ``attn_local`` layers and
-    under ``cfg.sliding_window``."""
+    under ``cfg.sliding_window``; ``{h, conv}`` for ``rglru`` and ``ssd``
+    layers (``h`` f32, the conv tail in ``dtype``)."""
     states = []
     for mixer, _ in layer_plan(cfg):
         if mixer == "attn":
-            window = cfg.sliding_window
+            states.append(L.init_attn_cache(cfg, B, max_len,
+                                            window=cfg.sliding_window,
+                                            dtype=dtype, device=device))
         elif mixer == "attn_local":
-            window = (cfg.rglru.local_window if cfg.rglru
-                      else cfg.sliding_window)
+            w = cfg.rglru.local_window if cfg.rglru else cfg.sliding_window
+            states.append(L.init_attn_cache(cfg, B, max_len, window=w,
+                                            dtype=dtype, device=device))
+        elif mixer == "rglru":
+            states.append(L.init_rglru_state(cfg, B, dtype=dtype,
+                                             device=device))
+        elif mixer == "ssd":
+            states.append(L.init_ssd_state(cfg, B, dtype=dtype,
+                                           device=device))
         else:
             raise _unported(f"the decode state of mixer {mixer!r}")
-        states.append(L.init_attn_cache(cfg, B, max_len, window=window,
-                                        dtype=dtype, device=device))
     return states

@@ -1308,6 +1308,38 @@ def test_reduced_serving_on_the_card_equals_the_cpu(cuda):
                                    err_msg=arch)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_recurrent_decode_matches_teacher_forcing_on_the_card(cuda, arch):
+    """The SSM and hybrid families at ``.reduced()`` in bf16 on the card:
+    the prefill's last row and every greedy decode step's log-softmax
+    within the reference's 0.15 of the full forward over the prompt and
+    the ids before it; the ``{h, conv}`` states stay on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_serve_step
+    B, S, n = 2, 40, 8
+    m = build_model(get_config(arch).reduced())
+    params = m.init(torch.Generator(device=cuda).manual_seed(0))
+    prompts = torch.tensor(np.random.default_rng(1).integers(
+        0, m.cfg.vocab_size, (B, S)), dtype=torch.int32, device=cuda)
+    step = make_serve_step(m)
+    with torch.inference_mode():
+        st = m.init_states(params, B, S + n)
+        lg, st = m.prefill(params, {"tokens": prompts}, st)
+        rows, ids = [lg[:, -1]], []
+        for t in range(n):
+            ids.append(rows[-1].argmax(-1).to(torch.int32)[:, None])
+            lg, st = step(params, st, ids[-1], torch.full(
+                (B, 1), S + t, dtype=torch.int32, device=cuda))
+            rows.append(lg[:, 0])
+        seq = torch.cat([prompts] + ids, 1)
+        tf, _ = m.forward_train(params, {"tokens": seq})
+    got = torch.log_softmax(torch.stack(rows, 1), -1)
+    want = torch.log_softmax(tf[:, S - 1:], -1)
+    assert all(v.is_cuda for d in st if "h" in d for v in d.values())
+    assert float((got - want).abs().max()) < 0.15
+
+
 def test_launch_serve_reduced_runs_on_the_card(cuda, capsys):
     """``python -m repro_torch.launch.serve --reduced`` on the card by
     default."""

@@ -46,7 +46,8 @@ def test_every_module_imports_without_jax_or_repro():
                  "optim.local_updates", "train.step", "checkpoint.np_ckpt",
                  "data.tokens", "utils.trees", "launch.train",
                  "examples.train_lm", "configs.nemotron4",
-                 "configs.command_r", "serve", "serve.decode",
+                 "configs.command_r", "configs.mamba2",
+                 "configs.recurrentgemma", "serve", "serve.decode",
                  "launch.serve", "examples.serve_lm", "analysis.findings",
                  "analysis.cells", "analysis.rules", "analysis.run"):
         assert f"repro_torch.{name}" in mods, name

@@ -975,4 +975,4 @@ def test_launch_train_on_the_cpu_restores_in_the_reference(tmp_path, capsys):
     got, step = ref_restore(ckpt, like)
     assert step == 4 and int(got["opt"]["count"]) == 4
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(["--arch", "mamba2-2.7b", "--device", "cpu"])
+        train.main(["--arch", "deepseek-v3-671b", "--device", "cpu"])

@@ -1,11 +1,12 @@
 """The port's serving path against the reference on the CPU, at
-``.reduced()`` of the three ported dense archs (tinyllama-1.1b,
-nemotron-4-15b: partial RoPE, relu2, layernorm; command-r-35b: parallel
-block, tied embeddings), with the reference's params carried across
-(``models.carry``): decode states, prefill, decode steps against the
-KV cache, greedy generation, the ring buffer under a sliding window,
-the launcher, and the API repairs of the local-updates round and the
-loss.
+``.reduced()`` of the five ported archs (tinyllama-1.1b; nemotron-4-15b:
+partial RoPE, relu2, layernorm; command-r-35b: parallel block, tied
+embeddings; mamba2-2.7b: SSD layers with ``{h, conv}`` states;
+recurrentgemma-9b: RG-LRU layers and local attention in a ring buffer),
+with the reference's params carried across (``models.carry``): decode
+states, prefill, decode steps against the states, greedy generation,
+the ring buffer under a sliding window, the launcher and the example,
+and the API repairs of the local-updates round and the loss.
 
 The reference's prefill and decode steps run once per (arch, dtype), in
 a module-scoped fixture; each decode step feeds the same seeded tokens
@@ -32,9 +33,10 @@ import torch
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 from repro.models import transformer as RT
+from repro.models.registry import states_max_len as ref_states_max_len
 from repro.serve import greedy_generate as ref_greedy_generate
 from repro.train.loss import lm_loss as ref_lm_loss
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, MLAConfig, get_config
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models import build_model
 from repro_torch.models import transformer as T
@@ -154,20 +156,28 @@ def test_init_states_has_the_reference_shapes(arch, window):
     with torch.device("cpu"):
         got = T.init_states(cfg, 3, 40)
     assert len(got) == len(want) == cfg.num_layers
-    for g, w in zip(got, want):
-        assert sorted(g) == sorted(w) == ["k", "pos_abs", "v"]
+    for (mixer, _), g, w in zip(T.layer_plan(cfg), got, want):
+        want_keys = (["h", "conv"] if mixer in ("rglru", "ssd")
+                     else ["k", "pos_abs", "v"])
+        assert sorted(g) == sorted(w) == sorted(want_keys)
         for key in g:
             assert tuple(g[key].shape) == w[key].shape
             assert str(g[key].dtype).split(".")[-1] == str(w[key].dtype)
-        assert bool((g["pos_abs"] == -1).all())
-        assert not g["k"].any() and not g["v"].any()
-    assert states_max_len(got) == (40 if window is None else 16)
+        if "pos_abs" in g:
+            assert bool((g["pos_abs"] == -1).all())
+            assert not g["k"].any() and not g["v"].any()
+        else:
+            assert not g["h"].any() and not g["conv"].any()
+    assert states_max_len(got) == ref_states_max_len(want)
+    assert states_max_len(got) == {"mamba2-2.7b": 0,
+                                   "recurrentgemma-9b": 40}.get(
+        arch, 40 if window is None else 16)
     assert states_max_len([]) == 0
 
 
 def test_init_states_refuses_an_unported_mixer():
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                              block_pattern=("rglru",))
+                              mla=MLAConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.init_states(cfg, 1, 8)
 
@@ -217,9 +227,10 @@ def test_prefill_and_decode_logits_match_reference(runs, arch, dtype):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_from_the_reference_cache(runs, arch):
-    """One step in the port from the reference's own prefilled cache
-    (f32) gives the reference's logits and its new cache; the carried
-    slots and ``pos_abs`` bit for bit."""
+    """One step in the port from the reference's own prefilled states
+    (f32) gives the reference's logits and its new states; the carried
+    cache slots, ``pos_abs`` and the conv tail's shifted rows bit for
+    bit."""
     a = runs[arch]
     ref = a["ref"]["f32"]
     params = _port_params(a, "f32")
@@ -233,6 +244,14 @@ def test_decode_step_from_the_reference_cache(runs, arch):
                                atol=1e-5 * np.abs(r).max())
     got = states_to_reference(st)
     for g, w, before in zip(got, ref["states_step1"], ref["states_prefill"]):
+        assert sorted(g) == sorted(w)
+        if "conv" in g:
+            np.testing.assert_array_equal(g["conv"][:, :-1],
+                                          before["conv"][:, 1:])
+            for key in ("h", "conv"):
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-4,
+                                           atol=1e-5)
+            continue
         np.testing.assert_array_equal(g["pos_abs"], w["pos_abs"])
         for key in ("k", "v"):
             np.testing.assert_array_equal(g[key][:, :S], before[key][:, :S])
@@ -378,17 +397,26 @@ def test_launch_serve_reduced_on_the_cpu(capsys):
                 "--max-new", "4", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "generated (2, 4)" in out and "on cpu" in out
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+        serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                    "--prompt-len", "8", "--max-new", "4", "--device",
+                    "cpu"])
+        assert "generated (2, 4)" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--arch", "mamba2-2.7b", "--reduced", "--device", "cpu"])
+        serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
+                    "cpu"])
 
 
 def test_serve_example_on_the_cpu(capsys):
+    """The reference's example serves one arch of each state family."""
     from repro_torch.examples import serve_lm
     serve_lm.main(["--device", "cpu"])
-    out = capsys.readouterr().out
-    for arch in ARCHS:
-        assert f"{arch}" in out and "generated 4x12" in out
-    assert "step 4c" in out
+    lines = capsys.readouterr().out.splitlines()
+    archs = ("tinyllama-1.1b", "mamba2-2.7b", "recurrentgemma-9b")
+    assert len(lines) == len(archs) + 1
+    for arch, line in zip(archs, lines):
+        assert line.startswith(arch) and "generated 4x12" in line
+    assert "all three state families" in lines[-1]
 
 
 # -- API repairs: the reference's keywords and positions ---------------------

@@ -3,7 +3,8 @@
 512), with the reference's params carried across (``models.carry``):
 configs, logits and loss, grads per leaf, flash attention against dense
 attention, RoPE and the norm, and the carry itself; the configs, logits
-and loss of nemotron-4-15b and command-r-35b too.
+and loss of nemotron-4-15b, command-r-35b, mamba2-2.7b and
+recurrentgemma-9b too.
 
 Tolerances: bf16 loss at rtol = atol = 2e-2 (the bf16 tolerance of
 ``tests/test_models_smoke.py``), bf16 logits as close to the jitted
@@ -42,8 +43,10 @@ from repro_torch.utils.trees import (tree_flatten_with_path, tree_leaves,
 
 ARCH = "tinyllama-1.1b"
 # dense archs with partial RoPE, relu2 and layernorm (nemotron), and a
-# parallel block with tied embeddings (command-r)
-NEW_ARCHS = ("nemotron-4-15b", "command-r-35b")
+# parallel block with tied embeddings (command-r); SSD layers (mamba2),
+# and RG-LRU layers with gelu and local attention (recurrentgemma)
+NEW_ARCHS = ("nemotron-4-15b", "command-r-35b", "mamba2-2.7b",
+             "recurrentgemma-9b")
 B, S = 2, 64
 
 
@@ -147,6 +150,21 @@ def test_port_init_has_the_reference_tree(setup):
     assert [tuple(x.shape) for x in tree_leaves(full)] == [
         tuple(x.shape) for x in jax.tree.leaves(shapes)]
     assert tree_params(full) == 1_100_048_384
+
+
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-2.7b", "recurrentgemma-9b"])
+def test_a_large_leaf_drawn_a_slot_at_a_time_keeps_its_values(monkeypatch,
+                                                              arch):
+    """Past ``layers._WHOLE_DRAW_BYTES`` a stacked leaf is drawn one slot
+    at a time (command-r-35b's full width); on the CPU generator that
+    gives the values of one whole draw, leaf for leaf."""
+    m = build_model(get_config(arch).reduced())
+    whole = m.init(torch.Generator().manual_seed(0))
+    monkeypatch.setattr(L, "_WHOLE_DRAW_BYTES", 0)
+    slots = m.init(torch.Generator().manual_seed(0))
+    assert len(tree_leaves(slots)) == len(tree_leaves(whole))
+    for a, b in zip(tree_leaves(slots), tree_leaves(whole)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def _outside(a, b, tol=2e-2) -> int:
