@@ -188,33 +188,47 @@ JSON line:
      of one local step (the top kernels, the matrix products' share, the
      busy share), and the peak memory;
   11. serving (``repro_torch.serve.greedy_generate``) at full width,
-     random bf16 params (seed 0), seeded prompts over the whole vocab,
-     all layers: tinyllama-1.1b (22 layers, B = 8, prompt 512, 64 new
-     tokens), nemotron-4-15b (arXiv:2402.16819: 32 layers, d_model 6144,
-     48/8 heads, d_ff 24,576, vocab 256,000), mamba2-2.7b
-     (arXiv:2405.21060: 64 SSD layers, d_model 2560, 80 heads of 64,
-     state 128), recurrentgemma-9b (arXiv:2402.19427: 36 layers, 24
-     RG-LRU of width 4096 and 12 local attention, window 2048) and, last,
-     command-r-35b (40 layers, d_model 8192, d_ff 22,528; 60.6 GB of
-     weights); B = 8, prompt 512, 32 new each; the launch counters set
-     to 0 just before each and read just after (none of K1-K4 or ``bmv``
-     may launch). Checks: the prefill's logits equal ``forward_train``'s;
-     every decoded position's log-softmax within 0.15 of the full
-     forward over the prompt and the ids before it (teacher forcing),
-     and each id its argmax where that forward's top-two gap exceeds
-     0.15; for mamba2, recurrentgemma and command-r (at 16 layers) that
-     pair held on a second run in f32 within 1e-3, the bf16 run's drift
-     printed (``SERVE_PATHS``); each attention cache's ``pos_abs`` the positions 0 ... S + n
-     - 2 at ``pos % T``; the state bytes as ``state_bytes`` gives them
-     (a KV cache B T (2 KV Dh 2 + 4), ``{h, conv}`` B (h 4 + (d_conv -
-     1) width 2)). Printed beside their bounds and the card's name and
-     power limit: prefill ms and decode ms a step (median and max after
-     the first; CUDA events), tokens/s, parameter and state bytes, peak
-     memory over init, prefill and decode, and ``torch.profiler``
-     traces of 5 decode steps and of one prefill (kernels, busy share,
-     matrix products' device time, top kernels);
-     then the ported archs at ``.reduced()`` in f32 on the same params
-     on the card and on the CPU: equal greedy ids, logits at rtol 1e-4;
+     random bf16 params (seed 0), seeded prompts over the whole vocab:
+     tinyllama-1.1b (22 layers, B = 8, prompt 512, 64 new tokens),
+     nemotron-4-15b (arXiv:2402.16819: 32 layers, d_model 6144, 48/8
+     heads, d_ff 24,576, vocab 256,000), mamba2-2.7b (arXiv:2405.21060:
+     64 SSD layers, d_model 2560, 80 heads of 64, state 128),
+     recurrentgemma-9b (arXiv:2402.19427: 36 layers, 24 RG-LRU of width
+     4096 and 12 local attention, window 2048), chatglm3-6b
+     (arXiv:2406.12793: 28 layers, d_model 4096, 32/2 heads, d_ff
+     13,696, qkv bias, 2d RoPE), whisper-tiny (arXiv:2212.04356: 4
+     encoder and 4 decoder layers, d_model 384, 6 heads, 1,500 encoder
+     frames, prompt 224, 64 new), command-r-35b (40 layers, d_model 8192,
+     d_ff 22,528; 60.6 GB of weights) and, last, qwen2-vl-72b
+     (arXiv:2409.12191: d_model 8192, 64/8 heads, d_ff 29,568, vocab
+     152,064, M-RoPE; 32 of its 80 layers, 61.2 GB; its prompt opening
+     with 256 patch embeddings on a (t = 0, h, w) 16 x 16 grid); B = 8,
+     prompt 512, 32 new but where named; the launch counters set to 0
+     just before each and read just after (none of K1-K4 or ``bmv`` may
+     launch). Checks: the prefill's logits equal ``forward_train``'s
+     with the same frames or patches; every decoded position's
+     log-softmax within 0.15 of the full forward over the prompt and
+     the ids before it (teacher forcing), and each id its argmax where
+     that forward's top-two gap exceeds 0.15; for mamba2,
+     recurrentgemma and command-r (at 16 layers) that pair held on a
+     second run in f32 within 1e-3, the bf16 run's drift printed
+     (``SERVE_PATHS``); qwen2-vl's decode held on the prompt as text only
+     (the reference's cache keeps one patch of a patch prompt: every
+     patch has t = 0), the patch prompt's error printed; each attention
+     cache's ``pos_abs`` the positions 0 ... S + n - 2 at ``pos % T``
+     (qwen2-vl: slot 0 holds 0, slots 1 ... 255 -1); whisper's cross k
+     and v the prefill's tensors, addresses and values after the decode;
+     the state bytes as ``state_bytes`` gives them (a KV cache B T (2 KV
+     Dh 2 + 4), ``{h, conv}`` B (h 4 + (d_conv - 1) width 2), whisper's
+     cross k and v 2 B source_len KV Dh 2 a layer). Printed beside their
+     bounds and the card's name and power limit: prefill ms and decode
+     ms a step (median and max after the first; CUDA events), tokens/s,
+     parameter and state bytes, peak memory over init, prefill and
+     decode, and ``torch.profiler`` traces of 5 decode steps and of one
+     prefill (kernels, busy share, matrix products' device time, top
+     kernels); then the ported archs at ``.reduced()`` in f32 on the
+     same params on the card and on the CPU (qwen2-vl with 9 patches,
+     whisper with its frames): equal greedy ids, logits at rtol 1e-4;
   12. the local-update rounds across ranks
      (``local_updates_round(..., axis_name=<Fabric>)``), phase 10's model
      and settings, 2 rounds a path with the opt state synced, the launch
@@ -374,30 +388,44 @@ LM_PATHS = (("f32", "f32", None, 3),
 LM_REPS = 3
 # the serving phase (11): greedy generation through
 # repro_torch.serve.greedy_generate at full width, random bf16 params
-# (seed 0) and seeded prompts over the whole vocab. Paths: (arch, batch,
-# prompt, new tokens); all layers. command-r-35b comes last, with the
-# card otherwise empty: 60.6 GB of weights, and its checks hold two
-# (8, 512, 256,000) f32 logits blocks, 4.2 GB each. The last two fields
-# are the dtype whose run holds the decode against teacher forcing and,
-# for f32, its layers (None: all). In bf16 two computations of the same
-# positions that differ only in their shapes (a decode step's 8 rows, a
-# forward's 4,344) round apart, and through a deep random model the
-# difference grows past 0.15: about 0.2 at 36-40 layers, and along the
-# decoded positions of mamba2 to 0.59, in the reference too (mamba2 at 16
-# layers, B 1, prompt 256: 0.094 -> 0.199 on the CPU, jax;
-# tests/torch_bf16_witness.py, PERF.md). So
-# those paths are held in f32 (params from the same seed, f32 states;
-# command-r-35b's f32 weights fit at 16 of its 40 layers), their bf16
-# drift printed beside it
-SERVE_PATHS = (("tinyllama-1.1b", 8, 512, 64, "bf16", None),
-               ("nemotron-4-15b", 8, 512, 32, "bf16", None),
-               ("mamba2-2.7b", 8, 512, 32, "f32", None),
-               ("recurrentgemma-9b", 8, 512, 32, "f32", None),
-               ("command-r-35b", 8, 512, 32, "f32", 16))
+# (seed 0) and seeded prompts over the whole vocab. Paths: (arch, layers
+# served (None: all), batch, prompt, new tokens, the dtype holding the
+# decode against teacher forcing, its layers (None: those served)).
+# command-r-35b runs with the card otherwise empty: 60.6 GB of weights,
+# and its checks hold two (8, 512, 256,000) f32 logits blocks, 4.2 GB
+# each; then qwen2-vl-72b at 32 of its 80 layers (877.8 M params, 1.756
+# GB a layer; with embed and unembed, 4.98 GB, 61.2 GB: 80 layers would
+# be ~145 GB), its prompt opening with SERVE_PATCHES patch embeddings.
+# whisper-tiny's batch carries its encoder's 1,500 frames. In bf16 two
+# computations of the same positions that differ only in their shapes
+# (a decode step's 8 rows, a forward's 4,344) round apart, and through
+# a deep random model the difference grows past 0.15: about 0.2 at 36-40
+# layers, and along the decoded positions of mamba2 to 0.59, in the
+# reference too (mamba2 at 16 layers, B 1, prompt 256: 0.094 -> 0.199 on
+# the CPU, jax; tests/torch_bf16_witness.py, PERF.md). So those paths
+# are held in f32 (params from the same seed, f32 states; command-r's
+# f32 weights fit at 16 layers), their bf16 drift printed beside it.
+# chatglm3-6b, whisper-tiny and qwen2-vl-72b at 32 layers stay within
+# 0.15 in bf16 (0.094, 0.016, 0.109 on an H100). qwen2-vl's decode is
+# held on the prompt as text only: the reference's cache keeps one
+# patch of a patch prompt (every patch has t = 0 and so slot 0), where
+# teacher forcing sees all of them
+SERVE_PATHS = (("tinyllama-1.1b", None, 8, 512, 64, "bf16", None),
+               ("nemotron-4-15b", None, 8, 512, 32, "bf16", None),
+               ("mamba2-2.7b", None, 8, 512, 32, "f32", None),
+               ("recurrentgemma-9b", None, 8, 512, 32, "f32", None),
+               ("chatglm3-6b", None, 8, 512, 32, "bf16", None),
+               ("whisper-tiny", None, 8, 224, 64, "bf16", None),
+               ("command-r-35b", None, 8, 512, 32, "f32", 16),
+               ("qwen2-vl-72b", 32, 8, 512, 32, "bf16", None))
 SERVE_TF_TOL = 0.15          # tests/test_models_smoke.py's decode bound
 # in f32: ten times the f32 logits' rtol of 1e-4, at logits of ~10
 SERVE_TF_TOL_F32 = 1e-3
 SERVE_TRACE_STEPS = 5
+# a vlm prompt's patches: input_specs' min(num_patch_tokens, S // 2)
+# (256 at a 512 prompt: one 448 x 448 image after Qwen2-VL's 2 x 2
+# merge), cut to the largest square, on a (t = 0, h, w) grid
+SERVE_PATCHES = 256
 # the small card-vs-CPU run: the ported archs at .reduced() in f32
 SERVE_SMALL = (4, 24, 12)
 # the local-update rounds across ranks (12): phase 10's model and
@@ -1191,7 +1219,7 @@ class ServeRecorder:
         self.torch, self.model, self.events = torch, model, events
         self.cache_dtype = cache_dtype
         self.states, self.prefill_last, self.step_logits = None, None, []
-        self.marks = []
+        self.marks, self.cross = [], []
 
     def _event(self):
         if not self.events:
@@ -1210,6 +1238,11 @@ class ServeRecorder:
         logits, states = self.model.prefill(params, batch, states)
         self.marks.append((start, self._event()))
         self.prefill_last = logits[:, -1:].clone()
+        # whisper's cross keys and values as the prefill left them: each
+        # tensor, its address and a copy of its values
+        self.cross = [(st[k], st[k].data_ptr(), st[k].clone())
+                      for st in states if "cross_k" in st
+                      for k in ("cross_k", "cross_v")]
         return logits, states
 
     def decode_step(self, params, batch, states):
@@ -1242,23 +1275,36 @@ def mixer_products(cfg, mixer: str) -> list:
     return [(d, H * Dh), (d, KV * Dh), (d, KV * Dh), (H * Dh, d)]
 
 
-def dense_products(cfg, tokens: int) -> tuple[float, float]:
+def dense_products(cfg, tokens: int, frames: int = 0) -> tuple[float, float]:
     """The bf16 matrix products of a forward over ``tokens`` positions,
     each layer's mixer and channel projections and the unembedding:
     (flops, bytes), each weight, input and output read or written once
     (the attention's score products and the SSD and RG-LRU scans run in
-    f32 and are not counted)."""
+    f32 and are not counted). whisper: the decoder's self-attention,
+    cross q and o and MLP over ``tokens``, and over ``frames`` encoder
+    positions (its prefill; 0 in a decode step, which reads the cached
+    cross keys and values) the encoder and each layer's cross k and v."""
     from repro_torch.configs import padded_vocab
     from repro_torch.models.transformer import layer_plan
     d, f = cfg.d_model, cfg.d_ff
-    shapes = []
+    mlp = [(d, f), (f, d)] + ([(d, f)] if cfg.mlp_gated else [])
+    shapes = []                                 # (positions, d_in, d_out)
     for mixer, channel in layer_plan(cfg):
-        shapes += mixer_products(cfg, mixer)
+        proj = mixer_products(cfg, mixer)
+        if cfg.family == "audio":               # self, then cross
+            shapes += [(tokens, *ab) for ab in proj + [proj[0], proj[3]]]
+            shapes += [(frames, *ab) for ab in proj[1:3]]
+        else:
+            shapes += [(tokens, *ab) for ab in proj]
         if channel == "mlp":
-            shapes += [(d, f), (f, d)] + ([(d, f)] if cfg.mlp_gated else [])
-    shapes.append((d, padded_vocab(cfg)))
-    flops = sum(2 * tokens * a * b for a, b in shapes)
-    nbytes = sum(2 * (tokens * a + a * b + tokens * b) for a, b in shapes)
+            shapes += [(tokens, *ab) for ab in mlp]
+    if cfg.family == "audio":
+        shapes += [(frames, *ab) for _ in range(cfg.encdec.num_layers)
+                   for ab in mixer_products(cfg, "attn") + mlp]
+    shapes.append((tokens, d, padded_vocab(cfg)))
+    shapes = [sh for sh in shapes if sh[0]]
+    flops = sum(2 * n * a * b for n, a, b in shapes)
+    nbytes = sum(2 * (n * a + a * b + n * b) for n, a, b in shapes)
     return flops, nbytes
 
 
@@ -1267,7 +1313,8 @@ def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
     config alone: (attention caches, ``{h, conv}`` states). A KV cache
     holds T = min(window, max_len) slots of bf16 k and v and int32
     ``pos_abs``; an RG-LRU or SSD state an f32 ``h`` and a bf16 conv
-    tail of d_conv - 1 rows."""
+    tail of d_conv - 1 rows; a whisper decoder layer also its cross k
+    and v, B source_len KV Dh each in bf16."""
     from repro_torch.models.transformer import layer_plan
     attn = rec = 0
     for mixer, _ in layer_plan(cfg):
@@ -1285,20 +1332,64 @@ def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
                 window = cfg.rglru.local_window
             T = min(window, max_len) if window else max_len
             attn += B * T * (2 * cfg.num_kv_heads * cfg.head_dim * 2 + 4)
+            if cfg.family == "audio":
+                attn += (B * cfg.encdec.source_len * cfg.num_kv_heads
+                         * cfg.head_dim * 2 * 2)
     return attn, rec
 
 
+def step_weight_bytes(cfg, params) -> int:
+    """The weight bytes a decode step reads: every one but the embedding
+    table's (a step gathers B rows of it), which it reads whole where it
+    is also the unembedding; for whisper only the decoder's, less each
+    layer's cross k and v projections (their outputs are cached), with
+    the tied embedding whole (``dec_pos``: B rows)."""
+    from repro_torch.utils.trees import tree_bytes
+    if cfg.family == "audio":
+        return (tree_bytes(params["dec_layers"])
+                + tree_bytes(params["dec_norm"]) + tree_bytes(params["embed"])
+                - sum(tree_bytes(lp["cross"][k]) for lp in params["dec_layers"]
+                      for k in ("wk", "wv")))
+    return tree_bytes(params) - (0 if cfg.tie_embeddings
+                                 else tree_bytes(params["embed"]))
+
+
+def serve_extras(torch, cfg, B: int, S: int, rng, device) -> dict:
+    """The batch's inputs beyond the tokens, drawn from ``rng``: whisper's
+    (B, source_len, d_model) frames x 0.02 in bf16; a vlm's patches x
+    0.02 in bf16 at the prompt's start, the largest square within
+    ``min(SERVE_PATCHES, S // 2)``, on a (t = 0, h, w) grid."""
+    import math
+
+    import numpy as np
+    if cfg.family == "audio":
+        return {"frame_embeds": torch.tensor(rng.standard_normal(
+            (B, cfg.encdec.source_len, cfg.d_model)) * 0.02).to(
+                device, torch.bfloat16)}
+    if cfg.family != "vlm":
+        return {}
+    side = math.isqrt(min(SERVE_PATCHES, S // 2))
+    h, w = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    grid = np.stack([np.zeros_like(h), h, w], -1).reshape(1, -1, 3)
+    return {"patch_embeds": torch.tensor(rng.standard_normal(
+                (B, side * side, cfg.d_model)) * 0.02).to(
+                    device, torch.bfloat16),
+            "patch_positions": torch.tensor(
+                np.repeat(grid, B, 0), dtype=torch.int32, device=device)}
+
+
 def teacher_forcing(torch, model, params, prompts, ids, logits,
-                    tol: float) -> dict:
+                    tol: float, extras=None) -> dict:
     """Every decoded position (``logits``: the prefill's last row and
     each step's) against teacher forcing, the full forward over the
-    prompt and the ids before it: the largest log-softmax difference
-    (and by position), and whether each id is that forward's argmax
-    where its top-two gap exceeds ``tol``."""
+    prompt (with ``extras``) and the ids before it: the largest
+    log-softmax difference (and by position), and whether each id is
+    that forward's argmax where its top-two gap exceeds ``tol``."""
     S = prompts.shape[1]
     with torch.inference_mode():
         seq = torch.cat([prompts, ids[:, :-1]], dim=1)
-        tf, _ = model.forward_train(params, {"tokens": seq})
+        tf, _ = model.forward_train(params, {"tokens": seq,
+                                             **(extras or {})})
         tf = torch.log_softmax(tf[:, S - 1:], dim=-1)
         got = torch.log_softmax(logits, dim=-1)
         top2 = tf.topk(2, dim=-1).values
@@ -1310,6 +1401,15 @@ def teacher_forcing(torch, model, params, prompts, ids, logits,
                            .all()),
             positions_with_top2_gap_over_tol=int(sure.sum()),
             positions=int(sure.numel()), tolerance=tol)
+
+
+def expected_pos_abs(torch, T: int, written: list):
+    """A cache of T slots after ``written`` positions in that order, each
+    at slot ``pos % T`` (the last write to a slot wins): -1 elsewhere."""
+    want = torch.full((T,), -1, dtype=torch.int32)
+    for p_ in written:
+        want[p_ % T] = p_
+    return want
 
 
 def serve_phase(torch, counters, device="cuda") -> None:
@@ -1329,26 +1429,36 @@ def serve_phase(torch, counters, device="cuda") -> None:
 
     full_f32_matmul()
     card = nvidia_smi()
-    for arch, B, S, n, held_in, held_layers in SERVE_PATHS:
+    for arch, layers, B, S, n, held_in, held_layers in SERVE_PATHS:
         t0 = time.perf_counter()
         free(torch)
         held_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        cfg = get_config(arch)
+        full_cfg = get_config(arch)
+        cfg = dataclasses.replace(full_cfg,
+                                  num_layers=layers or full_cfg.num_layers)
         model = build_model(cfg)
         params = model.init(torch.Generator(device=device).manual_seed(0))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         init_peak = torch.cuda.max_memory_allocated()
-        prompts = torch.tensor(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (B, S)), dtype=torch.int32).to(device)
+        rng = np.random.default_rng(0)
+        prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               dtype=torch.int32).to(device)
+        extras = serve_extras(torch, cfg, B, S, rng, device)
+        P = extras["patch_embeds"].shape[1] if "patch_embeds" in extras else 0
+        # teacher forcing sees every patch, the reference's decode one: a
+        # vlm's decode is held on the same prompt as text only
+        tf_extras = {} if P else extras
         # a warm-up call: the first of each kernel loads its module
-        greedy_generate(model, params, prompts, max_new=2)
+        greedy_generate(model, params, prompts, max_new=2,
+                        batch_extras=extras)
         rec = ServeRecorder(torch, model, events=True)
         for fn in counters:
             fn.launches = 0
         h0 = time.perf_counter()
-        ids = greedy_generate(rec, params, prompts, max_new=n)
+        ids = greedy_generate(rec, params, prompts, max_new=n,
+                              batch_extras=extras)
         torch.cuda.synchronize()
         generate_s = time.perf_counter() - h0
         launches = {fn.__name__: fn.launches for fn in counters}
@@ -1358,43 +1468,65 @@ def serve_phase(torch, counters, device="cuda") -> None:
         steady = step_ms[1:] or step_ms
 
         with torch.inference_mode():
-            # 1. the prefill's logits (the same call on the same prompts,
-            # into new states) against forward_train's
-            full, _ = model.prefill(params, {"tokens": prompts},
-                                    model.init_states(params, B, S + n))
-            train, _ = model.forward_train(params, {"tokens": prompts})
+            # 1. the prefill's logits (the same call on the same prompts
+            # and extras, into new states) against forward_train's
+            batch = {"tokens": prompts, **extras}
+            full, _ = model.prefill(params, batch, model.init_states(
+                params, B, S + n, batch=extras or None))
+            train, _ = model.forward_train(params, batch)
             # a row at a time: command-r's (8, 512, 256,000) blocks leave
             # no room for a whole difference beside its weights
             prefill_diff = max(max_err(f, t) for f, t in zip(full, train))
-            del full, train
-        # 2-3. every decoded position against teacher forcing
-        tf_bf16 = teacher_forcing(torch, model, params, prompts, ids,
-                                  rec.logits(), SERVE_TF_TOL)
+            del full, train, batch
+        # 2-3. every decoded position against teacher forcing (a vlm's on
+        # a text-only run, the patch prompt's error printed)
+        if P:
+            patch_tf = teacher_forcing(torch, model, params, prompts, ids,
+                                       rec.logits(), SERVE_TF_TOL, extras)
+            rec_text = ServeRecorder(torch, model, events=False)
+            ids_text = greedy_generate(rec_text, params, prompts, max_new=n)
+            tf_bf16 = teacher_forcing(torch, model, params, prompts,
+                                      ids_text, rec_text.logits(),
+                                      SERVE_TF_TOL)
+            del rec_text, ids_text
+        else:
+            patch_tf = None
+            tf_bf16 = teacher_forcing(torch, model, params, prompts, ids,
+                                      rec.logits(), SERVE_TF_TOL, extras)
         # 4. each attention cache's positions: 0 ... S + n - 2, each at
-        # slot pos % T (the last slot empty where T = S + n)
+        # slot pos % T (the last slot empty where T = S + n); a vlm's P
+        # patches all at position 0, so slot 0 holds 0 and 1 ... P - 1
+        # stay empty
+        written = [0] * P + list(range(P, S + n - 1))
         pos_ok = True
         for st in rec.states:
-            if "pos_abs" not in st:
-                continue
-            want_pos = torch.full((st["pos_abs"].shape[1],), -1,
-                                  dtype=torch.int32)
-            for p_ in range(S + n - 1):
-                want_pos[p_ % len(want_pos)] = p_
-            pos_ok &= bool((st["pos_abs"].cpu() == want_pos).all())
+            st = st.get("self", st)
+            if "pos_abs" in st:
+                want_pos = expected_pos_abs(torch, st["pos_abs"].shape[1],
+                                            written)
+                pos_ok &= bool((st["pos_abs"].cpu() == want_pos).all())
+        # 5. whisper's cross k and v: the prefill's tensors, at their
+        # addresses, with their values, after every decode step
+        now = [st[k] for st in rec.states if "cross_k" in st
+               for k in ("cross_k", "cross_v")]
+        cross_ok = len(now) == len(rec.cross) and all(
+            a is t and a.data_ptr() == ptr and torch.equal(a, was)
+            for a, (t, ptr, was) in zip(now, rec.cross))
         cache_bytes = tree_bytes(rec.states)
         attn_bytes, rec_bytes = state_bytes(cfg, B, S + n)
         want_cache = attn_bytes + rec_bytes
         param_bytes = tree_bytes(params)
-        embed_bytes = tree_bytes(params["embed"])
-        # decode: every weight byte but the embedding table (a step
-        # gathers B rows of it; read whole where it is also the
-        # unembedding), the whole KV cache, which a step reads, and the
-        # {h, conv} states, which a step reads and writes whole
-        read = (param_bytes - (0 if cfg.tie_embeddings else embed_bytes)
-                + B * cfg.d_model * 2 + cache_bytes + rec_bytes)
+        # decode: the weights a step reads (step_weight_bytes), the B
+        # embedding rows it gathers (whisper: and B rows of dec_pos), the
+        # whole KV cache (whisper: and the cross k and v), which a step
+        # reads, and the {h, conv} states, which it reads and writes whole
+        read = (step_weight_bytes(cfg, params)
+                + B * cfg.d_model * 2 * (2 if cfg.family == "audio" else 1)
+                + cache_bytes + rec_bytes)
         decode_bound = bound_ms(read, dense_products(cfg, B)[0],
                                 BF16_FLOPS_PER_S)
-        pre_flops, pre_bytes = dense_products(cfg, B * S)
+        frames = B * cfg.encdec.source_len if cfg.encdec else 0
+        pre_flops, pre_bytes = dense_products(cfg, B * S, frames)
         prefill_bound = bound_ms(pre_bytes, pre_flops, BF16_FLOPS_PER_S)
         # 5 decode steps more, traced, writing on past the last slot
         # (positions wrap in the cache; the checks are done)
@@ -1411,11 +1543,11 @@ def serve_phase(torch, counters, device="cuda") -> None:
         kern = trace.get("kernels", {})
         n_kern = sum(v["calls"] for v in kern.values())
         # and one prefill, into new states
-        st = model.init_states(params, B, S + n)
+        st = model.init_states(params, B, S + n, batch=extras or None)
 
         def prefill():
             with torch.inference_mode():
-                model.prefill(params, {"tokens": prompts}, st)
+                model.prefill(params, {"tokens": prompts, **extras}, st)
 
         p_trace = device_trace(torch, prefill)
         p_kern = p_trace.get("kernels", {})
@@ -1426,7 +1558,7 @@ def serve_phase(torch, counters, device="cuda") -> None:
             # the same greedy generation on f32 params from the same seed
             # and f32 states, the bf16 params freed first
             del params
-            rec.states = None
+            rec.states = rec.cross = None
             free(torch)
             torch.cuda.reset_peak_memory_stats()
             m32 = build_model(dataclasses.replace(
@@ -1435,9 +1567,11 @@ def serve_phase(torch, counters, device="cuda") -> None:
                            torch.float32)
             rec32 = ServeRecorder(torch, m32, events=False,
                                   cache_dtype=torch.float32)
-            ids32 = greedy_generate(rec32, p32, prompts, max_new=n)
+            ids32 = greedy_generate(rec32, p32, prompts, max_new=n,
+                                    batch_extras=tf_extras)
             held = teacher_forcing(torch, m32, p32, prompts, ids32,
-                                   rec32.logits(), SERVE_TF_TOL_F32)
+                                   rec32.logits(), SERVE_TF_TOL_F32,
+                                   tf_extras)
             held["layers"] = m32.cfg.num_layers
             f32_peak = torch.cuda.max_memory_allocated()
             del m32, p32, rec32, ids32
@@ -1448,19 +1582,25 @@ def serve_phase(torch, counters, device="cuda") -> None:
             decode_vs_teacher_forcing=held["err"] < held["tolerance"],
             ids_are_teacher_forced_argmax=held["argmax_ok"],
             logits_finite=bool(torch.isfinite(rec.logits()).all()),
-            pos_abs=pos_ok, cache_bytes=cache_bytes == want_cache,
+            pos_abs=pos_ok, cross_kv_kept=cross_ok,
+            cache_bytes=cache_bytes == want_cache,
             no_kernel_launched=not any(launches.values()) and not any(
                 fn.launches for fn in counters),
             shape=tuple(ids.shape) == (B, n) and ids.dtype == torch.int32)
         line = dict(
             arch=arch, card=card, layers=cfg.num_layers,
+            layers_of_config=full_cfg.num_layers,
+            encoder_layers=cfg.encdec.num_layers if cfg.encdec else None,
             mixers=sorted({mx for mx, _ in layer_plan(cfg)}),
-            d_model=cfg.d_model,
+            rope=cfg.rope_style, d_model=cfg.d_model,
             heads=[cfg.num_heads, cfg.num_kv_heads], d_ff=cfg.d_ff,
             vocab=padded_vocab(cfg), params=n_params,
-            batch=B, prompt=S, max_new=n, checks=checks,
+            batch=B, prompt=S, max_new=n,
+            extras={k: list(v.shape) for k, v in extras.items()},
+            checks=checks,
             prefill_max_abs_diff_vs_forward_train=prefill_diff,
             teacher_forcing_held_in=held_in,
+            teacher_forcing_prompt="text only" if P else "the path's",
             teacher_forcing_layers=held.get("layers", cfg.num_layers),
             teacher_forcing_max_abs_logsoftmax_err=held["err"],
             teacher_forcing_err_by_position=held["err_by_position"],
@@ -1472,6 +1612,10 @@ def serve_phase(torch, counters, device="cuda") -> None:
                 max_abs_logsoftmax_err=tf_bf16["err"],
                 err_by_position=tf_bf16["err_by_position"],
                 ids_are_argmax_where_gap_over_tol=tf_bf16["argmax_ok"])),
+            patch_prompt_teacher_forcing_not_held=(None if patch_tf is None
+                                                   else dict(
+                max_abs_logsoftmax_err=patch_tf["err"],
+                err_by_position=patch_tf["err_by_position"])),
             f32_check_peak_memory=f32_peak,
             prefill_ms=prefill_ms, prefill_bound_ms=prefill_bound[0],
             prefill_bound_by=prefill_bound[1],
@@ -1514,11 +1658,11 @@ def serve_phase(torch, counters, device="cuda") -> None:
         if not all(checks.values()):
             raise SystemExit(f"chip_smoke: serving {arch} failed a check "
                              f"{checks} (see its serve_path line)")
-        del params, rec, ids, prompts, trace, p_trace
+        del params, rec, ids, prompts, extras, tf_extras, trace, p_trace
         free(torch)
 
     # the small run: the same f32 params, and f32 caches, on the card
-    # and on the CPU
+    # and on the CPU (a vlm's prompt with patches)
     t0 = time.perf_counter()
     B, S, n = SERVE_SMALL
     small = {}
@@ -1526,19 +1670,24 @@ def serve_phase(torch, counters, device="cuda") -> None:
         cfg = get_config(arch).reduced()
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), torch.float32)
-        prompts = torch.tensor(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (B, S)), dtype=torch.int32)
+        rng = np.random.default_rng(1)
+        prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               dtype=torch.int32)
+        extras = serve_extras(torch, cfg, B, S, rng, "cpu")
         runs = {}
         for dev in (device, "cpu"):
             rec = ServeRecorder(torch, model, events=False,
                                 cache_dtype=torch.float32)
             ids = greedy_generate(rec, tree_map(lambda a: a.to(dev), params),
-                                  prompts.to(dev), max_new=n)
+                                  prompts.to(dev), max_new=n,
+                                  batch_extras=tree_map(lambda a: a.to(dev),
+                                                        extras))
             runs[dev] = (ids.cpu(), rec.logits().cpu())
         (ids_d, lg_d), (ids_c, lg_c) = runs[device], runs["cpu"]
         scale = float(lg_c.abs().max())
         err = max_err(lg_d, lg_c)
         small[arch] = dict(
+            extras={k: list(v.shape) for k, v in extras.items()},
             ids_equal=bool(torch.equal(ids_d, ids_c)), max_abs_err=err,
             largest_logit=scale,
             close=bool(torch.allclose(lg_d, lg_c, rtol=1e-4,

@@ -1,10 +1,11 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
 The reference knows ten architectures (``repro.configs.registry``); the
-port has the configs of the ones it trains and serves: the dense family,
-the SSM (mamba2) and the hybrid RG-LRU one (recurrentgemma). The others
-are named, so that asking for one says where it stands instead of
-calling it unknown.
+port has the configs of the ones it trains and serves: the dense family
+(chatglm3's 2d RoPE among them), the SSM (mamba2), the hybrid RG-LRU one
+(recurrentgemma), the vlm (qwen2-vl: M-RoPE, patch embeddings) and the
+audio enc-dec (whisper). The two MoE archs are named, so that asking for
+one says where it stands instead of calling it unknown.
 """
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ _MODULES = {
     "command-r-35b": "repro_torch.configs.command_r",
     "mamba2-2.7b": "repro_torch.configs.mamba2",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma",
+    "chatglm3-6b": "repro_torch.configs.chatglm3",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 # the reference's other architectures, not ported yet
-PENDING = ("llama4-maverick-400b-a17b", "qwen2-vl-72b", "deepseek-v3-671b",
-           "chatglm3-6b", "whisper-tiny")
+PENDING = ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
 
 ARCHS = tuple(_MODULES)
 
@@ -31,7 +34,8 @@ def get_config(arch: str) -> ModelConfig:
     if arch in PENDING:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP.md, Queue 1 item 12: "
-            f"MoE / MLA / whisper and the other configs); "
+            f"MoE, then MLA with multi-token prediction, are what is "
+            f"left); "
             f"ported: {list(ARCHS)}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: "

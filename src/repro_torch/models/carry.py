@@ -6,7 +6,8 @@ it, is a nested dict (and list) of numpy arrays; its bf16 leaves have
 ``ml_dtypes``' bfloat16 dtype, which PyTorch cannot read directly, so
 they cross as their 16-bit patterns. Both directions keep every bit and
 the tree's structure (the ``prologue`` list and the stacked ``stack``
-slots included), so leaves, their order and their checkpoint keys are
+slots, or whisper's ``enc_layers`` and ``dec_layers`` lists, included),
+so leaves, their order and their checkpoint keys are
 the same in both packages.
 """
 from __future__ import annotations
@@ -40,26 +41,40 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _check_tree(np_tree, cfg: ModelConfig) -> None:
+    """The reference's leaves for ``cfg``: the embedding's shape, and
+    every stacked slot's depth (whisper: the encoder's and decoder's
+    layer counts)."""
+    want = (padded_vocab(cfg), cfg.d_model)
+    got = tuple(np.shape(np_tree["embed"]))
+    if got != want:
+        raise ValueError(f"params_from_reference: embed is {got}, "
+                         f"{cfg.name} has {want}")
+    if cfg.family == "audio":
+        counts = {"enc_layers": cfg.encdec.num_layers,
+                  "dec_layers": cfg.num_layers}
+        for key, n in counts.items():
+            if len(np_tree[key]) != n:
+                raise ValueError(f"params_from_reference: {key} holds "
+                                 f"{len(np_tree[key])} layers, {cfg.name} "
+                                 f"has {n}")
+        return
+    n_cycles = len(layer_plan(cfg)) // _period(cfg)
+    for slot in np_tree["stack"]:
+        lead = np.shape(slot["mixer_norm"]["scale"])[0]
+        if lead != n_cycles:
+            raise ValueError(f"params_from_reference: a slot stacks "
+                             f"{lead} layers, {cfg.name} has {n_cycles}")
+
+
 def params_from_reference(np_tree, cfg: ModelConfig | None = None, *,
                           device=None):
     """The reference's param tree (numpy leaves) as the port's tensors on
     ``device`` (the card by default). With ``cfg``, the tree must hold
-    the reference's leaves for it: the embedding's and every stacked
-    slot's shapes are checked."""
+    the reference's leaves for it (``_check_tree``)."""
     dev = resolve_device(device)
     if cfg is not None:
-        n_cycles = len(layer_plan(cfg)) // _period(cfg)
-        want = (padded_vocab(cfg), cfg.d_model)
-        got = tuple(np.shape(np_tree["embed"]))
-        if got != want:
-            raise ValueError(f"params_from_reference: embed is {got}, "
-                             f"{cfg.name} has {want}")
-        for slot in np_tree["stack"]:
-            lead = np.shape(slot["mixer_norm"]["scale"])[0]
-            if lead != n_cycles:
-                raise ValueError(f"params_from_reference: a slot stacks "
-                                 f"{lead} layers, {cfg.name} has "
-                                 f"{n_cycles}")
+        _check_tree(np_tree, cfg)
     return tree_map(lambda a: tensor_from_numpy(a, dev), np_tree)
 
 
@@ -72,8 +87,9 @@ def params_to_reference(params):
 def states_from_reference(np_states, device=None) -> list:
     """The reference's per-layer decode states (a list of dicts of numpy
     arrays, as ``jax.device_get`` gives them: ``{k, v, pos_abs}`` for an
-    attention layer, ``{h, conv}`` for an RG-LRU or SSD layer) as the
-    port's tensors on ``device`` (the card by default), every bit
+    attention layer, ``{h, conv}`` for an RG-LRU or SSD layer, ``{self:
+    {k, v, pos_abs}, cross_k, cross_v}`` for a whisper decoder layer) as
+    the port's tensors on ``device`` (the card by default), every bit
     kept."""
     dev = resolve_device(device)
     return [tree_map(lambda a: tensor_from_numpy(a, dev), st)

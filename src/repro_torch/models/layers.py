@@ -11,16 +11,17 @@ Numerics follow the reference's order: params in bf16 and norm scales
 in f32; a norm computes in f32 and casts back; RoPE rotates in f32;
 attention takes its logits, softmax and sums in f32.
 
-Here so far: ``dense``, the norms, the activations, full and partial
-RoPE, dense attention (``_attend_dense``), flash attention with a
+Here so far: ``dense``, the norms, the activations, full, partial, 2d
+and M-RoPE, dense attention (``_attend_dense``), flash attention with a
 backward that recomputes the score blocks, the GQA attention block with
-its decode cache (a ring buffer under a window), the (gated) MLP, the
-causal depthwise conv1d, the RG-LRU block (griffin) and the SSD block
-(mamba2), each with its decode state. Every decode state is written in
-place: the attention cache's slots, the recurrent ``h`` and the conv
-tail, so a state's tensors keep their addresses across steps. MLA and
-MoE are not ported yet (ROADMAP.md, Queue 1 item 12), nor is the
-reference's sharding (``constrain``, item 13).
+its decode cache (a ring buffer under a window) and as cross-attention
+(whisper's decoder), the (gated) MLP, the causal depthwise conv1d, the
+RG-LRU block (griffin) and the SSD block (mamba2), each with its decode
+state. Every decode state is written in place: the attention cache's
+slots, the recurrent ``h`` and the conv tail, so a state's tensors keep
+their addresses across steps. MLA and MoE are not ported yet
+(ROADMAP.md, Queue 1 item 12), nor is the reference's sharding
+(``constrain`` and ``constrain_cache``, item 13).
 """
 from __future__ import annotations
 
@@ -88,7 +89,13 @@ def dense_init(gen, d_in, d_out, *, bias=False, dtype=torch.bfloat16,
 
 
 def dense(p, x):
-    y = x @ p["w"]
+    """``x @ w (+ b)``, in the promoted dtype where x's and w's differ, as
+    jnp's product promotes (whisper's bf16 frames into f32 weights)."""
+    w = p["w"]
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y
@@ -177,7 +184,7 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 # ----------------------------------------------------------------------
-# RoPE (full / partial)
+# RoPE (full / partial / 2d / M-RoPE)
 # ----------------------------------------------------------------------
 
 
@@ -196,19 +203,39 @@ def _rotate(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
+def _mrope_angles(positions, rot_dim, theta):
+    """M-RoPE: positions (B, S, 3), the (t, h, w) components, each
+    rotating its own section of the rot_dim/2 pairs: ``[half - 2 *
+    (half // 3), half // 3, half // 3]`` (22 / 21 / 21 at head_dim 128,
+    the reference's split, not Qwen2-VL's published 16 / 24 / 24). The
+    angles of all three components come from one ``_rope_angles`` call
+    and each pair takes its component's: the reference's three calls
+    and concatenation, in fewer kernels."""
+    half = rot_dim // 2
+    b1, b2 = half - 2 * (half // 3), half - half // 3
+    cos, sin = _rope_angles(positions, rot_dim, theta)   # (B, S, 3, half)
+    j = torch.arange(half, device=positions.device)
+    comp = ((j >= b1).long() + (j >= b2).long()).expand(
+        *cos.shape[:-2], 1, half)
+    return cos.gather(-2, comp)[..., 0, :], sin.gather(-2, comp)[..., 0, :]
+
+
 def apply_rope(x, positions, cfg: ModelConfig):
-    """x (B,S,H,D); positions (B,S)."""
+    """x (B,S,H,D); positions (B,S), or (B,S,3) under ``"mrope"`` (a (B,
+    S) one then stands for all three components). ``"2d"`` rotates the
+    first half of the head dims, ``"partial"`` its ``rope_frac``."""
     D = x.shape[-1]
     if cfg.rope_style == "none":
         return x
-    if cfg.rope_style not in ("full", "partial"):
-        raise NotImplementedError(
-            f"rope_style={cfg.rope_style!r} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 12)")
-    rot = int(D * cfg.rope_frac)
+    rot = int(D * (0.5 if cfg.rope_style == "2d" else cfg.rope_frac))
     rot -= rot % 2
     xr, xp = x[..., :rot], x[..., rot:]
-    cos, sin = _rope_angles(positions, rot, cfg.rope_theta)   # (B,S,rot/2)
+    if cfg.rope_style == "mrope":
+        if positions.ndim == 2:
+            positions = positions[..., None].expand(*positions.shape, 3)
+        cos, sin = _mrope_angles(positions, rot, cfg.rope_theta)
+    else:
+        cos, sin = _rope_angles(positions, rot, cfg.rope_theta)
     out = _rotate(xr.float(), cos[:, :, None, :], sin[:, :, None, :])
     return torch.cat([out.to(x.dtype), xp], -1)
 
@@ -378,9 +405,11 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.bfloat16, lead=()):
 
 
 def attention_apply(p, cfg: ModelConfig, x, positions, *, mode="full",
-                    state=None, local: bool = False):
-    """GQA self-attention; returns (y, new_state). local=True uses
-    cfg.rglru.local_window (hybrid) or cfg.sliding_window.
+                    state=None, local: bool = False, cross_kv=None):
+    """GQA attention; returns (y, new_state). local=True uses
+    cfg.rglru.local_window (hybrid) or cfg.sliding_window. positions:
+    (B, S), or (B, S, 3) under M-RoPE, whose first component (``pos1d``)
+    places the tokens for the masks and the cache.
 
     ``mode="full"``: flash attention over the whole sequence; with a
     ``state`` (prefill), the sequence's last T keys and values are also
@@ -389,35 +418,45 @@ def attention_apply(p, cfg: ModelConfig, x, positions, *, mode="full",
     whole cache, to the slots holding positions ``<= pos`` (and ``> pos
     - window`` when windowed). Either writes the cache in place, into
     the tensors of ``state``, and returns that same dict: a caller who
-    kept an older ``state`` sees it change."""
+    kept an older ``state`` sees it change.
+
+    ``cross_kv=(k, v, kv_pos)``: cross-attention (whisper's decoder) over
+    given keys and values: no RoPE on them, no cache written, dense
+    attention with no mask in both modes; ``state`` comes back as
+    given."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = None
     if local:
         window = cfg.rglru.local_window if cfg.rglru else cfg.sliding_window
     scale = Dh ** -0.5
+    if mode not in ("full", "step"):
+        raise ValueError(f"attention_apply: mode {mode!r}, not 'full' or "
+                         f"'step'")
     q = dense(p["wq"], x).reshape(B, S, H, Dh)
+    if cross_kv is not None:
+        k, v, _ = cross_kv
+        out = _attend_dense(q, k, v, None, scale, cfg.logit_softcap)
+        return dense(p["wo"], out.reshape(B, S, H * Dh)), state
     k = dense(p["wk"], x).reshape(B, S, KV, Dh)
     v = dense(p["wv"], x).reshape(B, S, KV, Dh)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
+    pos1d = positions[..., 0] if positions.ndim == 3 else positions
     if mode == "full":
-        out = flash_attention(q, k, v, q_pos=positions, kv_pos=positions,
+        out = flash_attention(q, k, v, q_pos=pos1d, kv_pos=pos1d,
                               causal=True, window=window, scale=scale,
                               softcap=cfg.logit_softcap)
         if state is not None:
-            state = _cache_fill(state, k, v, positions)
-    elif mode == "step":
-        state = _cache_append(state, k, v, positions)
+            state = _cache_fill(state, k, v, pos1d)
+    else:
+        state = _cache_append(state, k, v, pos1d)
         cpos = state["pos_abs"]
-        mask = (cpos <= positions) & (cpos >= 0)
+        mask = (cpos <= pos1d) & (cpos >= 0)
         if window is not None:
-            mask &= cpos > positions - window
+            mask &= cpos > pos1d - window
         out = _attend_dense(q, state["k"], state["v"], mask[:, None, None, :],
                             scale, cfg.logit_softcap)
-    else:
-        raise ValueError(f"attention_apply: mode {mode!r}, not 'full' or "
-                         f"'step'")
     return dense(p["wo"], out.reshape(B, S, H * Dh)), state
 
 
@@ -452,11 +491,28 @@ def _cache_append(state, k, v, pos):
 
 
 def _cache_fill(state, k, v, pos):
-    """Bulk prefill: write the last T positions, each at ``pos % T``."""
-    T = state["k"].shape[1]
+    """Bulk prefill: write the last T positions, each at ``pos % T``.
+    Where positions share a slot the last of them wins, as in the
+    reference (jax's scatter keeps the last update; a VLM prompt's
+    patches all sit at position 0). ``index_put_`` with repeated indices
+    leaves the winner undefined on CUDA, so every write to a slot first
+    takes the last writer's values: each slot then receives one value,
+    whatever the order. No sort and no host round trip: a ``scatter_reduce``
+    (amax, order-free) of the row index into a (B, T) table and two
+    gathers."""
+    B, T = state["k"].shape[:2]
     k, v, pos = k[:, -T:], v[:, -T:], pos[:, -T:]
-    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
-    return _cache_write(state, bidx, (pos % T).long(), k, v, pos)
+    slot = (pos % T).long()
+    j = torch.arange(slot.shape[1], dtype=torch.int32,
+                     device=slot.device).expand_as(slot)
+    last = torch.full((B, T), -1, dtype=torch.int32, device=slot.device)
+    last.scatter_reduce_(1, slot, j, reduce="amax")
+    src = last.gather(1, slot).long()               # (B, S'): its writer
+    k = k.gather(1, src[..., None, None].expand_as(k))
+    v = v.gather(1, src[..., None, None].expand_as(v))
+    pos = pos.gather(1, src)
+    bidx = torch.arange(B, device=k.device)[:, None]
+    return _cache_write(state, bidx, slot, k, v, pos)
 
 # ----------------------------------------------------------------------
 # MLP

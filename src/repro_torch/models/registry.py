@@ -6,10 +6,11 @@
   forward_train(params, batch)       -> (logits, aux_loss)   [full seq]
   prefill(params, batch, states)     -> (logits, states)
   decode_step(params, batch, states) -> (logits, states)     [S == 1]
-  init_states(params, B, max_len)    -> per-layer decode state
-for the dense decoder family, the SSM one (mamba2: SSD layers) and the
-hybrid one (recurrentgemma: RG-LRU and local attention); the other
-families are not ported yet and raise.
+  init_states(params, B, max_len[, batch]) -> per-layer decode state
+for the decoder-only families (dense, the SSM one: mamba2's SSD layers,
+the hybrid one: recurrentgemma's RG-LRU and local attention, and the
+vlm one: qwen2-vl's M-RoPE and patch embeddings in the batch) and the
+audio enc-dec (whisper: ``frame_embeds`` in the batch); MoE raises.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 
 
 @dataclass(frozen=True)
@@ -26,18 +28,38 @@ class Model:
     cfg: ModelConfig
 
     def init(self, generator: torch.Generator | None, dtype=torch.bfloat16):
+        if self.cfg.family == "audio":
+            return W.init_whisper(generator, self.cfg, dtype)
         return T.init_lm(generator, self.cfg, dtype)
 
     def forward_train(self, params, batch, *, unroll: bool = False,
                       remat: bool = False):
-        logits, _, aux = T.forward(params, self.cfg, batch, mode="full",
+        cfg = self.cfg
+        if cfg.family == "audio":
+            enc_out = W.encode(params, cfg, batch["frame_embeds"])
+            logits, _ = W.decode(params, cfg, batch["tokens"], enc_out)
+            return logits, torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)
+        logits, _, aux = T.forward(params, cfg, batch, mode="full",
                                    unroll=unroll, remat=remat)
         return logits, aux
 
     def prefill(self, params, batch, states, *, last_logits_only=False,
                 unroll=False):
-        """The prompt's forward, filling ``states`` in place."""
-        logits, states, _ = T.forward(params, self.cfg, batch, mode="full",
+        """The prompt's forward, filling ``states`` in place (whisper's
+        rebuilt in place first: the frames encoded again, the cross keys
+        and values projected into their tensors, the self caches
+        emptied)."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            enc_out = W.encode(params, cfg, batch["frame_embeds"])
+            states = W.refill_whisper_states(params, cfg, states, enc_out)
+            logits, states = W.decode(params, cfg, batch["tokens"], enc_out,
+                                      mode="full", states=states)
+            if last_logits_only:
+                logits = logits[:, -1:]
+            return logits, states
+        logits, states, _ = T.forward(params, cfg, batch, mode="full",
                                       states=states, unroll=unroll,
                                       last_logits_only=last_logits_only)
         return logits, states
@@ -46,7 +68,11 @@ class Model:
         """One token a row (``batch``: tokens and positions, (B, 1))
         against ``states``, whose caches it writes in place and returns:
         a caller who kept an older ``states`` sees it change."""
-        logits, states, _ = T.forward(params, self.cfg, batch, mode="step",
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return W.decode(params, cfg, batch["tokens"], None, mode="step",
+                            states=states, positions=batch["positions"])
+        logits, states, _ = T.forward(params, cfg, batch, mode="step",
                                       states=states)
         return logits, states
 
@@ -54,23 +80,33 @@ class Model:
                     dtype=torch.bfloat16):
         """Empty decode states on the device of ``params["embed"]``: a
         KV cache for an attention layer, ``{h, conv}`` for an RG-LRU or
-        SSD layer. ``batch`` (the reference's whisper encoder input) is
-        unused: the ported families' states need none."""
-        return T.init_states(self.cfg, B, max_len, dtype,
+        SSD layer; for whisper a layer's self cache and its cross keys
+        and values from ``batch["frame_embeds"]``, encoded here."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            if batch is None or "frame_embeds" not in batch:
+                raise ValueError("init_states: whisper's states need "
+                                 "batch={'frame_embeds': (B, source_len, "
+                                 "d_model)}")
+            enc_out = W.encode(params, cfg, batch["frame_embeds"])
+            return W.init_whisper_states(params, cfg, B, max_len, enc_out,
+                                         dtype)
+        return T.init_states(cfg, B, max_len, dtype,
                              device=params["embed"].device)
 
 
 def states_max_len(states) -> int:
-    """The slots of the first attention cache in ``states`` (0 with
-    none, as for mamba2's ``{h, conv}`` states). The reference's whisper
-    branch waits for its family."""
+    """The slots of the first attention cache in ``states`` (whisper's
+    self cache; 0 with none, as for mamba2's ``{h, conv}`` states)."""
     for st in states:
+        if isinstance(st, dict) and "self" in st:
+            return st["self"]["k"].shape[1]
         if isinstance(st, dict) and "k" in st:
             return st["k"].shape[1]
     return 0
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,4 +1,4 @@
-"""Decoder-only LM over the dense, SSM and hybrid blocks: the port of
+"""Decoder-only LM over the dense, SSM, hybrid and vlm blocks: the port of
 ``repro.models.transformer`` (``layer_plan``, ``_period``, ``init_lm``,
 ``embed_inputs``, ``forward`` over a whole sequence or one decode step,
 ``unembed``, ``init_states``).
@@ -59,9 +59,8 @@ def _period(cfg: ModelConfig) -> int:
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 12: MoE, MLA "
-        f"with multi-token prediction, and whisper follow the dense, SSD "
-        f"and RG-LRU blocks)")
+        f"{what} is not ported yet (ROADMAP.md, Queue 1 item 12: MoE, then "
+        f"MLA with multi-token prediction, are what is left)")
 
 
 _MIXER_INIT = {"attn": L.init_attention, "attn_local": L.init_attention,
@@ -134,7 +133,11 @@ def init_lm(gen: torch.Generator | None, cfg: ModelConfig,
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: dict):
-    """Token embedding; returns (x, positions (B, S) int32)."""
+    """Token embedding and (VLM) patch-embedding early fusion; returns
+    (x, positions), positions (B, S) int32, or (B, S, 3) under M-RoPE.
+    With ``patch_embeds`` (B, P, d_model) in the batch (M-RoPE only, as
+    in the reference), they replace the first P token embeddings and
+    ``patch_positions`` (B, P, 3) the first P positions."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
@@ -143,6 +146,15 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict):
     else:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
+    if cfg.rope_style == "mrope":
+        if positions.ndim == 2:
+            positions = positions[..., None].expand(B, S, 3)
+        if "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            P = pe.shape[1]
+            x = torch.cat([pe, x[:, P:]], dim=1)
+            positions = torch.cat([batch["patch_positions"].to(
+                positions.dtype), positions[:, P:]], dim=1)
     return x, positions
 
 

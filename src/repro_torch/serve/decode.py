@@ -32,7 +32,10 @@ def greedy_generate(model, params, prompt_tokens, *, max_new: int = 16,
 
     prompt_tokens: (B, S) int32 on the params' device. Returns (B,
     max_new) int32 generated ids; (B, 0) for max_new <= 0. The states
-    hold max_len positions (S + max_new by default)."""
+    hold max_len positions (S + max_new by default). batch_extras: the
+    family's inputs beyond the tokens, given to ``init_states`` and the
+    prefill (whisper's ``frame_embeds``; a vlm's ``patch_embeds`` and
+    ``patch_positions``, which replace the prompt's first tokens)."""
     B, S = prompt_tokens.shape
     dev = prompt_tokens.device
     if max_new <= 0:

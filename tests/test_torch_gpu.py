@@ -1266,10 +1266,12 @@ def test_launch_train_reduced_runs_on_the_card(cuda, capsys, tmp_path):
 
 
 def test_reduced_serving_on_the_card_equals_the_cpu(cuda):
-    """The three dense archs at ``.reduced()`` in f32 on the same params:
-    the same greedy ids, and, with f32 caches, the prefill's and every
-    decode step's logits at rtol 1e-4 with atol 1e-5 of the largest."""
-    from repro_torch.configs import ARCHS, get_config
+    """The dense, SSM and hybrid archs at ``.reduced()`` in f32 on the
+    same params: the same greedy ids, and, with f32 caches, the prefill's
+    and every decode step's logits at rtol 1e-4 with atol 1e-5 of the
+    largest (the vlm and audio archs:
+    ``test_vlm_and_audio_serving_on_the_card_equals_the_cpu``)."""
+    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import greedy_generate
     from repro_torch.utils.device import full_f32_matmul
@@ -1277,7 +1279,8 @@ def test_reduced_serving_on_the_card_equals_the_cpu(cuda):
     full_f32_matmul()
     rng = np.random.default_rng(0)
     B, S, n = 4, 24, 12
-    for arch in ARCHS:
+    for arch in ("tinyllama-1.1b", "nemotron-4-15b", "command-r-35b",
+                 "mamba2-2.7b", "recurrentgemma-9b"):
         cfg = get_config(arch).reduced()
         m = build_model(cfg)
         params = m.init(torch.Generator().manual_seed(0), torch.float32)
@@ -1348,3 +1351,94 @@ def test_launch_serve_reduced_runs_on_the_card(cuda, capsys):
                 "--max-new", "8"])
     out = capsys.readouterr().out
     assert "generated (2, 8)" in out and "on cuda" in out
+
+
+def test_cache_fill_with_repeated_slots_on_the_card_equals_the_cpu(cuda):
+    """A VLM prompt's patches all write cache slot 0 (t = 0), and a
+    prompt past a ring of T slots wraps round it: the bulk fill keeps
+    the last write to each slot on the card as on the CPU, bit for bit,
+    in every one of 20 repeats (``index_put_`` alone leaves the winner
+    of repeated indices undefined on CUDA)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen2-vl-72b")
+    B, S, T = 8, 512, 544
+    rng = np.random.default_rng(0)
+    pos = np.concatenate([np.zeros((B, 256), np.int64),
+                          np.broadcast_to(np.arange(256, S), (B, S - 256))],
+                         1)
+    ring = np.broadcast_to(np.arange(S) % 100 + 3 * (np.arange(S) // 100),
+                           (B, S))
+    for p in (pos, ring):
+        k, v = (torch.tensor(rng.standard_normal(
+            (B, S, cfg.num_kv_heads, cfg.head_dim)),
+            dtype=torch.bfloat16) for _ in range(2))
+        want = L._cache_fill(L.init_attn_cache(cfg, B, T), k, v,
+                             torch.tensor(p))
+        for _ in range(20):
+            got = L._cache_fill(L.init_attn_cache(cfg, B, T, device=cuda),
+                                k.to(cuda), v.to(cuda),
+                                torch.tensor(p).to(cuda))
+            for name in ("k", "v", "pos_abs"):
+                assert torch.equal(got[name].cpu(), want[name]), name
+
+
+def test_vlm_and_audio_serving_on_the_card_equals_the_cpu(cuda):
+    """chatglm3-6b, qwen2-vl-72b (with 8 patch embeddings at the prompt's
+    start on a (t = 0, h, w) grid) and whisper-tiny (with its frames) at
+    ``.reduced()`` in f32 on the same params: the same greedy ids, and,
+    with f32 caches, the prefill's and every decode step's logits at
+    rtol 1e-4 with atol 1e-5 of the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import greedy_generate
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_map
+    full_f32_matmul()
+    rng = np.random.default_rng(0)
+    B, S, n = 4, 24, 12
+    for arch in ("chatglm3-6b", "qwen2-vl-72b", "whisper-tiny"):
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg)
+        params = m.init(torch.Generator().manual_seed(0), torch.float32)
+        prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               dtype=torch.int32)
+        extras = {}
+        if cfg.family == "audio":
+            extras["frame_embeds"] = torch.tensor(rng.standard_normal(
+                (B, cfg.encdec.source_len, cfg.d_model)) * 0.02).to(
+                    torch.bfloat16)
+        if cfg.family == "vlm":
+            h, w = np.meshgrid(np.arange(2), np.arange(4), indexing="ij")
+            grid = np.stack([np.zeros_like(h), h, w], -1).reshape(1, 8, 3)
+            extras["patch_embeds"] = torch.tensor(rng.standard_normal(
+                (B, 8, cfg.d_model)) * 0.02).to(torch.bfloat16)
+            extras["patch_positions"] = torch.tensor(
+                np.repeat(grid, B, 0), dtype=torch.int32)
+        ids = greedy_generate(m, params, prompts, max_new=n,
+                              batch_extras=extras)
+        out, logits = {}, {}
+        for dev in ("cpu", cuda):
+            p = tree_map(lambda a: a.to(dev), params)
+            ex = tree_map(lambda a: a.to(dev), extras)
+            out[str(dev)] = greedy_generate(m, p, prompts.to(dev),
+                                            max_new=n,
+                                            batch_extras=ex).cpu()
+            with torch.inference_mode():
+                st = m.init_states(p, B, S + n, batch=ex or None,
+                                   dtype=torch.float32)
+                lg, st = m.prefill(p, {"tokens": prompts.to(dev), **ex}, st)
+                rows = [lg[:, -1:]]
+                for t in range(n - 1):
+                    lg, st = m.decode_step(p, {
+                        "tokens": ids[:, t:t + 1].to(dev),
+                        "positions": torch.full((B, 1), S + t,
+                                                dtype=torch.int32,
+                                                device=dev)}, st)
+                    rows.append(lg)
+            logits[str(dev)] = torch.cat(rows, 1).cpu().numpy()
+        assert torch.equal(out["cpu"], out[str(cuda)]), arch
+        want = logits["cpu"]
+        np.testing.assert_allclose(logits[str(cuda)], want, rtol=1e-4,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=arch)

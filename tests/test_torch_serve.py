@@ -36,7 +36,7 @@ from repro.models import transformer as RT
 from repro.models.registry import states_max_len as ref_states_max_len
 from repro.serve import greedy_generate as ref_greedy_generate
 from repro.train.loss import lm_loss as ref_lm_loss
-from repro_torch.configs import ARCHS, MLAConfig, get_config
+from repro_torch.configs import MLAConfig, get_config
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models import build_model
 from repro_torch.models import transformer as T
@@ -51,6 +51,10 @@ from repro_torch.train import make_train_step
 from repro_torch.train.loss import lm_loss
 from repro_torch.utils.trees import tree_leaves
 
+# the decoder-only archs of the dense, SSM and hybrid families; the vlm
+# and audio ones are held in tests/test_torch_vlm_audio.py
+ARCHS = ("tinyllama-1.1b", "nemotron-4-15b", "command-r-35b", "mamba2-2.7b",
+         "recurrentgemma-9b")
 B, S, N = 2, 16, 4          # batch, prompt, decode steps fed seeded tokens
 TF_TOL = 0.15               # tests/test_models_smoke.py's decode bound
 GREEDY_GAP = 1e-3           # of the largest logit: 10x the f32 rtol of 1e-4

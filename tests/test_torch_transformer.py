@@ -96,7 +96,10 @@ def test_new_config_equals_reference(arch, reduced):
 
 def test_registry_names_every_reference_arch():
     assert set(ARCHS) | set(PENDING) == set(REF_ARCHS)
-    assert ARCHS == (ARCH,) + NEW_ARCHS
+    # the vlm and audio slice's three (tests/test_torch_vlm_audio.py)
+    assert ARCHS == (ARCH,) + NEW_ARCHS + ("chatglm3-6b", "qwen2-vl-72b",
+                                           "whisper-tiny")
+    assert PENDING == ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
 
 
 @pytest.mark.parametrize("arch", PENDING)
@@ -353,7 +356,8 @@ def test_flash_keeps_no_score_matrix():
     assert max(sizes) <= 64 * 4 * 8 and len(sizes) == 7
 
 
-@pytest.mark.parametrize("style,frac", [("full", 1.0), ("partial", 0.5)])
+@pytest.mark.parametrize("style,frac", [("full", 1.0), ("partial", 0.5),
+                                        ("2d", 0.5), ("mrope", 1.0)])
 def test_rope_and_norm_match_reference(style, frac):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 9, 4, 16)).astype(np.float32)
