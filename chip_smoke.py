@@ -202,7 +202,14 @@ JSON line:
      d_ff 22,528; 60.6 GB of weights) and, last, qwen2-vl-72b
      (arXiv:2409.12191: d_model 8192, 64/8 heads, d_ff 29,568, vocab
      152,064, M-RoPE; 32 of its 80 layers, 61.2 GB; its prompt opening
-     with 256 patch embeddings on a (t = 0, h, w) 16 x 16 grid); B = 8,
+     with 256 patch embeddings on a (t = 0, h, w) 16 x 16 grid), then the
+     MoE family: llama4-maverick-400b-a17b (2 of its 48 layers, d_model
+     5120, 40/8 heads, 128 experts of 8192, top 1, and a shared expert,
+     vocab 202,240 padded; 69.33 GB) and deepseek-v3-671b (5 of its 61
+     layers: the 3 dense prologue layers, d_ff 18,432, and 2 MoE layers
+     of 256 experts of 2048, top 8, and a shared expert; MLA with q_lora
+     1536 and kv_lora 512, its latent cache; the MTP head drawn; 54.62
+     GB), both at the capacity factor of 1.25; B = 8,
      prompt 512, 32 new but where named; the launch counters set to 0
      just before each and read just after (none of K1-K4 or ``bmv`` may
      launch). Checks: the prefill's logits equal ``forward_train``'s
@@ -212,15 +219,23 @@ JSON line:
      that forward's top-two gap exceeds 0.15; for mamba2,
      recurrentgemma and command-r (at 16 layers) that pair held on a
      second run in f32 within 1e-3, the bf16 run's drift printed
-     (``SERVE_PATHS``); qwen2-vl's decode held on the prompt as text only
-     (the reference's cache keeps one patch of a patch prompt: every
+     (``SERVE_PATHS``); the MoE archs' on the same weights with
+     capacity_factor = num_experts (no drops, as in a decode step) at B 1
+     and a prompt of 64, in bf16 (llama4) or, printing the bf16 run, on
+     f32 weights at 4 layers within 1e-3 (deepseek), with the positions
+     whose experts differ between the decode and teacher forcing
+     printed, in the prompt and among the decoded, and deepseek's bf16
+     run again with its decode steps' MLA in the prefill's form
+     (``mla_decode_rebuilt``); qwen2-vl's decode held on the prompt as text only (the
+     reference's cache keeps one patch of a patch prompt: every
      patch has t = 0), the patch prompt's error printed; each attention
      cache's ``pos_abs`` the positions 0 ... S + n - 2 at ``pos % T``
      (qwen2-vl: slot 0 holds 0, slots 1 ... 255 -1); whisper's cross k
      and v the prefill's tensors, addresses and values after the decode;
      the state bytes as ``state_bytes`` gives them (a KV cache B T (2 KV
      Dh 2 + 4), ``{h, conv}`` B (h 4 + (d_conv - 1) width 2), whisper's
-     cross k and v 2 B source_len KV Dh 2 a layer). Printed beside their
+     cross k and v 2 B source_len KV Dh 2 a layer, an MLA cache B T (2
+     (kv_lora + rope) + 4)). Printed beside their
      bounds and the card's name and power limit: prefill ms and decode
      ms a step (median and max after the first; CUDA events), tokens/s,
      parameter and state bytes, peak memory over init, prefill and
@@ -229,6 +244,8 @@ JSON line:
      kernels); then the ported archs at ``.reduced()`` in f32 on the
      same params on the card and on the CPU (qwen2-vl with 9 patches,
      whisper with its frames): equal greedy ids, logits at rtol 1e-4;
+     and deepseek-v3's ``lm_loss`` with its MTP term at ``.reduced()``
+     in f32, forward only, on both at rtol 1e-4;
   12. the local-update rounds across ranks
      (``local_updates_round(..., axis_name=<Fabric>)``), phase 10's model
      and settings, 2 rounds a path with the opt state synced, the launch
@@ -409,7 +426,30 @@ LM_REPS = 3
 # 0.15 in bf16 (0.094, 0.016, 0.109 on an H100). qwen2-vl's decode is
 # held on the prompt as text only: the reference's cache keeps one
 # patch of a patch prompt (every patch has t = 0 and so slot 0), where
-# teacher forcing sees all of them
+# teacher forcing sees all of them. Last, the MoE family, cut only in
+# depth: llama4-maverick-400b-a17b at 2 of its 48 layers (128 experts of
+# 8192, top 1, and a shared expert; 69.33 GB, 48 layers would be 1.57
+# TB) and deepseek-v3-671b at 5 of its 61 (its 3 dense prologue layers
+# and 2 MoE layers of 256 experts of 2048, top 8, and a shared expert;
+# MLA; the MTP head, drawn, not run; 54.62 GB, 6 layers would be 77.6
+# GB), at the configured capacity factor of 1.25 (a prefill drops the
+# assignments over an expert's C = int(1.25 top_k T / E) rows; a decode
+# step drops none). Their decode is held against teacher forcing
+# ("no-drop") on the same weights with capacity_factor = num_experts, so
+# that the full forward drops no token either, at SERVE_TF_NO_DROP's B 1
+# and prompt 64: without drops every expert's slab is T top_k rows
+# (deepseek's at B 8 and prompt 512 would gather 127 GB). deepseek's is
+# held in f32 ("f32-no-drop", at 4 layers: its 3 dense and 1 MoE, 63.19
+# GB in f32), its bf16 run printed: its router's 8th and 9th of 256
+# experts sit close enough that a bf16 rounding difference changes an
+# expert, and so the layer's output, at some positions. The prefill's
+# full forward and teacher forcing's, which differ only in length,
+# already route 14 of the prompt's 64 positions apart on an H100, and
+# MLA's absorbed decode, in f32 where the prefill rounds the rebuilt
+# keys and values to bf16, adds to it (0.367; its decode rebuilt as the
+# prefill's, 0.282, the decoded positions changing an expert 11 -> 7).
+# The reference drifts alike: 0.39 at deepseek's MLA widths and router
+# with d_model 1024 on the CPU (tests/torch_bf16_witness.py)
 SERVE_PATHS = (("tinyllama-1.1b", None, 8, 512, 64, "bf16", None),
                ("nemotron-4-15b", None, 8, 512, 32, "bf16", None),
                ("mamba2-2.7b", None, 8, 512, 32, "f32", None),
@@ -417,8 +457,11 @@ SERVE_PATHS = (("tinyllama-1.1b", None, 8, 512, 64, "bf16", None),
                ("chatglm3-6b", None, 8, 512, 32, "bf16", None),
                ("whisper-tiny", None, 8, 224, 64, "bf16", None),
                ("command-r-35b", None, 8, 512, 32, "f32", 16),
-               ("qwen2-vl-72b", 32, 8, 512, 32, "bf16", None))
+               ("qwen2-vl-72b", 32, 8, 512, 32, "bf16", None),
+               ("llama4-maverick-400b-a17b", 2, 8, 512, 32, "no-drop", None),
+               ("deepseek-v3-671b", 5, 8, 512, 32, "f32-no-drop", 4))
 SERVE_TF_TOL = 0.15          # tests/test_models_smoke.py's decode bound
+SERVE_TF_NO_DROP = (1, 64)   # batch, prompt of the no-drop teacher forcing
 # in f32: ten times the f32 logits' rtol of 1e-4, at logits of ~10
 SERVE_TF_TOL_F32 = 1e-3
 SERVE_TRACE_STEPS = 5
@@ -1260,8 +1303,13 @@ class ServeRecorder:
         return [a.elapsed_time(b) for a, b in self.marks]
 
 
-def mixer_products(cfg, mixer: str) -> list:
-    """The (d_in, d_out) of a mixer's bf16 projections."""
+def mixer_products(cfg, mixer: str, decode: bool = False) -> list:
+    """The (d_in, d_out) of a mixer's bf16 projections. MLA: the query's
+    down and up projections, the latent's and the RoPE key's, and, over
+    a whole sequence only, the latent's up projections to the heads' keys
+    and values (a decode step's absorbed form applies them in f32
+    einsums, which are not counted, as the attention's score products
+    are not), then the output projection."""
     d = cfg.d_model
     if mixer == "rglru":
         W = cfg.rglru.lru_width or d
@@ -1272,39 +1320,61 @@ def mixer_products(cfg, mixer: str) -> list:
         return [(d, 2 * din + 2 * s.n_groups * s.d_state + s.n_heads(d)),
                 (din, d)]
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if mixer == "mla":
+        m = cfg.mla
+        up = [] if decode else [(m.kv_lora_rank, H * m.qk_nope_dim),
+                                (m.kv_lora_rank, H * m.v_head_dim)]
+        return [(d, m.q_lora_rank),
+                (m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim)),
+                (d, m.kv_lora_rank), (d, m.qk_rope_dim)] + up + [
+                    (H * m.v_head_dim, d)]
     return [(d, H * Dh), (d, KV * Dh), (d, KV * Dh), (H * Dh, d)]
 
 
-def dense_products(cfg, tokens: int, frames: int = 0) -> tuple[float, float]:
+def dense_products(cfg, tokens: int, frames: int = 0,
+                   decode: bool = False) -> tuple[float, float]:
     """The bf16 matrix products of a forward over ``tokens`` positions,
     each layer's mixer and channel projections and the unembedding:
     (flops, bytes), each weight, input and output read or written once
-    (the attention's score products and the SSD and RG-LRU scans run in
-    f32 and are not counted). whisper: the decoder's self-attention,
-    cross q and o and MLP over ``tokens``, and over ``frames`` encoder
-    positions (its prefill; 0 in a decode step, which reads the cached
-    cross keys and values) the encoder and each layer's cross k and v."""
+    (the attention's score products, MLA's absorbed decode, the MoE
+    router and the SSD and RG-LRU scans run in f32 and are not counted).
+    An MoE channel: every expert's three weights, and ``tokens * top_k``
+    rows through them (every assignment, the dropped ones with them),
+    and the shared expert's over ``tokens``. whisper: the decoder's
+    self-attention, cross q and o and MLP over ``tokens``, and over
+    ``frames`` encoder positions (its prefill; 0 in a decode step, which
+    reads the cached cross keys and values) the encoder and each layer's
+    cross k and v."""
     from repro_torch.configs import padded_vocab
     from repro_torch.models.transformer import layer_plan
-    d, f = cfg.d_model, cfg.d_ff
-    mlp = [(d, f), (f, d)] + ([(d, f)] if cfg.mlp_gated else [])
-    shapes = []                                 # (positions, d_in, d_out)
+
+    def mlp(f):
+        return [(d, f), (f, d)] + ([(d, f)] if cfg.mlp_gated else [])
+    d = cfg.d_model
+    shapes = []                         # (positions, d_in, d_out, copies)
     for mixer, channel in layer_plan(cfg):
-        proj = mixer_products(cfg, mixer)
+        proj = mixer_products(cfg, mixer, decode)
         if cfg.family == "audio":               # self, then cross
-            shapes += [(tokens, *ab) for ab in proj + [proj[0], proj[3]]]
-            shapes += [(frames, *ab) for ab in proj[1:3]]
+            shapes += [(tokens, *ab, 1) for ab in proj + [proj[0], proj[3]]]
+            shapes += [(frames, *ab, 1) for ab in proj[1:3]]
         else:
-            shapes += [(tokens, *ab) for ab in proj]
+            shapes += [(tokens, *ab, 1) for ab in proj]
         if channel == "mlp":
-            shapes += [(tokens, *ab) for ab in mlp]
+            shapes += [(tokens, *ab, 1) for ab in mlp(cfg.d_ff)]
+        elif channel == "moe":
+            mo = cfg.moe
+            shapes += [(tokens * mo.top_k, *ab, mo.num_experts)
+                       for ab in mlp(mo.d_expert)]
+            if mo.num_shared:
+                shapes += [(tokens, *ab, 1)
+                           for ab in mlp(mo.num_shared * mo.d_expert)]
     if cfg.family == "audio":
-        shapes += [(frames, *ab) for _ in range(cfg.encdec.num_layers)
-                   for ab in mixer_products(cfg, "attn") + mlp]
-    shapes.append((tokens, d, padded_vocab(cfg)))
+        shapes += [(frames, *ab, 1) for _ in range(cfg.encdec.num_layers)
+                   for ab in mixer_products(cfg, "attn") + mlp(cfg.d_ff)]
+    shapes.append((tokens, d, padded_vocab(cfg), 1))
     shapes = [sh for sh in shapes if sh[0]]
-    flops = sum(2 * n * a * b for n, a, b in shapes)
-    nbytes = sum(2 * (n * a + a * b + n * b) for n, a, b in shapes)
+    flops = sum(2 * n * a * b for n, a, b, _ in shapes)
+    nbytes = sum(2 * (n * a + c * a * b + n * b) for n, a, b, c in shapes)
     return flops, nbytes
 
 
@@ -1312,9 +1382,11 @@ def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
     """The bytes of ``init_states(cfg, B, max_len)`` in bf16, from the
     config alone: (attention caches, ``{h, conv}`` states). A KV cache
     holds T = min(window, max_len) slots of bf16 k and v and int32
-    ``pos_abs``; an RG-LRU or SSD state an f32 ``h`` and a bf16 conv
-    tail of d_conv - 1 rows; a whisper decoder layer also its cross k
-    and v, B source_len KV Dh each in bf16."""
+    ``pos_abs``; an MLA cache max_len slots of the bf16 latent and RoPE
+    key and int32 ``pos_abs``, B T (2 (kv_lora_rank + qk_rope_dim) + 4);
+    an RG-LRU or SSD state an f32 ``h`` and a bf16 conv tail of d_conv -
+    1 rows; a whisper decoder layer also its cross k and v, B source_len
+    KV Dh each in bf16."""
     from repro_torch.models.transformer import layer_plan
     attn = rec = 0
     for mixer, _ in layer_plan(cfg):
@@ -1326,6 +1398,9 @@ def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
             conv = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
             rec += B * (s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
                         + (s.d_conv - 1) * conv * 2)
+        elif mixer == "mla":
+            m = cfg.mla
+            attn += B * max_len * (2 * (m.kv_lora_rank + m.qk_rope_dim) + 4)
         else:
             window = cfg.sliding_window
             if mixer == "attn_local" and cfg.rglru:
@@ -1341,17 +1416,19 @@ def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
 def step_weight_bytes(cfg, params) -> int:
     """The weight bytes a decode step reads: every one but the embedding
     table's (a step gathers B rows of it), which it reads whole where it
-    is also the unembedding; for whisper only the decoder's, less each
-    layer's cross k and v projections (their outputs are cached), with
-    the tied embedding whole (``dec_pos``: B rows)."""
+    is also the unembedding, and the MTP head's (which serving does not
+    run); an MoE layer's every expert (the dispatch without drops hands
+    each expert a slab of T top_k rows); for whisper only the decoder's,
+    less each layer's cross k and v projections (their outputs are
+    cached), with the tied embedding whole (``dec_pos``: B rows)."""
     from repro_torch.utils.trees import tree_bytes
     if cfg.family == "audio":
         return (tree_bytes(params["dec_layers"])
                 + tree_bytes(params["dec_norm"]) + tree_bytes(params["embed"])
                 - sum(tree_bytes(lp["cross"][k]) for lp in params["dec_layers"]
                       for k in ("wk", "wv")))
-    return tree_bytes(params) - (0 if cfg.tie_embeddings
-                                 else tree_bytes(params["embed"]))
+    return (tree_bytes(params) - tree_bytes(params.get("mtp", {}))
+            - (0 if cfg.tie_embeddings else tree_bytes(params["embed"])))
 
 
 def serve_extras(torch, cfg, B: int, S: int, rng, device) -> dict:
@@ -1412,6 +1489,139 @@ def expected_pos_abs(torch, T: int, written: list):
     return want
 
 
+@contextlib.contextmanager
+def routes():
+    """Record the experts of every MoE routing (``layers._route``) made
+    inside: a list of (T, top_k) tensors, in call order."""
+    from repro_torch.models import layers as L
+    calls, route = [], L._route
+
+    def recorded(router_p, mo, xt):
+        out = route(router_p, mo, xt)
+        calls.append(out[1])
+        return out
+    L._route = recorded
+    try:
+        yield calls
+    finally:
+        L._route = route
+
+
+def expert_flips(torch, decoded: list, forced: list, n_moe: int,
+                 prompt: int) -> dict:
+    """Positions whose experts (as sets) differ between a greedy
+    generation's routings (the prefill's n_moe calls over the ``prompt``
+    positions, then n_moe a step, B = 1) and teacher forcing's (n_moe
+    calls over every position): how many positions differ in any layer,
+    and in each layer; in all, among the prompt's positions (two full
+    forwards that differ only in their lengths) and among the decoded
+    ones (a step against the full forward)."""
+    if not n_moe:
+        return dict(positions_changed=0, by_layer=[], positions=0)
+    per_layer, changed = [], None
+    for j in range(n_moe):
+        dec = torch.cat(decoded[j::n_moe], dim=0).sort(-1).values
+        tf = forced[j][:dec.shape[0]].sort(-1).values
+        diff = (dec != tf).any(-1)
+        per_layer.append(diff)
+        changed = diff if changed is None else changed | diff
+    return dict(
+        positions_changed=int(changed.sum()),
+        by_layer=[int(d.sum()) for d in per_layer],
+        positions=int(changed.shape[0]), prompt_positions=prompt,
+        prompt_positions_changed=int(changed[:prompt].sum()),
+        prompt_by_layer=[int(d[:prompt].sum()) for d in per_layer],
+        decoded_positions_changed=int(changed[prompt:].sum()),
+        decoded_by_layer=[int(d[prompt:].sum()) for d in per_layer])
+
+
+@contextlib.contextmanager
+def mla_decode_rebuilt():
+    """An MLA decode step (``layers.mla_apply``, mode "step") attending as
+    the prefill does: each head's keys and values rebuilt from the cache's
+    latents in the activations' dtype (bf16 where the absorbed form stays
+    in f32) and ``flash_attention`` over the filled slots; the cache is
+    written by the step as shipped, whose output is dropped. B = 1 and a
+    cache that has not wrapped: slots 0 ... pos hold positions 0 ... pos.
+    A probe of the bf16 drift, not a path of the port."""
+    import torch
+
+    from repro_torch.models import layers as L
+    mla = L.mla_apply
+
+    def rebuilt(p, cfg, x, positions, *, mode, state):
+        y, state = mla(p, cfg, x, positions, mode=mode, state=state)
+        if mode != "step":
+            return y, state
+        m, H = cfg.mla, cfg.num_heads
+        nope, rope = m.qk_nope_dim, m.qk_rope_dim
+        pos1d = positions[..., 0] if positions.ndim == 3 else positions
+        n = int(pos1d.max()) + 1
+        if x.shape[0] != 1 or not torch.equal(
+                state["pos_abs"][0, :n].cpu(), torch.arange(n,
+                                                            dtype=torch.int32)):
+            raise ValueError("mla_decode_rebuilt: B = 1 and an unwrapped "
+                             "cache only")
+        q = L.dense(p["w_uq"], L.apply_norm(p["q_norm"],
+                                            L.dense(p["w_dq"], x)))
+        q = q.reshape(1, 1, H, nope + rope)
+        q = torch.cat([q[..., :nope], L._mla_rope(q[..., nope:], pos1d,
+                                                   cfg)], -1)
+        c, kr = state["c"][:, :n].to(x.dtype), state["kr"][:, :n].to(x.dtype)
+        k = torch.cat([L.dense(p["w_uk"], c).reshape(1, n, H, nope),
+                       kr[:, :, None].expand(1, n, H, rope)], -1)
+        v = L.dense(p["w_uv"], c).reshape(1, n, H, m.v_head_dim)
+        out = L.flash_attention(q, k, v, q_pos=pos1d,
+                                kv_pos=state["pos_abs"][:, :n], causal=True,
+                                window=None, scale=(nope + rope) ** -0.5)
+        return L.dense(p["wo"], out.reshape(1, 1, H * m.v_head_dim)), state
+    L.mla_apply = rebuilt
+    try:
+        yield
+    finally:
+        L.mla_apply = mla
+
+
+def no_drop_teacher_forcing(torch, cfg, params, prompts, n: int, tol: float,
+                            cache_dtype=None, probe_mla=False) -> dict:
+    """An MoE arch's greedy generation against teacher forcing with no
+    token dropped: ``params`` under capacity_factor = num_experts (the
+    prefill's and the full forward's dispatch exact, as a decode step's
+    is), at ``SERVE_TF_NO_DROP``'s batch and prompt, states in
+    ``cache_dtype`` (bf16 by default); with the positions whose experts
+    differ between the two (``expert_flips``). ``probe_mla``: the same
+    again with the decode steps' MLA in the prefill's form
+    (``mla_decode_rebuilt``), under ``mla_decode_rebuilt``."""
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import layer_plan
+    from repro_torch.serve import greedy_generate
+    Bt, St = SERVE_TF_NO_DROP
+    mo = cfg.moe
+    model = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=float(mo.num_experts))))
+    n_moe = sum(ch == "moe" for _, ch in layer_plan(cfg))
+
+    def run():
+        rec = ServeRecorder(torch, model, events=False,
+                            cache_dtype=cache_dtype)
+        with routes() as decoded:
+            ids = greedy_generate(rec, params, prompts[:Bt, :St], max_new=n)
+        with routes() as forced:
+            out = teacher_forcing(torch, model, params, prompts[:Bt, :St],
+                                  ids, rec.logits(), tol)
+        out["expert_flips"] = expert_flips(torch, decoded, forced, n_moe,
+                                           St)
+        return out
+    held = run()
+    held["batch_prompt"] = [Bt, St]
+    if probe_mla:
+        with mla_decode_rebuilt():
+            probe = run()
+        held["mla_decode_rebuilt"] = {k: probe[k] for k in (
+            "err", "err_by_position", "argmax_ok", "expert_flips")}
+    return held
+
+
 def serve_phase(torch, counters, device="cuda") -> None:
     """Phase 11: each path of ``SERVE_PATHS`` through ``greedy_generate``
     with the launch counters set to 0 just before and read just after,
@@ -1422,6 +1632,7 @@ def serve_phase(torch, counters, device="cuda") -> None:
 
     from repro_torch.configs import ARCHS, get_config, padded_vocab
     from repro_torch.models import build_model
+    from repro_torch.models import layers as L
     from repro_torch.models.transformer import layer_plan
     from repro_torch.serve import greedy_generate
     from repro_torch.utils.device import full_f32_matmul
@@ -1523,7 +1734,8 @@ def serve_phase(torch, counters, device="cuda") -> None:
         read = (step_weight_bytes(cfg, params)
                 + B * cfg.d_model * 2 * (2 if cfg.family == "audio" else 1)
                 + cache_bytes + rec_bytes)
-        decode_bound = bound_ms(read, dense_products(cfg, B)[0],
+        decode_bound = bound_ms(read, dense_products(cfg, B,
+                                                     decode=True)[0],
                                 BF16_FLOPS_PER_S)
         frames = B * cfg.encdec.source_len if cfg.encdec else 0
         pre_flops, pre_bytes = dense_products(cfg, B * S, frames)
@@ -1576,6 +1788,30 @@ def serve_phase(torch, counters, device="cuda") -> None:
             f32_peak = torch.cuda.max_memory_allocated()
             del m32, p32, rec32, ids32
             params = None
+        no_drop_bf16 = None
+        if held_in.endswith("no-drop"):
+            # the served bf16 weights, no token dropped in the prefill
+            # nor in teacher forcing's forward
+            held = no_drop_bf16 = no_drop_teacher_forcing(
+                torch, cfg, params, prompts, n, SERVE_TF_TOL,
+                probe_mla=cfg.mla is not None)
+        if held_in == "f32-no-drop":
+            # and on f32 weights from the same seed at the depth that
+            # fits, the bf16 weights freed first
+            del params
+            rec.states = rec.cross = None
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            cfg32 = dataclasses.replace(
+                cfg, num_layers=held_layers or cfg.num_layers)
+            p32 = build_model(cfg32).init(
+                torch.Generator(device=device).manual_seed(0), torch.float32)
+            held = no_drop_teacher_forcing(torch, cfg32, p32, prompts, n,
+                                           SERVE_TF_TOL_F32, torch.float32)
+            held["layers"] = cfg32.num_layers
+            f32_peak = torch.cuda.max_memory_allocated()
+            del p32
+            params = None
         median = float(np.median(steady))
         checks = dict(
             prefill_equals_forward_train=prefill_diff == 0.0,
@@ -1608,6 +1844,19 @@ def serve_phase(torch, counters, device="cuda") -> None:
                 "positions_with_top2_gap_over_tol"],
             positions=held["positions"],
             teacher_forcing_tolerance=held["tolerance"],
+            teacher_forcing_batch_prompt=held.get("batch_prompt", [B, S]),
+            teacher_forcing_expert_flips=held.get("expert_flips"),
+            moe=None if cfg.moe is None else dict(
+                experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+                d_expert=cfg.moe.d_expert, shared=cfg.moe.num_shared,
+                dense_prologue=cfg.moe.first_k_dense,
+                capacity_factor=cfg.moe.capacity_factor,
+                prefill_capacity=L._capacity(cfg.moe, B * S, False),
+                decode_capacity=L._capacity(cfg.moe, B, True)),
+            mla=None if cfg.mla is None else dataclasses.asdict(cfg.mla),
+            mtp_head_drawn_not_served=cfg.mtp_depth > 0,
+            no_drop_bf16_teacher_forcing=(
+                None if no_drop_bf16 is held else no_drop_bf16),
             bf16_teacher_forcing=(None if held is tf_bf16 else dict(
                 max_abs_logsoftmax_err=tf_bf16["err"],
                 err_by_position=tf_bf16["err_by_position"],
@@ -1692,10 +1941,31 @@ def serve_phase(torch, counters, device="cuda") -> None:
             largest_logit=scale,
             close=bool(torch.allclose(lg_d, lg_c, rtol=1e-4,
                                       atol=1e-5 * scale)))
+    # and deepseek-v3's train loss with its MTP term, forward only
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.train.loss import lm_loss
+    cfg = get_config("deepseek-v3-671b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), torch.float32)
+    batch = {k: torch.tensor(v) for k, v in TokenStream(
+        cfg.vocab_size, 64, 2, seed=0).next_batch().items()}
+    mtp = {}
+    for dev in (device, "cpu"):
+        with torch.inference_mode():
+            loss, met = lm_loss(model, tree_map(lambda a: a.to(dev), params),
+                                tree_map(lambda a: a.to(dev), batch))
+        mtp[str(dev)] = {k: float(v) for k, v in dict(
+            loss=loss, mtp_loss=met["mtp_loss"], aux_loss=met["aux_loss"],
+            ce=met["ce"]).items()}
+    mtp_close = all(np.isclose(mtp[str(device)][k], v, rtol=1e-4, atol=0)
+                    for k, v in mtp["cpu"].items())
     phase_done(torch, "serve_card_vs_cpu", t0, card=card, batch=B, prompt=S,
                max_new=n, dtype="float32", archs=small,
-               tolerance="rtol 1e-4, atol 1e-5 of the largest logit")
-    if not all(v["ids_equal"] and v["close"] for v in small.values()):
+               tolerance="rtol 1e-4, atol 1e-5 of the largest logit",
+               mtp_lm_loss=dict(arch=cfg.name, batch=2, seq=64, **mtp,
+                                close=mtp_close, tolerance="rtol 1e-4"))
+    if not all(v["ids_equal"] and v["close"] for v in small.values()) or (
+            not mtp_close):
         raise SystemExit("chip_smoke: reduced serving on the card and on "
                          "the CPU disagree (see the serve_card_vs_cpu line)")
 

@@ -1,5 +1,5 @@
-"""Model configs: the port of ``repro.configs`` (the dense, SSM and hybrid
-families so far)."""
+"""Model configs: the port of ``repro.configs`` (every architecture of
+the reference)."""
 from repro_torch.configs.base import (EncDecConfig, MLAConfig,  # noqa: F401
                                       ModelConfig, MoEConfig, RGLRUConfig,
                                       SSMConfig, padded_vocab)

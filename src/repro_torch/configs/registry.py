@@ -1,11 +1,11 @@
 """Architecture registry: --arch <id> -> ModelConfig.
 
-The reference knows ten architectures (``repro.configs.registry``); the
-port has the configs of the ones it trains and serves: the dense family
-(chatglm3's 2d RoPE among them), the SSM (mamba2), the hybrid RG-LRU one
-(recurrentgemma), the vlm (qwen2-vl: M-RoPE, patch embeddings) and the
-audio enc-dec (whisper). The two MoE archs are named, so that asking for
-one says where it stands instead of calling it unknown.
+The reference knows ten architectures (``repro.configs.registry``), and
+the port has the configs of all of them: the dense family (chatglm3's 2d
+RoPE among them), the SSM (mamba2), the hybrid RG-LRU one
+(recurrentgemma), the vlm (qwen2-vl: M-RoPE, patch embeddings), the
+audio enc-dec (whisper) and the MoE one (llama4-maverick; deepseek-v3
+with MLA and multi-token prediction).
 """
 from __future__ import annotations
 
@@ -22,24 +22,19 @@ _MODULES = {
     "chatglm3-6b": "repro_torch.configs.chatglm3",
     "qwen2-vl-72b": "repro_torch.configs.qwen2_vl",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3",
 }
 
-# the reference's other architectures, not ported yet
-PENDING = ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
+# the reference's architectures not ported yet: none is left
+PENDING: tuple = ()
 
 ARCHS = tuple(_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in PENDING:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md, Queue 1 item 12: "
-            f"MoE, then MLA with multi-token prediction, are what is "
-            f"left); "
-            f"ported: {list(ARCHS)}")
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{list(ARCHS) + list(PENDING)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
     return importlib.import_module(_MODULES[arch]).CONFIG
 
 

@@ -15,7 +15,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, PENDING, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import build_model
 from repro_torch.serve import greedy_generate
 from repro_torch.utils.device import full_f32_matmul, resolve_device
@@ -45,7 +45,7 @@ def batch_extras(cfg, B: int, rng: np.random.Generator, device) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", choices=list(ARCHS + PENDING),
+    ap.add_argument("--arch", choices=list(ARCHS),
                     default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)

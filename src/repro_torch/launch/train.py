@@ -24,7 +24,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs import ARCHS, PENDING, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.distributed import ExchangeConfig
 from repro_torch.data.tokens import TokenStream
 from repro_torch.models import build_model
@@ -37,7 +37,7 @@ from repro_torch.utils.device import full_f32_matmul, resolve_device
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", choices=list(ARCHS + PENDING),
+    ap.add_argument("--arch", choices=list(ARCHS),
                     default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)

@@ -8,7 +8,8 @@ they cross as their 16-bit patterns. Both directions keep every bit and
 the tree's structure (the ``prologue`` list and the stacked ``stack``
 slots, or whisper's ``enc_layers`` and ``dec_layers`` lists, included),
 so leaves, their order and their checkpoint keys are
-the same in both packages.
+the same in both packages (an MoE arch's ``prologue`` layers and MTP
+head, ``mtp``, too).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
-from repro_torch.models.transformer import _period, layer_plan
+from repro_torch.models.transformer import (_first_k_dense, _period,
+                                            layer_plan)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import tree_map
 
@@ -42,9 +44,10 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _check_tree(np_tree, cfg: ModelConfig) -> None:
-    """The reference's leaves for ``cfg``: the embedding's shape, and
-    every stacked slot's depth (whisper: the encoder's and decoder's
-    layer counts)."""
+    """The reference's leaves for ``cfg``: the embedding's shape, the
+    prologue's length, every stacked slot's depth and the MTP head where
+    the config has one (whisper: the encoder's and decoder's layer
+    counts)."""
     want = (padded_vocab(cfg), cfg.d_model)
     got = tuple(np.shape(np_tree["embed"]))
     if got != want:
@@ -59,7 +62,16 @@ def _check_tree(np_tree, cfg: ModelConfig) -> None:
                                  f"{len(np_tree[key])} layers, {cfg.name} "
                                  f"has {n}")
         return
-    n_cycles = len(layer_plan(cfg)) // _period(cfg)
+    k_dense = _first_k_dense(cfg)
+    if len(np_tree["prologue"]) != k_dense:
+        raise ValueError(f"params_from_reference: the prologue holds "
+                         f"{len(np_tree['prologue'])} layers, {cfg.name} "
+                         f"has {k_dense}")
+    if ("mtp" in np_tree) != (cfg.mtp_depth > 0):
+        raise ValueError(f"params_from_reference: the tree "
+                         f"{'has' if 'mtp' in np_tree else 'lacks'} an MTP "
+                         f"head, {cfg.name}'s mtp_depth is {cfg.mtp_depth}")
+    n_cycles = (len(layer_plan(cfg)) - k_dense) // _period(cfg)
     for slot in np_tree["stack"]:
         lead = np.shape(slot["mixer_norm"]["scale"])[0]
         if lead != n_cycles:
@@ -87,7 +99,8 @@ def params_to_reference(params):
 def states_from_reference(np_states, device=None) -> list:
     """The reference's per-layer decode states (a list of dicts of numpy
     arrays, as ``jax.device_get`` gives them: ``{k, v, pos_abs}`` for an
-    attention layer, ``{h, conv}`` for an RG-LRU or SSD layer, ``{self:
+    attention layer, ``{c, kr, pos_abs}`` for an MLA layer, ``{h, conv}``
+    for an RG-LRU or SSD layer, ``{self:
     {k, v, pos_abs}, cross_k, cross_v}`` for a whisper decoder layer) as
     the port's tensors on ``device`` (the card by default), every bit
     kept."""

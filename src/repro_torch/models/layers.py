@@ -17,14 +17,19 @@ backward that recomputes the score blocks, the GQA attention block with
 its decode cache (a ring buffer under a window) and as cross-attention
 (whisper's decoder), the (gated) MLP, the causal depthwise conv1d, the
 RG-LRU block (griffin) and the SSD block (mamba2), each with its decode
-state. Every decode state is written in place: the attention cache's
-slots, the recurrent ``h`` and the conv tail, so a state's tensors keep
-their addresses across steps. MLA and MoE are not ported yet
-(ROADMAP.md, Queue 1 item 12), nor is the reference's sharding
-(``constrain`` and ``constrain_cache``, item 13).
+state, MLA (deepseek-v3's latent-compressed attention, absorbed at
+decode) with its latent cache, and the mixture of experts (a router,
+the reference's sort-based capacity dispatch, the batched experts and a
+combine in a fixed order). Every decode state is written in place: the
+attention and latent caches' slots, the recurrent ``h`` and the conv
+tail, so a state's tensors keep their addresses across steps. The
+reference's sharding (``constrain``, ``constrain_cache`` and the
+expert-parallel ``_moe_sharded``) is not ported yet (ROADMAP.md, Queue 1
+item 13).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 
@@ -59,14 +64,21 @@ def _normal(gen, shape, scale, dtype, lead=()) -> torch.Tensor:
     ``dtype``. A leaf whose f32 draw exceeds ``_WHOLE_DRAW_BYTES`` is
     drawn one slot of ``lead`` at a time, so that the f32 transient is
     one slot's (command-r-35b's stacked (40, 8192, 22528) ``w_gate`` is
-    29.5 GB in f32, a slot 0.74 GB); a smaller one whole, as it always
-    was. On the CPU generator both give the same values wherever a slot
-    holds a multiple of 16 elements; on the CUDA one they do not, so the
-    whole draw keeps the smaller configs' random models (tinyllama-1.1b's
-    among them) as they were."""
+    29.5 GB in f32, a slot 0.74 GB); a slot that still exceeds it one
+    row of its first axis at a time (an expert: llama4-maverick's slot
+    of ``w_up``, (128, 5120, 8192), is 21.5 GB in f32, an expert 0.17
+    GB); a smaller one whole, as it always was. On the CPU generator
+    these give the same values wherever a part holds a multiple of 16
+    elements; on the CUDA one they do not, so the whole draw keeps the
+    smaller configs' random models (tinyllama-1.1b's among them) as they
+    were."""
     if 4 * math.prod(lead) * math.prod(shape) <= _WHOLE_DRAW_BYTES:
         return _randn(gen, (*lead, *shape)).mul_(scale).to(dtype)
     out = torch.empty((*lead, *shape), dtype=dtype, device=_device(gen))
+    if out.is_meta:                 # shapes only: nothing to draw
+        return out
+    if 4 * math.prod(shape) > _WHOLE_DRAW_BYTES and len(shape) > 1:
+        lead, shape = (*lead, shape[0]), shape[1:]
     for idx in itertools.product(*map(range, lead)):
         out[idx] = _randn(gen, shape).mul_(scale)
     return out
@@ -448,9 +460,9 @@ def attention_apply(p, cfg: ModelConfig, x, positions, *, mode="full",
                               causal=True, window=window, scale=scale,
                               softcap=cfg.logit_softcap)
         if state is not None:
-            state = _cache_fill(state, k, v, pos1d)
+            state = _slots_fill(state, {"k": k, "v": v}, pos1d)
     else:
-        state = _cache_append(state, k, v, pos1d)
+        state = _slots_append(state, {"k": k, "v": v}, pos1d)
         cpos = state["pos_abs"]
         mask = (cpos <= pos1d) & (cpos >= 0)
         if window is not None:
@@ -474,45 +486,155 @@ def init_attn_cache(cfg: ModelConfig, B, max_len, *, window=None,
     }
 
 
-def _cache_write(state, bidx, slot, k, v, pos):
-    state["k"].index_put_((bidx, slot), k.to(state["k"].dtype))
-    state["v"].index_put_((bidx, slot), v.to(state["v"].dtype))
+def _slots_write(state, bidx, slot, vals: dict, pos):
+    for name, t in vals.items():
+        state[name].index_put_((bidx, slot), t.to(state[name].dtype))
     state["pos_abs"].index_put_((bidx, slot), pos.to(torch.int32))
     return state
 
 
-def _cache_append(state, k, v, pos):
-    """Write one token (S == 1) at pos (B, 1), slot ``pos % T``: a ring
-    buffer when windowed."""
-    T = state["k"].shape[1]
-    bidx = torch.arange(k.shape[0], device=k.device)
-    return _cache_write(state, bidx, (pos[:, 0] % T).long(), k[:, 0],
-                        v[:, 0], pos[:, 0])
+def _slots_append(state, vals: dict, pos):
+    """Write one token (S == 1) of each tensor of ``vals`` (B, 1, ...)
+    into ``state``'s tensor of that name, and pos (B, 1) into
+    ``pos_abs``, at slot ``pos % T``: a ring buffer when windowed."""
+    T = state["pos_abs"].shape[1]
+    bidx = torch.arange(pos.shape[0], device=pos.device)
+    return _slots_write(state, bidx, (pos[:, 0] % T).long(),
+                        {n: t[:, 0] for n, t in vals.items()}, pos[:, 0])
 
 
-def _cache_fill(state, k, v, pos):
-    """Bulk prefill: write the last T positions, each at ``pos % T``.
-    Where positions share a slot the last of them wins, as in the
-    reference (jax's scatter keeps the last update; a VLM prompt's
-    patches all sit at position 0). ``index_put_`` with repeated indices
-    leaves the winner undefined on CUDA, so every write to a slot first
-    takes the last writer's values: each slot then receives one value,
-    whatever the order. No sort and no host round trip: a ``scatter_reduce``
-    (amax, order-free) of the row index into a (B, T) table and two
-    gathers."""
-    B, T = state["k"].shape[:2]
-    k, v, pos = k[:, -T:], v[:, -T:], pos[:, -T:]
+def _slots_fill(state, vals: dict, pos):
+    """Bulk prefill: write the last T positions of each tensor of
+    ``vals`` (B, S, ...), each at ``pos % T``. Where positions share a
+    slot the last of them wins, as in the reference (jax's scatter keeps
+    the last update; a VLM prompt's patches all sit at position 0).
+    ``index_put_`` with repeated indices leaves the winner undefined on
+    CUDA, so every write to a slot first takes the last writer's values:
+    each slot then receives one value, whatever the order. No sort and
+    no host round trip: a ``scatter_reduce`` (amax, order-free) of the
+    row index into a (B, T) table and one gather a tensor."""
+    B, T = state["pos_abs"].shape
+    pos = pos[:, -T:]
     slot = (pos % T).long()
     j = torch.arange(slot.shape[1], dtype=torch.int32,
                      device=slot.device).expand_as(slot)
     last = torch.full((B, T), -1, dtype=torch.int32, device=slot.device)
     last.scatter_reduce_(1, slot, j, reduce="amax")
     src = last.gather(1, slot).long()               # (B, S'): its writer
-    k = k.gather(1, src[..., None, None].expand_as(k))
-    v = v.gather(1, src[..., None, None].expand_as(v))
-    pos = pos.gather(1, src)
-    bidx = torch.arange(B, device=k.device)[:, None]
-    return _cache_write(state, bidx, slot, k, v, pos)
+
+    def writer(t):
+        t = t[:, -T:]
+        return t.gather(1, src.view(*src.shape, *(1,) * (t.ndim - 2))
+                        .expand_as(t))
+    vals = {n: writer(t) for n, t in vals.items()}
+    bidx = torch.arange(B, device=slot.device)[:, None]
+    return _slots_write(state, bidx, slot, vals, pos.gather(1, src))
+
+
+# ----------------------------------------------------------------------
+# MLA (deepseek-v3): latent-compressed keys and values
+# ----------------------------------------------------------------------
+
+
+def init_mla(gen, cfg: ModelConfig, dtype=torch.bfloat16, lead=()):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    dev = _device(gen)
+    return {
+        "w_dq": dense_init(gen, d, m.q_lora_rank, dtype=dtype, lead=lead),
+        "q_norm": norm_init(m.q_lora_rank, lead=lead, device=dev),
+        "w_uq": dense_init(gen, m.q_lora_rank, H * qk_dim, dtype=dtype,
+                           lead=lead),
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank, dtype=dtype, lead=lead),
+        "kv_norm": norm_init(m.kv_lora_rank, lead=lead, device=dev),
+        "w_kr": dense_init(gen, d, m.qk_rope_dim, dtype=dtype, lead=lead),
+        "w_uk": dense_init(gen, m.kv_lora_rank, H * m.qk_nope_dim,
+                           dtype=dtype, lead=lead),
+        "w_uv": dense_init(gen, m.kv_lora_rank, H * m.v_head_dim,
+                           dtype=dtype, lead=lead),
+        "wo": dense_init(gen, H * m.v_head_dim, d, dtype=dtype, lead=lead),
+    }
+
+
+def _mla_rope(x, positions, cfg):
+    """Full RoPE over all of x's (rope) dimensions, whatever cfg's style."""
+    return apply_rope(x, positions, dataclasses.replace(
+        cfg, rope_style="full", rope_frac=1.0))
+
+
+def mla_apply(p, cfg: ModelConfig, x, positions, *, mode, state):
+    """Multi-head latent attention; returns (y, state). The queries come
+    through a rank-``q_lora_rank`` bottleneck; keys and values through
+    the normed latent ``c`` (rank ``kv_lora_rank``) and one shared RoPE
+    key ``kr`` (``qk_rope_dim``), which is all the cache holds.
+
+    ``mode="full"`` rebuilds each head's keys (``qk_nope_dim`` from ``c``
+    and ``kr``) and values (``v_head_dim``) for the whole sequence and
+    runs flash attention; with a ``state`` (prefill) it writes ``c``,
+    ``kr`` and the positions into the cache's slots ``pos % T``.
+    ``mode="step"`` (decode) writes the token in place at ``pos % T`` and
+    attends in the latent space (the absorbed form: ``w_uk`` folded into
+    the query, ``w_uv`` applied after the weighted sum), in f32, over the
+    slots holding positions ``<= pos``, without rebuilding per-head keys
+    or values."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, nope, rope = cfg.num_heads, m.qk_nope_dim, m.qk_rope_dim
+    pos1d = positions[..., 0] if positions.ndim == 3 else positions
+    q = dense(p["w_uq"], apply_norm(p["q_norm"], dense(p["w_dq"], x)))
+    q = q.reshape(B, S, H, nope + rope)
+    q_nope = q[..., :nope]
+    q_rope = _mla_rope(q[..., nope:], pos1d, cfg)
+    c = apply_norm(p["kv_norm"], dense(p["w_dkv"], x))          # (B,S,r)
+    k_rope = _mla_rope(dense(p["w_kr"], x)[:, :, None, :], pos1d,
+                       cfg)[:, :, 0]                             # (B,S,e)
+    scale = (nope + rope) ** -0.5
+    if mode == "full":
+        if state is not None:
+            state = _slots_fill(state, {"c": c, "kr": k_rope}, pos1d)
+        k_nope = dense(p["w_uk"], c).reshape(B, S, H, nope)
+        val = dense(p["w_uv"], c).reshape(B, S, H, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)],
+                      -1)
+        out = flash_attention(torch.cat([q_nope, q_rope], -1), k, val,
+                              q_pos=pos1d, kv_pos=pos1d, causal=True,
+                              window=None, scale=scale)
+    elif mode == "step":
+        state = _slots_append(state, {"c": c, "kr": k_rope}, pos1d)
+        r = m.kv_lora_rank
+        w_uk = p["w_uk"]["w"].reshape(r, H, nope).float()
+        w_uv = p["w_uv"]["w"].reshape(r, H, m.v_head_dim).float()
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+        cf = state["c"].float()
+        logits = (torch.einsum("bshr,btr->bhst", q_lat, cf)
+                  + torch.einsum("bshe,bte->bhst", q_rope.float(),
+                                 state["kr"].float())) * scale
+        kv_pos = state["pos_abs"]
+        mask = ((kv_pos <= pos1d) & (kv_pos >= 0))[:, None, None, :]
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        attn = torch.softmax(logits, dim=-1)                     # (B,H,1,T)
+        out_lat = torch.einsum("bhst,btr->bshr", attn, cf)
+        out = torch.einsum("bshr,rhv->bshv", out_lat, w_uv).to(x.dtype)
+    else:
+        raise ValueError(f"mla_apply: mode {mode!r}, not 'full' or 'step'")
+    return dense(p["wo"], out.reshape(B, S, H * m.v_head_dim)), state
+
+
+def init_mla_cache(cfg: ModelConfig, B, max_len, dtype=torch.bfloat16,
+                   device=None):
+    """One MLA layer's decode cache: the latent ``c`` (B, T, kv_lora_rank)
+    and RoPE key ``kr`` (B, T, qk_rope_dim) zeros, and ``pos_abs`` (B, T)
+    int32, -1 marking an empty slot; T = max_len."""
+    m = cfg.mla
+    return {
+        "c": torch.zeros((B, max_len, m.kv_lora_rank), dtype=dtype,
+                         device=device),
+        "kr": torch.zeros((B, max_len, m.qk_rope_dim), dtype=dtype,
+                          device=device),
+        "pos_abs": torch.full((B, max_len), -1, dtype=torch.int32,
+                              device=device),
+    }
 
 # ----------------------------------------------------------------------
 # MLP
@@ -532,11 +654,145 @@ def init_mlp(gen, cfg: ModelConfig, d_ff=None, dtype=torch.bfloat16,
     return p
 
 
-def mlp_apply(p, cfg: ModelConfig, x):
-    act = _ACTS[cfg.mlp_act]
+def mlp_apply(p, cfg: ModelConfig, x, act=None):
+    """The (gated) MLP; ``act`` replaces the config's activation."""
+    act = act or _ACTS[cfg.mlp_act]
     h = act(dense(p["w_up"], x)) if "w_gate" not in p else (
         act(dense(p["w_gate"], x)) * dense(p["w_up"], x))
     return dense(p["w_down"], h)
+
+# ----------------------------------------------------------------------
+# mixture of experts
+# ----------------------------------------------------------------------
+
+
+def init_moe(gen, cfg: ModelConfig, dtype=torch.bfloat16, lead=()):
+    """The router (f32), the experts' stacked (E, ...) gated-MLP weights
+    and, with ``num_shared``, one shared MLP of ``num_shared * d_expert``."""
+    mo = cfg.moe
+    d, dff, E = cfg.d_model, mo.d_expert, mo.num_experts
+    p = {
+        "router": dense_init(gen, d, E, dtype=torch.float32, lead=lead),
+        "w_up": _normal(gen, (E, d, dff), 1.0 / math.sqrt(d), dtype, lead),
+        "w_gate": _normal(gen, (E, d, dff), 1.0 / math.sqrt(d), dtype, lead),
+        "w_down": _normal(gen, (E, dff, d), 1.0 / math.sqrt(dff), dtype,
+                          lead),
+    }
+    if mo.num_shared:
+        p["shared"] = init_mlp(gen, cfg, d_ff=mo.num_shared * dff,
+                               dtype=dtype, lead=lead)
+    return p
+
+
+def _route(router_p, mo, xt):
+    """The router over tokens xt (T, d): (gates (T, K) f32, experts (T, K),
+    aux loss). The softmax of an f32 dense, its top K (``lax.top_k``'s:
+    ties to the lower index, which a stable descending sort gives and
+    ``torch.topk`` does not promise), renormalised; the Switch-style
+    load-balance loss over all top-K assignments."""
+    logits = dense(router_p, xt.float())                       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[:, :mo.top_k], experts[:, :mo.top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    density = F.one_hot(experts, mo.num_experts).float().sum(1).mean(0) / (
+        mo.top_k)
+    aux = mo.num_experts * torch.sum(density * probs.mean(0)) * (
+        mo.router_aux_coef)
+    return gates, experts, aux
+
+
+def _dispatch_tables(experts, gates, T, mo, C):
+    """The reference's sort-based capacity dispatch: the assignments
+    sorted stably by expert, each expert's first C kept, in token order.
+    Returns the reference's tables, ``tok_idx`` (E, C) int32 and
+    ``gate_val`` (E, C) (an empty slot holds token 0 and gate 0), and
+    ``combine`` (T, K) int64: each token's kept slots as flat indices
+    into (E * C), in expert order, a dropped assignment as E * C (sorted
+    last)."""
+    E, K = mo.num_experts, mo.top_k
+    dev = experts.device
+    flat_e = experts.reshape(-1)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    se, order = torch.sort(flat_e, stable=True)
+    st, sg = flat_t[order], gates.reshape(-1)[order]
+    seg_counts = torch.bincount(se, minlength=E)
+    seg_start = torch.cumsum(seg_counts, 0) - seg_counts
+    pos_in_seg = torch.arange(T * K, device=dev) - seg_start[se]
+    keep = pos_in_seg < C
+    slot_e = torch.where(keep, se, E)                          # overflow row
+    slot_c = torch.where(keep, pos_in_seg, 0)
+    # the kept (e, c) are unique; the dropped all land on (E, 0), cut off
+    tok_idx = torch.zeros((E + 1, C), dtype=torch.int32, device=dev)
+    tok_idx[slot_e, slot_c] = st.to(torch.int32)
+    gate_val = torch.zeros((E + 1, C), dtype=gates.dtype, device=dev)
+    gate_val[slot_e, slot_c] = torch.where(keep, sg, torch.zeros_like(sg))
+    flat_slot = torch.where(keep, se * C + pos_in_seg, E * C)
+    combine = torch.empty_like(flat_slot)
+    combine[order] = flat_slot
+    combine = combine.view(T, K).sort(dim=-1).values
+    return tok_idx[:E], gate_val[:E], combine
+
+
+# the experts' activations: silu as jax.nn.silu computes it in bf16, its
+# sigmoid op by op (``_sigmoid``), so that a bf16 MoE block gives the
+# reference's bits where its products do (with torch.sigmoid, rounded
+# once, 275 of 1,000 normal bf16 inputs give another silu; the dense
+# MLPs keep it, see ``_ACTS``). Its cost on the MoE archs' prefill and
+# decode is within 2% on an H100 (bench/moe_silu.py, PERF.md)
+_MOE_ACTS = {**_ACTS, "silu": lambda x: x * _sigmoid(x)}
+
+
+def _expert_ffn(cfg, xe, wg, wu, wd):
+    """The experts' gated MLPs, batched: xe (E, C, d) -> (E, C, d)."""
+    act = _MOE_ACTS[cfg.mlp_act]
+    return (act(xe @ wg) * (xe @ wu)) @ wd
+
+
+def _capacity(mo, T, no_drop):
+    if no_drop:
+        return T * mo.top_k
+    return max(1, int(mo.capacity_factor * mo.top_k * T / mo.num_experts))
+
+
+def _combine(ye, combine):
+    """Each token's sum of its kept slots' rows of ye (E * C, d) in expert
+    order, every partial sum rounded to ye's dtype: the order in which
+    the reference's scatter-add (flat (E, C) order) sums them, in a fixed
+    order on every device (an atomic ``index_add_`` has none, and a bf16
+    sum of deepseek's eight would change from run to run)."""
+    n = ye.shape[0]
+    y = torch.zeros((combine.shape[0], ye.shape[1]), dtype=ye.dtype,
+                    device=ye.device)
+    for j in range(combine.shape[1]):
+        idx = combine[:, j]
+        kept = (idx < n)[:, None]
+        y = y + torch.where(kept, ye[idx.clamp(max=n - 1)],
+                            torch.zeros((), dtype=ye.dtype, device=ye.device))
+    return y
+
+
+def moe_apply(p, cfg: ModelConfig, x, *, no_drop: bool = False):
+    """The mixture-of-experts channel block; returns (y, aux_loss). The
+    reference's single-device path: global routing, sort-based capacity
+    dispatch (tokens over an expert's capacity dropped), every expert
+    computing its whole (C, d) slab, the gated rows summed back per
+    token, and the shared expert added. ``no_drop=True`` (a decode step)
+    sizes the capacity at T * top_k, so that routing is exact."""
+    mo = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    gates, experts, aux = _route(p["router"], mo, xt)
+    C = _capacity(mo, T, no_drop)
+    tok_idx, gate_val, combine = _dispatch_tables(experts, gates, T, mo, C)
+    ye = _expert_ffn(cfg, xt[tok_idx.long()], p["w_gate"], p["w_up"],
+                     p["w_down"])
+    ye = ye * gate_val[..., None].to(ye.dtype)
+    y = _combine(ye.reshape(-1, d), combine)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], cfg, xt, _MOE_ACTS[cfg.mlp_act])
+    return y.reshape(B, S, d), aux
 
 # ----------------------------------------------------------------------
 # causal depthwise conv1d (griffin / mamba2 frontends)

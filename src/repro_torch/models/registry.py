@@ -7,10 +7,14 @@
   prefill(params, batch, states)     -> (logits, states)
   decode_step(params, batch, states) -> (logits, states)     [S == 1]
   init_states(params, B, max_len[, batch]) -> per-layer decode state
-for the decoder-only families (dense, the SSM one: mamba2's SSD layers,
-the hybrid one: recurrentgemma's RG-LRU and local attention, and the
-vlm one: qwen2-vl's M-RoPE and patch embeddings in the batch) and the
-audio enc-dec (whisper: ``frame_embeds`` in the batch); MoE raises.
+and, for a config with multi-token prediction (deepseek-v3),
+  forward_train_mtp(params, batch)   -> (logits, mtp_logits, aux_loss)
+for the decoder-only families (dense, the MoE one: llama4-maverick's
+experts, deepseek-v3's experts, dense prologue, MLA and MTP head, the
+SSM one: mamba2's SSD layers, the hybrid one: recurrentgemma's RG-LRU
+and local attention, and the vlm one: qwen2-vl's M-RoPE and patch
+embeddings in the batch) and the audio enc-dec (whisper:
+``frame_embeds`` in the batch).
 """
 from __future__ import annotations
 
@@ -43,6 +47,14 @@ class Model:
         logits, _, aux = T.forward(params, cfg, batch, mode="full",
                                    unroll=unroll, remat=remat)
         return logits, aux
+
+    def forward_train_mtp(self, params, batch, *, unroll: bool = False,
+                          remat: bool = False):
+        """The train forward with the MTP head's logits too (deepseek-v3):
+        (logits, mtp_logits (B, S - 1, V), aux_loss)."""
+        logits, hidden, aux = T.forward_hidden(params, self.cfg, batch,
+                                               remat=remat)
+        return logits, T.mtp_logits(params, self.cfg, hidden, batch), aux
 
     def prefill(self, params, batch, states, *, last_logits_only=False,
                 unroll=False):
@@ -79,9 +91,10 @@ class Model:
     def init_states(self, params, B: int, max_len: int, batch=None,
                     dtype=torch.bfloat16):
         """Empty decode states on the device of ``params["embed"]``: a
-        KV cache for an attention layer, ``{h, conv}`` for an RG-LRU or
-        SSD layer; for whisper a layer's self cache and its cross keys
-        and values from ``batch["frame_embeds"]``, encoded here."""
+        KV cache for an attention layer, the latent ``{c, kr, pos_abs}``
+        for an MLA layer, ``{h, conv}`` for an RG-LRU or SSD layer; for
+        whisper a layer's self cache and its cross keys and values from
+        ``batch["frame_embeds"]``, encoded here."""
         cfg = self.cfg
         if cfg.family == "audio":
             if batch is None or "frame_embeds" not in batch:
@@ -97,7 +110,8 @@ class Model:
 
 def states_max_len(states) -> int:
     """The slots of the first attention cache in ``states`` (whisper's
-    self cache; 0 with none, as for mamba2's ``{h, conv}`` states)."""
+    self cache; 0 with none, as for mamba2's ``{h, conv}`` states and,
+    as in the reference, for MLA's latent caches)."""
     for st in states:
         if isinstance(st, dict) and "self" in st:
             return st["self"]["k"].shape[1]
@@ -106,12 +120,11 @@ def states_max_len(states) -> int:
     return 0
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 12); ported: {PORTED_FAMILIES}")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); "
+                         f"known: {PORTED_FAMILIES}")
     return Model(cfg)

@@ -1,5 +1,6 @@
 """Language-model losses: the port of ``repro.train.loss`` (cross-entropy
-with a z-loss over the positions whose label is not -100)."""
+with a z-loss over the positions whose label is not -100, the MoE aux
+loss and the multi-token prediction term)."""
 from __future__ import annotations
 
 import torch
@@ -22,18 +23,26 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(model, params, batch, *, z_loss_coef: float = 1e-4,
             mtp_coef: float = 0.3, unroll: bool = False, remat: bool = False):
-    """Full train loss of a dense decoder. batch needs tokens + labels
-    (labels already shifted; -100 = ignore). ``mtp_coef`` weighs the
-    multi-token-prediction loss, which a config without MTP does not
-    have (as in the reference); ``unroll`` changes nothing (the port has
-    no scan to unroll)."""
+    """Full train loss of a registry model: CE (+ z-loss) + the MoE aux
+    loss, and with multi-token prediction (deepseek-v3) ``mtp_coef``
+    times the MTP head's CE against the labels shifted one further (no
+    z-loss). batch needs tokens + labels (labels already shifted; -100 =
+    ignore); ``unroll`` changes nothing (the port has no scan to
+    unroll)."""
     if model.cfg.mtp_depth > 0:
-        raise NotImplementedError("lm_loss: multi-token prediction is not "
-                                  "ported yet (ROADMAP.md)")
-    logits, aux = model.forward_train(params, batch, unroll=unroll,
-                                      remat=remat)
-    loss, metrics = softmax_xent(logits, batch["labels"], z_loss_coef)
-    loss = loss + aux
+        logits, mtp_logits, aux = model.forward_train_mtp(
+            params, batch, unroll=unroll, remat=remat)
+        loss, metrics = softmax_xent(logits, batch["labels"], z_loss_coef)
+        # MTP predicts token t+2 from position t
+        mtp_labels = batch["labels"][:, 1:][:, :mtp_logits.shape[1]]
+        mtp_loss, _ = softmax_xent(mtp_logits, mtp_labels, 0.0)
+        loss = loss + mtp_coef * mtp_loss + aux
+        metrics["mtp_loss"] = mtp_loss
+    else:
+        logits, aux = model.forward_train(params, batch, unroll=unroll,
+                                          remat=remat)
+        loss, metrics = softmax_xent(logits, batch["labels"], z_loss_coef)
+        loss = loss + aux
     metrics["aux_loss"] = aux
     metrics["loss"] = loss
     return loss, metrics

@@ -1373,11 +1373,11 @@ def test_cache_fill_with_repeated_slots_on_the_card_equals_the_cpu(cuda):
         k, v = (torch.tensor(rng.standard_normal(
             (B, S, cfg.num_kv_heads, cfg.head_dim)),
             dtype=torch.bfloat16) for _ in range(2))
-        want = L._cache_fill(L.init_attn_cache(cfg, B, T), k, v,
-                             torch.tensor(p))
+        want = L._slots_fill(L.init_attn_cache(cfg, B, T),
+                             {"k": k, "v": v}, torch.tensor(p))
         for _ in range(20):
-            got = L._cache_fill(L.init_attn_cache(cfg, B, T, device=cuda),
-                                k.to(cuda), v.to(cuda),
+            got = L._slots_fill(L.init_attn_cache(cfg, B, T, device=cuda),
+                                {"k": k.to(cuda), "v": v.to(cuda)},
                                 torch.tensor(p).to(cuda))
             for name in ("k", "v", "pos_abs"):
                 assert torch.equal(got[name].cpu(), want[name]), name
@@ -1442,3 +1442,75 @@ def test_vlm_and_audio_serving_on_the_card_equals_the_cpu(cuda):
         np.testing.assert_allclose(logits[str(cuda)], want, rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max(),
                                    err_msg=arch)
+
+
+def test_moe_combine_at_top8_is_bit_equal_on_the_card_and_the_cpu(cuda):
+    """deepseek-v3's routing (256 experts, top 8) at its configured
+    capacity, with drops: the dispatch tables and the bf16 combine, each
+    token's kept slots summed in expert order, are the same bits in
+    every one of 20 repeats on the card and equal to the CPU's (an
+    atomic ``index_add_`` leaves the order of a token's eight bf16 adds,
+    and so its sum, to the run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    mo = get_config("deepseek-v3-671b").moe
+    T, d = 512, 1024
+    C = L._capacity(mo, T, False)
+    rng = np.random.default_rng(0)
+    logits = torch.tensor(rng.standard_normal((T, mo.num_experts)),
+                          dtype=torch.float32)
+    gates, experts = torch.sort(torch.softmax(logits, -1), dim=-1,
+                                descending=True, stable=True)
+    gates, experts = gates[:, :mo.top_k], experts[:, :mo.top_k]
+    ye = torch.tensor(rng.standard_normal((mo.num_experts * C, d)) * 4,
+                      dtype=torch.bfloat16)
+    want = L._dispatch_tables(experts, gates, T, mo, C)
+    want_y = L._combine(ye, want[2])
+    assert bool((want[2] == mo.num_experts * C).any())      # some dropped
+    for _ in range(20):
+        got = L._dispatch_tables(experts.to(cuda), gates.to(cuda), T, mo, C)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        y = L._combine(ye.to(cuda), got[2]).cpu()
+        assert torch.equal(y.view(torch.int16), want_y.view(torch.int16))
+
+
+def test_mla_decode_step_on_the_card_equals_the_cpu(cuda):
+    """deepseek-v3 at ``.reduced()`` in f32 on the same params: the
+    prefill into the latent caches and two absorbed-form decode steps,
+    logits at rtol 1e-4 (atol 1e-5 of the largest) and each cache's
+    ``pos_abs`` equal, on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_map
+    full_f32_matmul()
+    cfg = get_config("deepseek-v3-671b").reduced()
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), torch.float32)
+    B, S = 2, 24
+    rng = np.random.default_rng(1)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, 2)),
+                        dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        with torch.inference_mode():
+            st = m.init_states(p, B, S + 2, dtype=torch.float32)
+            lg, st = m.prefill(p, {"tokens": prompts.to(dev)}, st)
+            rows = [lg[:, -1:]]
+            for t in range(2):
+                lg, st = m.decode_step(p, {
+                    "tokens": toks[:, t:t + 1].to(dev),
+                    "positions": torch.full((B, 1), S + t, dtype=torch.int32,
+                                            device=dev)}, st)
+                rows.append(lg)
+        out[str(dev)] = (torch.cat(rows, 1).cpu().numpy(),
+                         [s["pos_abs"].cpu() for s in st])
+    want, want_pos = out["cpu"]
+    got, got_pos = out[str(cuda)]
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+    assert all(torch.equal(a, b) for a, b in zip(got_pos, want_pos))

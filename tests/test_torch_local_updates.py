@@ -974,5 +974,8 @@ def test_launch_train_on_the_cpu_restores_in_the_reference(tmp_path, capsys):
         lambda p: ref_adamw_init(p, RefAdamWConfig()), like)}
     got, step = ref_restore(ckpt, like)
     assert step == 4 and int(got["opt"]["count"]) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(["--arch", "deepseek-v3-671b", "--device", "cpu"])
+    # the MoE family with MLA and MTP trains on the CPU at --reduced
+    train.main(["--arch", "deepseek-v3-671b", "--reduced", "--steps", "2",
+                "--batch", "2", "--seq", "16", "--local-H", "2",
+                "--device", "cpu"])
+    assert "round 0 (H=2)" in capsys.readouterr().out

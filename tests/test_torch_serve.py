@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import MLAConfig as RMLAConfig
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 from repro.models import transformer as RT
@@ -180,10 +181,22 @@ def test_init_states_has_the_reference_shapes(arch, window):
 
 
 def test_init_states_refuses_an_unported_mixer():
+    """An MLA config's attention layers get the latent cache (the
+    reference's shapes and dtypes); an unknown mixer is refused."""
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_states(cfg, 1, 8)
+    rcfg = dataclasses.replace(ref_get_config("tinyllama-1.1b").reduced(),
+                               mla=RMLAConfig())
+    want = RT.init_states(rcfg, 1, 8, jnp.bfloat16)
+    got = T.init_states(cfg, 1, 8)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == ["c", "kr", "pos_abs"]
+        for key in g:
+            assert tuple(g[key].shape) == w[key].shape
+            assert str(g[key].dtype).split(".")[-1] == str(w[key].dtype)
+    bad = dataclasses.replace(cfg, mla=None, block_pattern=("conv",))
+    with pytest.raises(ValueError, match="unknown mixer"):
+        T.init_states(bad, 1, 8)
 
 
 # -- prefill ---------------------------------------------------------------
@@ -406,9 +419,9 @@ def test_launch_serve_reduced_on_the_cpu(capsys):
                     "--prompt-len", "8", "--max-new", "4", "--device",
                     "cpu"])
         assert "generated (2, 4)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
-                    "cpu"])
+    serve.main(["--arch", "deepseek-v3-671b", "--reduced", "--batch", "2",
+                "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
+    assert "generated (2, 4)" in capsys.readouterr().out
 
 
 def test_serve_example_on_the_cpu(capsys):
@@ -478,6 +491,16 @@ def test_forward_train_and_lm_loss_take_the_reference_keywords(runs):
                              for k, v in batch.items()},
                             unroll=True, mtp_coef=0.3)
     np.testing.assert_allclose(float(l1), float(r_loss), rtol=1e-5)
+    # with an MTP head (nemotron's reduced config given mtp_depth = 1):
+    # the loss and its MTP term are the reference's
+    rm = ref_build_model(dataclasses.replace(a["rm"].cfg, mtp_depth=1))
+    rp = jax.device_get(jax.jit(lambda k: rm.init(k, jnp.float32))(
+        jax.random.key(0)))
     mtp = build_model(dataclasses.replace(a["cfg"], mtp_depth=1))
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        lm_loss(mtp, params, batch, mtp_coef=0.3)
+    jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    r_loss, r_met = ref_lm_loss(rm, rp, jb, mtp_coef=0.3)
+    l2, met = lm_loss(mtp, params_from_reference(rp, mtp.cfg, device="cpu"),
+                      batch, mtp_coef=0.3)
+    np.testing.assert_allclose(float(l2), float(r_loss), rtol=1e-4)
+    np.testing.assert_allclose(float(met["mtp_loss"]),
+                               float(r_met["mtp_loss"]), rtol=1e-4)

@@ -95,25 +95,34 @@ def test_new_config_equals_reference(arch, reduced):
 
 
 def test_registry_names_every_reference_arch():
-    assert set(ARCHS) | set(PENDING) == set(REF_ARCHS)
-    # the vlm and audio slice's three (tests/test_torch_vlm_audio.py)
-    assert ARCHS == (ARCH,) + NEW_ARCHS + ("chatglm3-6b", "qwen2-vl-72b",
-                                           "whisper-tiny")
-    assert PENDING == ("llama4-maverick-400b-a17b", "deepseek-v3-671b")
+    assert set(ARCHS) == set(REF_ARCHS)
+    # the vlm and audio slice's three (tests/test_torch_vlm_audio.py) and
+    # the MoE family's two (tests/test_torch_moe_mla.py)
+    assert ARCHS == (ARCH,) + NEW_ARCHS + (
+        "chatglm3-6b", "qwen2-vl-72b", "whisper-tiny",
+        "llama4-maverick-400b-a17b", "deepseek-v3-671b")
+    assert PENDING == ()
 
 
-@pytest.mark.parametrize("arch", PENDING)
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "deepseek-v3-671b"])
 def test_get_config_refuses_what_is_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(arch)
+    """Nothing is left unported: the last two archs' configs are the
+    reference's (full and reduced), and only an unknown name is
+    refused."""
+    for reduced in (False, True):
+        _config_equals_reference(arch, reduced)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch + "-x")
 
 
 def test_unknown_arch_and_family_raise():
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     moe = dataclasses.replace(get_config(ARCH), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(moe)
+    assert build_model(moe).cfg is moe
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_config(ARCH), family="diffusion"))
 
 
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])

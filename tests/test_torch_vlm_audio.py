@@ -302,10 +302,11 @@ def test_cache_fill_with_repeated_slots_is_the_reference_bit_for_bit(dtype):
         want = jax.device_get(RL._cache_fill(
             {n: jnp.asarray(c) for n, c in cache.items()}, jnp.asarray(k),
             jnp.asarray(v), jnp.asarray(pos), None))
-        got = L._cache_fill({n: tensor_from_numpy(c, "cpu")
+        got = L._slots_fill({n: tensor_from_numpy(c, "cpu")
                              for n, c in cache.items()},
-                            tensor_from_numpy(k, "cpu"),
-                            tensor_from_numpy(v, "cpu"), torch.tensor(pos))
+                            {"k": tensor_from_numpy(k, "cpu"),
+                             "v": tensor_from_numpy(v, "cpu")},
+                            torch.tensor(pos))
         for name in ("k", "v", "pos_abs"):
             g = states_to_reference([{name: got[name]}])[0][name]
             assert g.dtype == want[name].dtype
