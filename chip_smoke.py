@@ -186,7 +186,31 @@ JSON line:
      events and device time at the largest leaf beside its byte bound,
      its plain version and (K4) ``torch.topk``, a ``torch.profiler`` trace
      of one local step (the top kernels, the matrix products' share, the
-     busy share), and the peak memory;
+     busy share), and the peak memory. Then the same for the other
+     families (``LM_ROWS``), 2 rounds each, at their published widths cut
+     (layers, then experts, then vocab, then d_model, each cut in the
+     row's ``reduced`` field) until the row fits: mamba2-2.7b at 24 of
+     64 layers under ``int8`` and at 16 under ``ef:int4`` (K2 and K3 in
+     their int4 form), recurrentgemma-9b at one (rglru, rglru,
+     attn_local) cycle with a vocab of 81,920, chatglm3-6b at 4 of 28
+     layers, whisper-tiny whole (its 1,500 frames in every batch) under
+     ``int8`` and ``ef:int2``, qwen2-vl-72b at 1 of 80 layers with a
+     vocab of 24,576 (256 patch embeddings in every batch),
+     llama4-maverick-400b-a17b at 1 of 48 layers with 2 of 128 experts
+     and a vocab of 81,920, deepseek-v3-671b at one dense and one MoE
+     layer with the MTP head, 16 of 256 experts, a vocab of 16,384 and
+     d_model 3584; each at lr 1e-4 scaled by 5632 over its widest
+     product input (``lm_lr``). Each row also prints its predicted peak
+     beside the measured one, its aux and MTP losses, the plan of its
+     encode kernel at its largest leaf (checked before the row runs), and
+     holds two bf16 gradients of one more step from the same params bit
+     for bit (a traced step for tinyllama's rows and mamba2's ``int8``);
+  10b. each of the seven other archs at ``.reduced()``: one train step's
+     loss, its CE, aux and MTP terms (rtol 1e-5) and every gradient leaf
+     (within 1e-4 of the leaf's largest |CPU| value, floored at 1e-4) in
+     f32 on the card against the CPU on the same params and batch
+     (whisper's frames, qwen2-vl's patches), and the bf16 step twice on
+     the card with bit-equal gradients;
   11. serving (``repro_torch.serve.greedy_generate``) at full width,
      random bf16 params (seed 0), seeded prompts over the whole vocab:
      tinyllama-1.1b (22 layers, B = 8, prompt 512, 64 new tokens),
@@ -399,10 +423,73 @@ CALIBRATED_GLOO = ("persistent", "compressed:int8", "compressed:int8/ring")
 # 15-17 before it fell, on an H100.
 LM_ARCH = "tinyllama-1.1b"
 LM_K, LM_H, LM_BATCH, LM_SEQ, LM_LR = 4, 2, 4, 512, 1e-4
-LM_PATHS = (("f32", "f32", None, 3),
-            ("compressed:int8", "int8", None, 3),
-            ("compressed:ef:topk(r=0.01)", "ef:topk(r=0.01)", None, 2))
+# The other rows scale LM_LR by LM_FAN_IN / their widest product input
+# (``lm_fan_in``; tinyllama's is its d_ff, 5632), capped at LM_LR: by the
+# reasoning above a row whose fan-in is 2.4x (chatglm3's d_ff 13,696) to
+# 5.2x (qwen2-vl's 29,568) tinyllama's at lr 1e-4 takes the kick lr
+# 2.4e-4 to 5.2e-4 gives tinyllama: at lr 1e-4 the loss of chatglm3-6b
+# (4 layers) and of deepseek-v3 (2 layers) rose over two rounds on an
+# H100
+LM_FAN_IN = 5632
+# Rows: (arch, cuts, codec, rounds); cuts are the config fields a row
+# changes ("num_layers", "vocab_size", "d_model"; "num_experts" and
+# "first_k_dense" of its moe), listed in its line's ``reduced``. The other
+# families run at their published widths, cut by one rule until the
+# row fits the card's 85 GB with ~10 GB to spare (``lm_predicted_peak``:
+# 44 B a param at K = 4, 60 B under ef:, 28 B an element of the largest
+# leaf, 16 B a logit, 1.5 GB): the layers first, one of each block kind
+# kept; then the experts, to no fewer than 2 top_k; then the vocab (a
+# multiple of 256); only then d_model, alone (no other width of theirs is
+# a multiple of it). Below, each row's params and predicted peak.
+LM_ROWS = (
+    ("tinyllama-1.1b", {}, "f32", 3),
+    ("tinyllama-1.1b", {}, "int8", 3),
+    ("tinyllama-1.1b", {}, "ef:topk(r=0.01)", 2),
+    # ssm: 24 of 64 layers, 1.223 B params (40.2 M a layer and 0.258 B of
+    # embed and unembed; the (24, 2560, 10576) in-projection 650 M
+    # elements; 75.2 GB); 64 would be 2.83 B. Under ef:int4 16 layers,
+    # 0.902 B (69.4 GB)
+    ("mamba2-2.7b", {"num_layers": 24}, "int8", 2),
+    ("mamba2-2.7b", {"num_layers": 16}, "ef:int4", 2),
+    # hybrid: one (rglru, rglru, attn_local) cycle, 0.657 B; beside it the
+    # published 256,000-row embed and unembed (2.10 B) make 2.75 B, so
+    # the vocab is cut to 81,920: 1.328 B (72.0 GB)
+    ("recurrentgemma-9b", {"num_layers": 3, "vocab_size": 81920}, "int8",
+     2),
+    # dense with 2d RoPE: 4 of 28 layers (0.204 B a layer, 0.533 B of
+    # embed and unembed), 1.349 B (70.4 GB)
+    ("chatglm3-6b", {"num_layers": 4}, "int8", 2),
+    # audio: whole, 0.049 B (5.9 GB; 6.7 under ef:int2)
+    ("whisper-tiny", {}, "int8", 2),
+    ("whisper-tiny", {}, "ef:int2", 2),
+    # vlm: 1 of 80 layers (0.876 B); its 152,064-row embed and unembed
+    # (2.49 B) cut to 24,576 rows: 1.280 B (65.4 GB)
+    ("qwen2-vl-72b", {"num_layers": 1, "vocab_size": 24576}, "int8", 2),
+    # moe top-1: 1 of 48 layers; its 128 experts of 5120 x 8192 (16.1 B)
+    # cut to 2 (0.444 B with the shared expert and attention); the
+    # 202,048-row embed and unembed (2.07 B) to 81,920: 1.279 B (72.2 GB)
+    ("llama4-maverick-400b-a17b",
+     {"num_layers": 1, "num_experts": 2, "vocab_size": 81920}, "int8", 2),
+    # moe top-8 with MLA and MTP: one dense prologue layer and one MoE
+    # layer of 61 (first_k_dense 3 -> 1) and the MTP module; 256 experts
+    # cut to 16. At d_model 7168 that is 2.21 B without any vocab, so
+    # the vocab goes to 16,384 and d_model to 3584: 1.276 B (62.0 GB)
+    ("deepseek-v3-671b",
+     {"num_layers": 2, "first_k_dense": 1, "num_experts": 16,
+      "vocab_size": 16384, "d_model": 3584}, "int8", 2),
+)
+# the rows whose extra step is traced: tinyllama's and the one with the
+# largest predicted peak
+LM_TRACED = {("tinyllama-1.1b", "f32"), ("tinyllama-1.1b", "int8"),
+             ("tinyllama-1.1b", "ef:topk(r=0.01)"), ("mamba2-2.7b", "int8")}
 LM_REPS = 3
+# phase 10b: one train step of each arch at .reduced(), batch x seq, on
+# the card and on the CPU in f32, then twice on the card in bf16
+LM_SMALL_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b", "chatglm3-6b",
+                  "whisper-tiny", "qwen2-vl-72b",
+                  "llama4-maverick-400b-a17b", "deepseek-v3-671b")
+LM_SMALL = (2, 64)
+LM_SMALL_RTOL, LM_SMALL_GRAD_TOL, LM_SMALL_GRAD_FLOOR = 1e-5, 1e-4, 1e-4
 # the serving phase (11): greedy generation through
 # repro_torch.serve.greedy_generate at full width, random bf16 params
 # (seed 0) and seeded prompts over the whole vocab. Paths: (arch, layers
@@ -554,8 +641,13 @@ def bits_equal(torch, a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+def max_err(a, b, chunk: int = 1 << 26) -> float:
+    """The largest |a - b| in f64, ``chunk`` elements at a time (a whole
+    f64 copy of a transformer leaf's (K, L) stack would not fit)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return max((float((a[i:i + chunk].double() - b[i:i + chunk].double())
+                      .abs().max()) for i in range(0, a.numel(), chunk)),
+               default=0.0)
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -1019,16 +1111,131 @@ def time_codec_kernels(torch, codec_, e, parts, K: int) -> dict:
     return timing
 
 
+def lm_row_config(arch: str, cuts: dict):
+    """A phase 10 row's config: ``arch``'s published one with ``cuts``
+    applied (``num_experts`` and ``first_k_dense`` to its moe), and its
+    ``reduced`` list, one "field: published -> cut" a cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    moe_keys = ("num_experts", "first_k_dense")
+    top = {k: v for k, v in cuts.items() if k not in moe_keys}
+    moe = {k: v for k, v in cuts.items() if k in moe_keys}
+    reduced = [f"{k}: {getattr(cfg, k)} -> {v}" for k, v in top.items()
+               if getattr(cfg, k) != v]
+    reduced += [f"moe.{k}: {getattr(cfg.moe, k)} -> {v}"
+                for k, v in moe.items() if getattr(cfg.moe, k) != v]
+    if moe:
+        top["moe"] = dataclasses.replace(cfg.moe, **moe)
+    return dataclasses.replace(cfg, **top), reduced
+
+
+def lm_fan_in(cfg) -> int:
+    """The widest input of a model's products: d_model, d_ff, the
+    attention output's heads x head_dim (MLA's heads x v_head_dim and its
+    ranks), the experts' and shared expert's widths, the SSM's d_inner,
+    the RG-LRU's width."""
+    widths = [cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim]
+    if cfg.moe is not None:
+        widths.append(cfg.moe.d_expert * max(cfg.moe.num_shared, 1))
+    if cfg.mla is not None:
+        widths += [cfg.num_heads * cfg.mla.v_head_dim, cfg.mla.q_lora_rank,
+                   cfg.mla.kv_lora_rank]
+    if cfg.ssm is not None:
+        widths.append(cfg.ssm.d_inner(cfg.d_model))
+    if cfg.rglru is not None:
+        widths.append(cfg.rglru.lru_width or cfg.d_model)
+    return max(widths)
+
+
+def lm_lr(cfg) -> float:
+    """A row's peak learning rate: ``LM_LR`` scaled by ``LM_FAN_IN`` over
+    its widest product input, at most ``LM_LR``."""
+    return LM_LR * min(1.0, LM_FAN_IN / lm_fan_in(cfg))
+
+
+def lm_predicted_peak(cfg, n_params: int, largest: int, codec: str,
+                      K: int = LM_K) -> int:
+    """A phase 10 row's predicted peak device bytes while the last shard
+    steps: p0 and the K shards' bf16 copies (2 + 2K B a param), the
+    start, running and next f32 AdamW states and the f32 opt sum (32 B),
+    the bf16 grads (2 B), under an ``ef:`` codec the (K, L) f32 residuals
+    (4K B); AdamW's f32 temporaries on the largest leaf (28 B an
+    element: the grad, its square, the moments, the step's quotients, the
+    param in f32); the f32 logits and their gradient (16 B a logit, twice
+    with an MTP head); 1.5 GB of activations under per-layer remat."""
+    from repro_torch.configs.base import padded_vocab
+    per = 2 + 2 * K + 32 + 2 + (4 * K if codec.startswith("ef:") else 0)
+    logits = (LM_BATCH * LM_SEQ * padded_vocab(cfg) * 16
+              * (2 if cfg.mtp_depth else 1))
+    return n_params * per + 28 * largest + logits + int(1.5e9)
+
+
+def lm_batches(torch, ts, cfg, K: int, H: int, rng, device) -> dict:
+    """K shards' H batches of ``LM_BATCH`` x ``LM_SEQ`` tokens from the
+    token stream ``ts``, with whisper's frames and a vlm's patch
+    embeddings drawn by ``serve_extras`` from ``rng``, as (K, H, ...)
+    tensors on ``device``."""
+    import numpy as np
+    bs = [[ts.next_batch() for _ in range(H)] for _ in range(K)]
+    out = {n: torch.tensor(np.stack([np.stack([b[n] for b in row])
+                                     for row in bs])).to(device)
+           for n in ("tokens", "labels")}
+    extras = [[serve_extras(torch, cfg, LM_BATCH, LM_SEQ, rng, device)
+               for _ in range(H)] for _ in range(K)]
+    for n in extras[0][0]:
+        out[n] = torch.stack([torch.stack([e[n] for e in row])
+                              for row in extras])
+    return out
+
+
+def codec_kernel_plan(codec, K: int, L: int) -> dict:
+    """The plan the row's encode kernel takes at its largest leaf, a
+    (K, L) stack (K2's ``quant_plan``, K4's ``topk_plan``), checked
+    before the row runs: a leaf past the kernels' int32 indices or a
+    plan either refuses raises here, not at a launch. None without a
+    codec kernel."""
+    from repro_torch.kernels.quant import INDEX_MAX, quant_plan
+    from repro_torch.kernels.topk import topk_plan
+    if codec.lossless:
+        return None
+    if L > INDEX_MAX:
+        raise SystemExit(f"chip_smoke: a leaf of {L} elements is past the "
+                         f"codec kernels' int32 indices ({INDEX_MAX})")
+    base = getattr(codec, "base", codec)
+    if "topk" in codec.name:
+        return dict(kernel="topk_select", **dataclasses.asdict(
+            topk_plan(K, L, base._k(L))))
+    return dict(kernel=f"quantize_pack_{base.name}", **dataclasses.asdict(
+        quant_plan(K, L, base.bits)))
+
+
+def grads_repeat(torch, model, params, batch) -> dict:
+    """Two ``loss_and_grads`` of the same params and batch: whether every
+    gradient leaf (and the loss) repeats bit for bit, and the leaves
+    that do not."""
+    from repro_torch.train import loss_and_grads
+    from repro_torch.utils.trees import tree_flatten_with_path
+    runs = [loss_and_grads(model, params, batch, remat=True)
+            for _ in range(2)]
+    keys = [k for k, _ in tree_flatten_with_path(params)]
+    differ = [str(k) for k, a, b in zip(keys, runs[0][2], runs[1][2])
+              if not bits_equal(torch, a, b)]
+    loss_equal = bits_equal(torch, runs[0][0], runs[1][0])
+    del runs
+    return dict(equal=loss_equal and not differ, loss_equal=loss_equal,
+                leaves=len(keys), leaves_differing=differ)
+
+
 def transformer_phase(torch, counters, device="cuda") -> dict:
-    """Phase 10: each path of ``LM_PATHS`` at peak learning rate
-    ``LM_LR``, with the launch counters set to 0 just before and read just after;
-    returns the kernels line's ``transformer`` entries by kernel name."""
+    """Phase 10: each row of ``LM_ROWS`` at its peak learning rate
+    (``lm_lr``), with the launch counters set to 0 just before and read
+    just after; returns the kernels line's ``transformer`` entries by
+    kernel name."""
     import functools
 
     import numpy as np
 
     from repro_torch.comm.codec import get_codec
-    from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models import build_model
     from repro_torch.optim import (AdamWConfig, LocalUpdatesConfig,
@@ -1043,27 +1250,31 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
     full_f32_matmul()
     entries = {}
     K, H = LM_K, LM_H
-    for label, codec_name, layers, rounds in LM_PATHS:
+    for arch, cuts, codec_name, rounds in LM_ROWS:
+        label = f"{arch} {codec_name}"
         t0 = time.perf_counter()
         free(torch)
         held_before = torch.cuda.memory_allocated()
-        cfg = get_config(LM_ARCH)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg, reduced = lm_row_config(arch, cuts)
+        codec = get_codec(codec_name)
         model = build_model(cfg)
         params = model.init(torch.Generator(device=device).manual_seed(0))
-        opt_cfg = AdamWConfig(lr=LM_LR)
+        leaves = tree_leaves(params)
+        largest = max(p.numel() for p in leaves)
+        embed_len = params["embed"].numel()
+        plan = codec_kernel_plan(codec, K, largest)
+        n_params = tree_params(params)
+        predicted = lm_predicted_peak(cfg, n_params, largest, codec_name)
+        lr = lm_lr(cfg)
+        opt_cfg = AdamWConfig(lr=lr)
         opt = adamw_init(params, opt_cfg)
         step = make_train_step(model, opt_cfg, remat=True, schedule=(
             functools.partial(cosine_schedule, warmup=H, total=rounds * H)))
         lc = LocalUpdatesConfig(H=H, codec=codec_name)
-        codec = get_codec(codec_name)
         state = init_delta_codec_state(params, lc, shards=K)
-        leaves = tree_leaves(params)
-        largest = max(p.numel() for p in leaves)
-        embed_len = params["embed"].numel()
         want_bytes = delta_wire_bytes(params, lc, K)
         ts = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0)
+        rng = np.random.default_rng(0)
         setup_s = time.perf_counter() - t0
 
         # events: the round's start, the end of its last shard's steps
@@ -1142,14 +1353,11 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
         torch.cuda.reset_peak_memory_stats()
         local_updates._steps = steps_hook
         local_updates.exchange_leaf = exchange_hook
-        losses, wire, host_s = [], [], []
+        losses, aux, mtp, wire, host_s = [], [], [], [], []
         try:
             for r in range(1, rounds + 1):
                 calls["round"] = r
-                bs = [[ts.next_batch() for _ in range(H)] for _ in range(K)]
-                batches = {n: torch.tensor(np.stack([np.stack(
-                    [b[n] for b in row]) for row in bs])).to(device)
-                    for n in ("tokens", "labels")}
+                batches = lm_batches(torch, ts, cfg, K, H, rng, device)
                 torch.cuda.synchronize()
                 h0 = time.perf_counter()
                 start = torch.cuda.Event(enable_timing=True)
@@ -1165,6 +1373,9 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
                 if state is not None:
                     state = out[3]
                 losses.append(metrics["loss"].float().cpu().numpy())
+                aux.append(metrics["aux_loss"].float().cpu().numpy())
+                if "mtp_loss" in metrics:
+                    mtp.append(metrics["mtp_loss"].float().cpu().numpy())
                 wire.append(metrics["wire_bytes"])
                 if kept:
                     time_largest()
@@ -1175,20 +1386,24 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
         launches = {fn.__name__: fn.launches for fn in counters}
         peak = torch.cuda.max_memory_allocated()
         finite = bool(tree_allfinite(params))
-        # one more local step (shard 0's first batch) under the profiler:
-        # where a step's device time goes, and the device's busy share
+        # shard 0's first batch: the bf16 gradients of two steps from the
+        # same params, and (LM_TRACED) one more step under the profiler:
+        # where a step's device time goes, and the busy share
         b0 = {n: v[0, 0] for n, v in batches.items()}
-        trace = device_trace(torch, lambda: step(params, opt, b0))
-        kern = trace.get("kernels", {})
-        step_trace = dict(
-            window_ms=trace["window_ms"],
-            busy_share_of_window=trace.get("busy_share_of_window"),
-            device_busy_ms=trace.get("device_busy_ms"),
-            gemm_ms=sum(v["device_ms"] for n, v in kern.items()
-                        if any(g in n.lower() for g in LM_GEMM)),
-            kernels_launched=sum(v["calls"] for v in kern.values()),
-            top=dict(list(kern.items())[:12]), guard=trace.get("guard"))
-        for fn in counters:           # the traced step launches none
+        repeat = grads_repeat(torch, model, params, b0)
+        step_trace = "not traced (LM_TRACED)"
+        if (arch, codec_name) in LM_TRACED:
+            trace = device_trace(torch, lambda: step(params, opt, b0))
+            kern = trace.get("kernels", {})
+            step_trace = dict(
+                window_ms=trace["window_ms"],
+                busy_share_of_window=trace.get("busy_share_of_window"),
+                device_busy_ms=trace.get("device_busy_ms"),
+                gemm_ms=sum(v["device_ms"] for n, v in kern.items()
+                            if any(g in n.lower() for g in LM_GEMM)),
+                kernels_launched=sum(v["calls"] for v in kern.values()),
+                top=dict(list(kern.items())[:12]), guard=trace.get("guard"))
+        for fn in counters:   # the repeated and traced steps launch none
             fn.launches = launches[fn.__name__]
         split = [dict(round=i + 1, round_ms=m_["start"].elapsed_time(
             m_["end"]), local_ms=m_["start"].elapsed_time(m_["local_end"]),
@@ -1212,18 +1427,29 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
                                  if k_ != "max_abs_err")
                              for c_ in checks.values())
                          and (codec.lossless
-                              or len(checks) == len({largest, embed_len}))))
+                              or len(checks) == len({largest, embed_len}))),
+                  bf16_grads_repeat=repeat["equal"])
         phase_done(
             torch, "transformer_path", t0, path=label, codec=codec_name,
-            arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-            params=tree_params(params), K=K, H=H, batch=LM_BATCH,
-            seq=LM_SEQ, rounds=rounds, lr=LM_LR, leaves=len(leaves),
-            largest_leaf=largest, checks=ok,
+            arch=cfg.name, family=cfg.family, reduced=reduced or "none",
+            layers=cfg.num_layers, d_model=cfg.d_model,
+            vocab=cfg.vocab_size,
+            experts=cfg.moe.num_experts if cfg.moe else None,
+            params=n_params, K=K, H=H, batch=LM_BATCH,
+            seq=LM_SEQ, rounds=rounds, lr=lr, fan_in=lm_fan_in(cfg),
+            leaves=len(leaves), largest_leaf=largest,
+            largest_leaf_plan=plan, checks=ok,
             loss_first_step=first, loss_last_round=last,
             loss_by_round=[l_.tolist() for l_ in losses],
+            aux_loss_by_round=([a_.tolist() for a_ in aux] if cfg.moe
+                               else "no moe layer"),
+            mtp_loss_by_round=([m_.tolist() for m_ in mtp] if mtp
+                               else "no mtp head"),
             wire_bytes_by_round=wire, delta_wire_bytes=want_bytes,
             launches=launches, expected_launches=want,
+            launches_per_round={n: launches[n] / rounds for n in own},
             plain_vs_kernel={str(k_): v for k_, v in checks.items()},
+            bf16_grads_repeat=repeat,
             round_split_ms=split,
             tokens_per_round=tokens,
             tokens_per_s=tokens / np.median([s["round_ms"] for s in steady])
@@ -1233,7 +1459,8 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
             kernels_at_largest_leaf=timing, timing_context=timing_ctx,
             step_trace=step_trace,
             memory_allocated_before=held_before,
-            max_memory_allocated=peak, setup_seconds=setup_s)
+            predicted_peak=predicted, max_memory_allocated=peak,
+            setup_seconds=setup_s)
         if not all(ok.values()):
             raise SystemExit(f"chip_smoke: the transformer path {label} "
                              f"failed a check {ok} (see its "
@@ -1242,12 +1469,97 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
             key = {"topk_select": "topk"}.get(
                 name, name.replace("quantize_pack_", "").replace(
                     "decode_reduce_", "decode_"))
-            entries[name] = dict(path=label, launches=launches[name],
-                                 launches_per_round=launches[name] / rounds,
-                                 leaves=len(leaves), **timing[key])
-        del params, opt, state, out, step, model
+            entry = entries.setdefault(name, dict(launches=0, rows={}))
+            entry["launches"] += launches[name]
+            entry["rows"][label] = dict(
+                launches=launches[name],
+                launches_per_round=launches[name] / rounds,
+                leaves=len(leaves), **timing[key])
+        del params, opt, state, out, step, model, batches, b0
         free(torch)
     return entries
+
+
+def lm_card_vs_cpu_phase(torch, device="cuda") -> None:
+    """Phase 10b: each of ``LM_SMALL_ARCHS`` at ``.reduced()``, one train
+    step's loss and gradients (``loss_and_grads``, what
+    ``make_train_step`` differentiates) in f32 on the card and on the
+    CPU from the same params and batch: the loss, the aux and MTP terms
+    within rtol ``LM_SMALL_RTOL``, every gradient leaf within
+    ``LM_SMALL_GRAD_TOL`` times that leaf's largest |CPU| value (at least
+    ``LM_SMALL_GRAD_FLOOR``); then the same step twice on the card in
+    bf16: every gradient leaf bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import build_model
+    from repro_torch.train import loss_and_grads
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_map
+
+    full_f32_matmul()
+    B, S = LM_SMALL
+    failed = []
+    for arch in LM_SMALL_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), torch.float32)
+        batch = TokenStream(cfg.vocab_size, S, B, seed=0).next_batch()
+        batch = {n: torch.tensor(v) for n, v in batch.items()}
+        batch.update({n: v.float() if v.is_floating_point() else v
+                      for n, v in serve_extras(
+                          torch, cfg, B, S, np.random.default_rng(0),
+                          "cpu").items()})
+        to = {"cpu": lambda t: t, "card": lambda t: t.to(device)}
+        runs = {w: loss_and_grads(model, tree_map(f, params),
+                                  tree_map(f, batch))
+                for w, f in to.items()}
+        (l_c, m_c, g_c), (l_d, m_d, g_d) = runs["cpu"], runs["card"]
+        keys = [str(k) for k, _ in tree_flatten_with_path(params)]
+        # each leaf's error over its largest |CPU| value, floored at
+        # LM_SMALL_GRAD_FLOOR: a key bias's gradient is 0 in exact
+        # arithmetic (the softmax ignores a shift shared by every key),
+        # and both devices hold ~1e-10 there
+        grad_err = {k: max_err(a.cpu(), b) / max(float(b.abs().max()),
+                                                 LM_SMALL_GRAD_FLOOR)
+                    for k, a, b in zip(keys, g_d, g_c)}
+        terms = {n: (float(m_d[n]), float(m_c[n]))
+                 for n in ("loss", "ce", "aux_loss", "mtp_loss")
+                 if n in m_c}
+        terms_ok = all(abs(d - c) <= LM_SMALL_RTOL * max(abs(c), 1e-30)
+                       for d, c in terms.values())
+        worst = max(grad_err, key=grad_err.get)
+        del runs
+        # bf16, twice on the card
+        p16 = tree_map(lambda t: t.to(device, torch.bfloat16)
+                       if t.is_floating_point() else t.to(device), params)
+        b16 = {n: v.to(device, torch.bfloat16 if v.is_floating_point()
+                       else v.dtype) for n, v in batch.items()}
+        repeat = grads_repeat(torch, model, p16, b16)
+        ok = dict(terms=terms_ok,
+                  grads=grad_err[worst] <= LM_SMALL_GRAD_TOL,
+                  bf16_grads_repeat=repeat["equal"])
+        emit(phase="transformer_card_vs_cpu", arch=cfg.name,
+             family=cfg.family, batch=B, seq=S,
+             extras=sorted(n for n in batch if n not in ("tokens", "labels")),
+             terms_card_cpu=terms, grad_leaves=len(keys),
+             worst_grad_leaf=worst, worst_grad_rel_err=grad_err[worst],
+             tolerance=dict(terms_rtol=LM_SMALL_RTOL,
+                            grad_of_leaf_max=LM_SMALL_GRAD_TOL,
+                            leaf_max_floor=LM_SMALL_GRAD_FLOOR),
+             bf16_grads_repeat=repeat, checks=ok,
+             seconds=time.perf_counter() - t0)
+        if not all(ok.values()):
+            failed.append(arch)
+        del params, p16, b16, batch
+        free(torch)
+    if failed:
+        raise SystemExit(f"chip_smoke: the train step on the card and on "
+                         f"the CPU disagree, or bf16 gradients did not "
+                         f"repeat, for {failed} (see their "
+                         f"transformer_card_vs_cpu lines)")
 
 
 class ServeRecorder:
@@ -4050,8 +4362,9 @@ def main(argv=None) -> int:
     # -- 10. the transformer local-updates path: tinyllama on K shards --
     t10 = time.perf_counter()
     lm_entries = transformer_phase(torch, counters)
+    lm_card_vs_cpu_phase(torch)
     emit(phase="transformer", seconds=time.perf_counter() - t10,
-         paths=[label for label, *_ in LM_PATHS])
+         paths=[f"{arch} {codec}" for arch, _, codec, _ in LM_ROWS])
 
     # -- 11. serving: greedy generation at full width -----------------
     t11 = time.perf_counter()

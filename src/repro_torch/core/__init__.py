@@ -2,8 +2,9 @@
 the partitioner, the local solvers, the drivers and the trainers, and
 the framework-overhead profiles of the H trade-off (the port of
 ``repro.core``)."""
-from repro_torch.core.glm import (GLMProblem, primal_objective,  # noqa: F401
-                                  ridge_exact, suboptimality)
+from repro_torch.core.glm import (GLMProblem, primal_from_state,  # noqa: F401
+                                  primal_objective, ridge_exact,
+                                  suboptimality)
 from repro_torch.core.cocoa import (CoCoAConfig, CoCoATrainer,  # noqa: F401
                                     History, UniformIndices)
 from repro_torch.core.distributed import (COMM_TRANSPORTS,  # noqa: F401
@@ -11,7 +12,9 @@ from repro_torch.core.distributed import (COMM_TRANSPORTS,  # noqa: F401
                                           CommScheme,
                                           ExchangeConfig, ExchangeMode,
                                           MembershipSchedule,
-                                          StragglerProfile)
+                                          StragglerProfile,
+                                          dequantize_update,
+                                          quantize_update)
 from repro_torch.core.baselines import (MinibatchSCD,  # noqa: F401
                                         MinibatchSGD, SGDConfig,
                                         UniformRows)

@@ -77,6 +77,22 @@ EXCHANGE_GRAMMAR = ("<transport>[:<codec>] | "
 
 
 # ---------------------------------------------------------------------------
+# the reference's pre-codec quantizer API, over the int8 codec
+# ---------------------------------------------------------------------------
+def quantize_update(dv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Absmax int8 quantization of one worker's update vector
+    (``Int8Codec.encode``: kernel K2 on the card, its plain version on
+    the CPU). Returns ``(q, scale)``, ``q`` int8 in [-127, 127] and
+    ``scale`` a scalar f32, such that ``dequantize_update(q, scale)``
+    is about ``dv``."""
+    return get_codec("int8").encode(dv)
+
+
+def dequantize_update(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
 # communication schemes
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)

@@ -48,6 +48,15 @@ def primal_objective(problem: GLMProblem, A: torch.Tensor, b: torch.Tensor,
     return problem.loss(r) + problem.regularizer(alpha)
 
 
+def primal_from_state(problem: GLMProblem, w: torch.Tensor,
+                      reg_sum: torch.Tensor) -> torch.Tensor:
+    """The objective from the shared residual ``w = A alpha - b`` and the
+    regularizer's value (summed over the workers): what the master can
+    evaluate without gathering alpha (the persistent-local-memory
+    scheme)."""
+    return problem.loss(w) + reg_sum
+
+
 def ridge_exact(A: torch.Tensor, b: torch.Tensor, lam: float) -> torch.Tensor:
     """Closed-form ridge solution (eta=1), float64, on ``A``'s device.
 

@@ -4,7 +4,9 @@
 # select is K4 (topk.py). Each is CUDA C++ under csrc/, built at first use
 # by _build.py, with its plain PyTorch version beside it; ref.py gathers
 # the plain versions.
-from repro_torch.kernels.dequant import (decode_reduce_int2,  # noqa: F401
+from repro_torch.kernels.dequant import (decode_mean_int2,  # noqa: F401
+                                         decode_mean_int4, decode_mean_int8,
+                                         decode_reduce_int2,
                                          decode_reduce_int4,
                                          decode_reduce_int8)
 from repro_torch.kernels.ops import scd_steps_kernel  # noqa: F401

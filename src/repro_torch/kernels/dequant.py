@@ -28,7 +28,9 @@ The plain versions ``decode_reduce_int{8,4,2}_ref`` replay the same op
 sequence in eager PyTorch, one op at a time, so nothing can fuse the
 multiply into the add. Each wrapper takes the plain version for CPU
 tensors and launches its kernel for CUDA tensors; its ``.launches``
-counts the kernel launches.
+counts the kernel launches. ``decode_mean_int{8,4,2}`` are the
+reference's entries for ``decode_reduce_int*(..., mean=True)``
+(``src/repro/kernels/dequant.py:181-193``).
 """
 from __future__ import annotations
 
@@ -157,3 +159,22 @@ def decode_reduce_int2(packed: torch.Tensor, scales: torch.Tensor,
 decode_reduce_int8.launches = 0
 decode_reduce_int4.launches = 0
 decode_reduce_int2.launches = 0
+
+
+def decode_mean_int8(q: torch.Tensor, scales: torch.Tensor, length: int
+                     ) -> torch.Tensor:
+    """``decode_reduce_int8(..., mean=True)``: the reference's bench-cell
+    entry."""
+    return decode_reduce_int8(q, scales, length, mean=True)
+
+
+def decode_mean_int4(packed: torch.Tensor, scales: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """``decode_reduce_int4(..., mean=True)``."""
+    return decode_reduce_int4(packed, scales, length, mean=True)
+
+
+def decode_mean_int2(packed: torch.Tensor, scales: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """``decode_reduce_int2(..., mean=True)``."""
+    return decode_reduce_int2(packed, scales, length, mean=True)

@@ -24,6 +24,19 @@ def batch_to(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def loss_and_grads(model, params, batch, *, remat: bool = False):
+    """What a train step differentiates: the loss, its metrics
+    (``lm_loss``'s: CE, z-loss, the aux and MTP terms) and the gradient
+    of every leaf of ``params`` in leaf order, all detached."""
+    live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = lm_loss(model, tree_unflatten(params, live), batch,
+                                remat=remat)
+        grads = torch.autograd.grad(loss, live)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, list(grads)
+
+
 def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
                     grad_sync_axis=None, schedule: Callable | None = None,
                     microbatch: int | None = None):
@@ -44,15 +57,6 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
     """
     fabric = data_fabric(grad_sync_axis)
 
-    def grads_of(params, batch):
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss, metrics = lm_loss(model, tree_unflatten(params, live),
-                                    batch, remat=remat)
-            grads = torch.autograd.grad(loss, live)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, list(grads)
-
     def step(params, opt_state, batch):
         if microbatch and microbatch > 1:
             mbs = [{k: v.reshape(microbatch, v.shape[0] // microbatch,
@@ -63,7 +67,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
                      for p in tree_leaves(params)]
             ms = []
             for b in mbs:
-                loss, metrics, g = grads_of(params, b)
+                loss, metrics, g = loss_and_grads(model, params, b,
+                                                 remat=remat)
                 g_acc = [a + gg.to(a.dtype)
                          / torch.full_like(a, float(microbatch))
                          for a, gg in zip(g_acc, g)]
@@ -73,7 +78,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
                                      dim=0) for k in ms[0]}
             grads = g_acc
         else:
-            _, metrics, grads = grads_of(params, batch)
+            _, metrics, grads = loss_and_grads(model, params, batch,
+                                              remat=remat)
         if fabric is not None:
             grads = [pmean(g, fabric) for g in grads]
         grads = tree_unflatten(params, grads)

@@ -1514,3 +1514,116 @@ def test_mla_decode_step_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_allclose(got, want, rtol=1e-4,
                                atol=1e-5 * np.abs(want).max())
     assert all(torch.equal(a, b) for a, b in zip(got_pos, want_pos))
+
+
+# -- training every family (phase 10's rows, at .reduced()) -----------------
+
+TRAIN_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b", "chatglm3-6b",
+               "whisper-tiny", "qwen2-vl-72b", "llama4-maverick-400b-a17b",
+               "deepseek-v3-671b")
+
+
+def _train_inputs(arch, B=2, S=64):
+    """``arch`` at ``.reduced()``: its model, f32 params (seed 0) and one
+    batch on the CPU, whisper's frames and qwen2-vl's 16 patch
+    embeddings on a (t = 0, h, w) grid included (seed 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    m = build_model(cfg)
+    params = m.init(torch.Generator().manual_seed(0), torch.float32)
+    batch = {n: torch.tensor(v) for n, v in TokenStream(
+        cfg.vocab_size, S, B, seed=0).next_batch().items()}
+    rng = np.random.default_rng(1)
+    if cfg.family == "audio":
+        batch["frame_embeds"] = torch.tensor(rng.standard_normal(
+            (B, cfg.encdec.source_len, cfg.d_model)) * 0.02,
+            dtype=torch.float32)
+    elif cfg.family == "vlm":
+        h, w = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+        grid = np.stack([np.zeros_like(h), h, w], -1).reshape(1, -1, 3)
+        batch["patch_embeds"] = torch.tensor(rng.standard_normal(
+            (B, 16, cfg.d_model)) * 0.02, dtype=torch.float32)
+        batch["patch_positions"] = torch.tensor(np.repeat(grid, B, 0),
+                                                dtype=torch.int32)
+    return cfg, m, params, batch
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One train step's loss and gradients (``loss_and_grads``, what
+    ``make_train_step`` differentiates) in f32 on the same params and
+    batch: the loss, CE, aux and MTP terms at rtol 1e-5, every gradient
+    leaf within 1e-4 of its largest |CPU| value (floored at 1e-4: a key
+    bias's gradient is 0 in exact arithmetic)."""
+    from repro_torch.train import loss_and_grads
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_flatten_with_path, tree_map
+    full_f32_matmul()
+    cfg, m, params, batch = _train_inputs(arch)
+    l_c, m_c, g_c = loss_and_grads(m, params, batch)
+    l_d, m_d, g_d = loss_and_grads(m, tree_map(lambda t: t.to(cuda), params),
+                                   {n: v.to(cuda) for n, v in batch.items()})
+    terms = ("loss", "ce", "aux_loss") + (
+        ("mtp_loss",) if cfg.mtp_depth else ())
+    for n in terms:
+        np.testing.assert_allclose(float(m_d[n]), float(m_c[n]), rtol=1e-5,
+                                   err_msg=n)
+    for (key, _), a, b in zip(tree_flatten_with_path(params), g_d, g_c):
+        scale = max(float(b.abs().max()), 1e-4)
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale, key
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_bf16_gradients_repeat_on_the_card(cuda, arch):
+    """The same bf16 step twice on the card: the loss and every gradient
+    leaf bit for bit (the MoE gathers' and the embedding's backward sum
+    their repeated rows in a fixed order)."""
+    from repro_torch.train import loss_and_grads
+    from repro_torch.utils.trees import tree_map
+    _, m, params, batch = _train_inputs(arch)
+    p16 = tree_map(lambda t: t.to(cuda, torch.bfloat16), params)
+    b16 = {n: v.to(cuda, torch.bfloat16) if v.is_floating_point()
+           else v.to(cuda) for n, v in batch.items()}
+    (l1, _, g1), (l2, _, g2) = (loss_and_grads(m, p16, b16, remat=True)
+                                for _ in range(2))
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int2"])
+@pytest.mark.parametrize("K,L", [(4, 1001), (8, 16384)])
+def test_decode_mean_on_the_card_equals_the_plain_version(cuda, name, K, L):
+    """``decode_mean_int*`` launch K3 once and give its plain version's
+    mean bit for bit."""
+    fn = getattr(dequant, f"decode_mean_{name}")
+    g = torch.Generator(device=cuda).manual_seed(K + L)
+    x = torch.randn((K, L), generator=g, device=cuda)
+    q, s = get_codec(name).encode_ref(x)
+    kernel = getattr(dequant, f"decode_reduce_{name}")
+    before = kernel.launches
+    got = fn(q, s, L)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 1
+    want = getattr(dequant, f"decode_reduce_{name}_ref")(q, s, L, mean=True)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "mamba2-2.7b",
+                                  "recurrentgemma-9b", "qwen2-vl-72b"])
+def test_launch_train_reduced_runs_every_token_family_on_the_card(
+        cuda, capsys, arch):
+    """``python -m repro_torch.launch.train --arch <arch> --reduced``
+    (moe, ssm, hybrid, and vlm as text: the launcher's batch holds tokens
+    only, as the reference's) with local rounds under
+    ``compressed:int8``, on the card by default; the loss printed
+    finite."""
+    from repro_torch.launch import train
+    train.main(["--arch", arch, "--reduced", "--steps", "4", "--batch", "2",
+                "--seq", "64", "--local-H", "2", "--exchange",
+                "compressed:int8"])
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if line.startswith("round ")]
+    assert len(losses) == 2 and all(np.isfinite(losses)), out

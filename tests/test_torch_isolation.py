@@ -57,6 +57,11 @@ def test_every_module_imports_without_jax_or_repro():
             "import importlib\n"
             f"for name in {mods!r}:\n"
             "    importlib.import_module(name)\n"
+            "from repro_torch.core import (dequantize_update,\n"
+            "                              primal_from_state, quantize_update)\n"
+            "from repro_torch.kernels import (decode_mean_int2,\n"
+            "                                 decode_mean_int4, decode_mean_int8)\n"
+            "from repro_torch.train import loss_and_grads\n"
             "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
             "sys.modules.items() if v is not None)\n")
     env = dict(os.environ, PYTHONPATH=SRC)

@@ -109,6 +109,9 @@ DIST_CODECS = ("f32", "int8", "int2", "ef:int4", "topk(r=0.125)",
                "ef:topk(r=0.125)")
 LOSSY = DIST_CODECS[1:]
 K2_CODECS = ("f32", "int8")
+# the MoE arch of one more round (int8): the loss and its terms a step
+MOE_ARCH = "deepseek-v3-671b"
+TERMS = ("loss", "aux_loss", "mtp_loss")
 WIRE = {"f32": set(), "int8": {"int8"}, "int2": {"uint8"},
         "ef:int4": {"uint8"}, "topk(r=0.125)": set(),
         "ef:topk(r=0.125)": set()}
@@ -222,6 +225,24 @@ pS, oS = jax.jit(shard_map(dp, mesh, in_specs=(P(), P(), P("data")),
 put(pS, "grad_sync/params")
 put(oS["mu"], "grad_sync/mu")
 put(oS["nu"], "grad_sync/nu")
+
+# deepseek-v3 at .reduced() (MoE, MLA, the MTP head): one int8 round on
+# the same batches, its loss, aux and MTP terms a step
+dmodel = build_model(get_config({MOE_ARCH!r}).reduced())
+dparams = jax.jit(lambda k: dmodel.init(k, jnp.float32))(jax.random.key(0))
+dstep = make_train_step(dmodel, opt_cfg)
+dlc = LocalUpdatesConfig(H=H, codec="int8")
+def drun(p, o, b):
+    pH, oH, m = local_updates_round(
+        dstep, p, o, jax.tree.map(lambda x: x[0], b), dlc, "data")
+    return pH, oH, jnp.stack([m[n] for n in {list(TERMS)!r}])[None]
+f = shard_map(drun, mesh, in_specs=(P(), P(), P("data")),
+              out_specs=(P(), P(), P("data")))
+pH, oH, terms = jax.jit(f)(dparams, adamw_init(dparams, opt_cfg), batches)
+put(pH, "deepseek/params")
+put(oH["mu"], "deepseek/mu")
+put(oH["nu"], "deepseek/nu")
+out["deepseek/terms"] = np.asarray(terms)
 np.savez(sys.argv[1], **out)
 print("OK")
 """
@@ -465,6 +486,26 @@ def test_microbatched_step_matches_reference(reduced):
                                    atol=5e-7)
 
 
+def _hold_round(out, sharded, pre, atol, opt_atol=1e-6):
+    """``virtual_round``'s params and opt state against the reference's
+    round under ``pre``: params within ``atol`` (elements past 2e-7
+    under 0.5% of a leaf), mu and nu at rtol 1e-4 (atol ``opt_atol`` of
+    the leaf's largest), the step count H."""
+    ref_p = _leaves(sharded, pre + "/params")
+    assert len(ref_p) == len(tree_leaves(out[0]))
+    for (key, a), b in zip(tree_flatten_with_path(out[0]), ref_p):
+        a = a.numpy()
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=key)
+        assert np.mean(np.abs(a - b) > 2e-7) < 5e-3, key
+    for name in ("mu", "nu"):
+        for (key, a), b in zip(tree_flatten_with_path(out[1][name]),
+                               _leaves(sharded, f"{pre}/{name}")):
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                       atol=opt_atol * np.abs(b).max(),
+                                       err_msg=f"{name} {key}")
+    assert int(out[1]["count"]) == H
+
+
 @pytest.mark.parametrize("codec", list(ROUND_CODECS))
 def test_virtual_round_matches_the_sharded_reference(reduced, sharded,
                                                      codec):
@@ -481,17 +522,7 @@ def test_virtual_round_matches_the_sharded_reference(reduced, sharded,
                                sharded[codec + "/loss"], rtol=1e-5)
     assert out[2]["wire_bytes"] == delta_wire_bytes(params, cfg, K)
     atol = ROUND_CODECS[codec]
-    ref_p = _leaves(sharded, codec + "/params")
-    for (key, a), b in zip(tree_flatten_with_path(out[0]), ref_p):
-        a = a.numpy()
-        np.testing.assert_allclose(a, b, rtol=0, atol=atol, err_msg=key)
-        assert np.mean(np.abs(a - b) > 2e-7) < 5e-3, key
-    for name in ("mu", "nu"):
-        for a, b in zip(tree_leaves(out[1][name]),
-                        _leaves(sharded, f"{codec}/{name}")):
-            np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
-                                       atol=1e-6 * np.abs(b).max())
-    assert int(out[1]["count"]) == H
+    _hold_round(out, sharded, codec, atol)
     if state is not None:
         for a, b in zip(tree_leaves(out[3]),
                         _leaves(sharded, codec + "/state")):
@@ -499,6 +530,34 @@ def test_virtual_round_matches_the_sharded_reference(reduced, sharded,
             # code step, K times its share of the mean
             np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=K * atol)
             assert np.mean(np.abs(a.numpy() - b) > 2e-7) < 5e-3
+
+
+def test_moe_round_matches_the_sharded_reference(sharded):
+    """deepseek-v3 at ``.reduced()`` in f32 (the router, the capacity
+    dispatch, MLA and the MTP head), one K = 4 ``int8`` round (H = 2)
+    against the reference's ``shard_map`` round on the same params and
+    batches: the loss and its aux and MTP terms a step, the wire bytes,
+    params at the ``int8`` tolerance above, the opt state at the MoE
+    family's gradient tolerance."""
+    rm = ref_build_model(ref_get_config(MOE_ARCH).reduced())
+    ref = jax.device_get(jax.jit(lambda k: rm.init(k, jnp.float32))(
+        jax.random.key(0)))
+    cfg = get_config(MOE_ARCH).reduced()
+    params = params_from_reference(ref, cfg, device="cpu")
+    lc = LocalUpdatesConfig(H=H, codec="int8")
+    step = make_train_step(build_model(cfg), AdamWConfig(lr=1e-3))
+    out = virtual_round(step, params, adamw_init(params, AdamWConfig(
+        lr=1e-3)), _batches(), lc)
+    terms = np.stack([out[2][n].numpy() for n in TERMS], 1)
+    assert terms.shape == (K, len(TERMS), H)
+    np.testing.assert_allclose(terms, sharded["deepseek/terms"], rtol=1e-5)
+    assert (terms[:, 1:] > 0).all()
+    assert out[2]["wire_bytes"] == delta_wire_bytes(params, lc, K)
+    # the opt state at the MoE family's gradient tolerance, atol 1e-5 of a
+    # leaf's largest (tests/test_torch_moe_mla.py): a mu element that sums
+    # two steps' grads to ~5e-10 keeps their f32 rounding, ~3e-11
+    _hold_round(out, sharded, "deepseek", ROUND_CODECS["int8"],
+                opt_atol=1e-5)
 
 
 @pytest.mark.parametrize("codec", EXACT + ULP_CAVEAT)
