@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--m 16384] [--n 32768] [--density 0.15]
                           [--K 8] [--rounds 100] [--eps 1e-3] [--seed 42]
                           [--long-m 350000] [--long-n 1024]
-                          [--long-rounds 30]
+                          [--long-rounds 30] [--only-mesh]
 
 Phases, each ending in ``torch.cuda.synchronize()`` and printing one
 JSON line:
@@ -306,7 +306,26 @@ JSON line:
      params must agree;
   13. ``python -m repro_torch.analysis --cells all --inject wire-f32`` on
      4 gloo ranks on ``cuda:0``: every reference cell free of error
-     findings, the injected cell tripping wire-dtype and bytes-match.
+     findings, the injected cell tripping wire-dtype and bytes-match;
+  14. the partitioned paths (``repro_torch.launch.build`` on DTensors):
+     (a) on a (1, 1) ``("data", "model")`` mesh over a 1-rank NCCL
+     group, tinyllama-1.1b at full width: one ``lower_train`` step and
+     one ``lower_train_local_updates`` round (``int8``, K2 and K3
+     launched) bit for bit against the unpartitioned step and round
+     (the round also against phase 12a's hash), then a
+     ``lower_prefill`` and 8 greedy steps through ``lower_decode``,
+     ids and logits bit for bit against ``greedy_generate``'s; each
+     step's ms and kernels both ways; (b) llama4-maverick at 2 of 48
+     layers on the same mesh: its MoE block on DTensors takes
+     ``_moe_sharded`` (the path counter) and equals ``moe_apply`` bit
+     for bit, and so does the prefill; (c) 4 gloo ranks on ``cuda:0`` as
+     a (2, 2) mesh, one deepseek-v3 MoE layer at d_model 7168, top 8,
+     d_expert 2048, 16 of 256 experts, f32, no drops: each rank's rows
+     within 1e-5 of the largest of the single-process ``moe_apply``'s,
+     the logged all-to-all bytes equal to 2 E C_loc d 4 (tp - 1) / tp;
+     (d) the dry-run and roofline of six pairs on a fake 16 x 16 group
+     (``--mesh-dry-run``, a child on the host started before phase 12).
+     ``--only-mesh`` builds the kernels and runs phase 14 alone.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -575,6 +594,28 @@ LU_GLOO_PATHS = ("f32", "int8", "ef:topk(r=0.01)")
 LU_ROUNDS, LU_K, LU_GRAD_SYNC_STEPS = 2, 4, 2
 LU_GLOO_BYTES, LU_CONTEXT_BYTES = 64e9, 1e9
 LU_PROBE_LAYERS = (2, 4)
+# the partitioned paths (14): a (1, 1) ("data", "model") mesh over a
+# 1-rank NCCL group, the steps built by repro_torch.launch.build on
+# DTensors and held bit for bit against the unpartitioned ones. 14a:
+# phase 10's tinyllama (22 layers, its batches, lr and schedule): one
+# lower_train step, one lower_train_local_updates round (int8, H = LM_H)
+# and MESH_DECODE[2] greedy decode steps through lower_decode after a
+# lower_prefill of MESH_DECODE[1] tokens a row. 14b: MESH_MOE's arch at
+# phase 11's widths and its layers, the prefill through _moe_sharded. 14c:
+# LU_K gloo ranks on the card as a (2, 2) mesh, one MoE layer of
+# MESH_GLOO's arch at its published widths, its experts cut to fit, in
+# f32 without drops (capacity_factor = num_experts). 14d: the dry-run
+# and roofline (launch.dryrun, launch.roofline) of MESH_DRY on a fake
+# 16 x 16 group on the card's host
+MESH_DECODE = (8, 512, 8)          # rows, prompt, decode steps
+MESH_MOE = ("llama4-maverick-400b-a17b", 2, 8, 512)  # arch, layers, B, S
+MESH_GLOO = dict(arch="deepseek-v3-671b", experts=16, batch=4, seq=64)
+MESH_GLOO_RTOL = 1e-5
+MESH_DRY = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "decode_32k"),
+            ("deepseek-v3-671b", "train_4k"),
+            ("deepseek-v3-671b", "decode_32k"),
+            ("mamba2-2.7b", "prefill_32k"), ("whisper-tiny", "decode_32k"))
+CARD_BYTES = 80e9
 # device_trace's guard on each side of the traced window: marker
 # kernels (``torch.cuda._sleep``, named "spin_kernel"), left out of every
 # sum. A profiler session in a process that has traced before loses its
@@ -2295,16 +2336,24 @@ def tree_sha256(torch, tree) -> str:
     return h.hexdigest()
 
 
+def lu_schedule():
+    """Phase 10's lr schedule: cosine, warmed up over one round's H
+    steps of ``LU_ROUNDS``."""
+    import functools
+
+    from repro_torch.optim import cosine_schedule
+    return functools.partial(cosine_schedule, warmup=LM_H,
+                             total=LU_ROUNDS * LM_H)
+
+
 def lu_model(torch, layers, device):
     """Phase 10's model and step at ``layers`` layers (None: all 22):
     (cfg, model, params (bf16, seed 0), the AdamW config, a step factory
     taking ``grad_sync_axis``: remat, lr ``LM_LR`` warmed up over one
     round's H steps of ``LU_ROUNDS``)."""
-    import functools
-
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
 
     cfg = get_config(LM_ARCH)
@@ -2313,8 +2362,7 @@ def lu_model(torch, layers, device):
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
     opt_cfg = AdamWConfig(lr=LM_LR)
-    schedule = functools.partial(cosine_schedule, warmup=LM_H,
-                                 total=LU_ROUNDS * LM_H)
+    schedule = lu_schedule()
 
     def step_of(grad_sync_axis=None):
         return make_train_step(model, opt_cfg, remat=True, schedule=schedule,
@@ -2663,7 +2711,8 @@ def lu_nccl_phase(torch, counters, work, device="cuda") -> dict:
                                  f"(see its lu_nccl_path line)")
             out[codec_name] = dict(launches=launches, timing=timing,
                                    median_round_ms=float(np.median(
-                                       [r["round_ms"] for r in rounds])))
+                                       [r["round_ms"] for r in rounds])),
+                                   hashes=hashes)
     finally:
         tdist.destroy_process_group()
     del params, step
@@ -2960,6 +3009,481 @@ def analysis_phase(torch, work) -> None:
                          + printed.getvalue()[-4000:])
 
 
+def kernel_launches(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def reset_launches(counters) -> None:
+    for fn in counters:
+        fn.launches = 0
+
+
+def step_cost(torch, fn) -> dict:
+    """One call of ``fn``: its milliseconds (CUDA events, after a warm
+    call) and the kernels it launched (a profiler trace)."""
+    fn()
+    ms = time_ms(torch, fn, reps=2, warmup=0)
+    trace = device_trace(torch, fn)
+    kernels = sum(v["calls"] for v in trace.get("kernels", {}).values())
+    return dict(ms=ms, kernels=kernels,
+                device_busy_ms=trace.get("device_busy_ms", "not measured"))
+
+
+def mesh_train_decode_phase(torch, counters, work, lu_hashes=None,
+                            device="cuda") -> dict:
+    """14a: tinyllama on a (1, 1) mesh over a 1-rank NCCL group; returns
+    the kernels' launches in the local-updates round."""
+    import torch.distributed as tdist
+
+    from repro_torch.comm.collectives import Fabric
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import build
+    from repro_torch.launch.dist import init_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import (LocalUpdatesConfig, adamw_init,
+                                   local_updates_round)
+    from repro_torch.serve.decode import greedy_generate, make_serve_step
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_map
+
+    full_f32_matmul()
+    free(torch)
+    t0 = time.perf_counter()
+    cfg, model, params, opt_cfg, step_of = lu_model(torch, None, device)
+    step, sched = step_of(), lu_schedule()
+    rnd = {k: v[0] for k, v in lu_batches(torch, cfg, 1, device)[0].items()}
+    batch = {k: v[0] for k, v in rnd.items()}
+    opt0 = adamw_init(params, opt_cfg)
+    init_group("nccl", "file://" + os.path.join(work, "mesh_nccl"), 1, 0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+
+        def whole(tree):
+            return tree_map(lambda t: t.full_tensor()
+                            if hasattr(t, "full_tensor") else t, tree)
+        # one train step both ways
+        p1, _, m1 = step(params, opt0, batch)
+        shape = ShapeConfig("mesh_train", LM_SEQ, LM_BATCH, "train")
+        built = build.lower_train(cfg, shape, mesh, opt_cfg=opt_cfg,
+                                  schedule=sched, values=(params, opt0, batch))
+        p2, _, m2 = built.run()
+        train = dict(
+            loss=float(m1["loss"]), loss_equal=bits_equal(
+                torch, m1["loss"], m2["loss"].full_tensor()),
+            params_equal=tree_sha256(torch, p1) == tree_sha256(
+                torch, whole(p2)),
+            plain=step_cost(torch, lambda: step(params, opt0, batch)),
+            partitioned=step_cost(torch, built.run), notes=built.notes)
+        del p1, p2, m1, m2
+        free(torch)
+        # one local-updates round both ways, int8: K2 and K3 launch
+        lc = LocalUpdatesConfig(H=LM_H, codec="int8")
+        reset_launches(counters)
+        pu, _, mu = local_updates_round(step, params, opt0, rnd, lc, Fabric())
+        plain_l = kernel_launches(counters)
+        h_plain = tree_sha256(torch, pu)
+        del pu
+        free(torch)
+        reset_launches(counters)
+        lu = build.lower_train_local_updates(
+            cfg, shape, mesh, H=LM_H, codec="int8", opt_cfg=opt_cfg,
+            schedule=sched, values=(params, opt0, rnd))
+        pl, _, ml = lu.run()
+        mesh_l = kernel_launches(counters)
+        h_mesh = tree_sha256(torch, whole(pl))
+        del pl
+        free(torch)
+        local = dict(
+            params_equal=h_plain == h_mesh, launches=mesh_l,
+            launches_equal=mesh_l == plain_l,
+            k2_k3_launched=(mesh_l.get("quantize_pack_int8", 0) > 0
+                            and mesh_l.get("decode_reduce_int8", 0) > 0),
+            loss_equal=bits_equal(torch, mu["loss"][-1],
+                                  ml["loss"].full_tensor()
+                                  if hasattr(ml["loss"], "full_tensor")
+                                  else ml["loss"]),
+            same_as_phase_12=(None if not lu_hashes
+                              else lu_hashes[0] == h_mesh),
+            wire_bytes=ml["wire_bytes"])
+        # greedy decode: a prefill, then MESH_DECODE[2] steps, both ways
+        B, S, n = MESH_DECODE
+        gen = torch.Generator(device=device).manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=device, dtype=torch.int32)
+        ids_ref = greedy_generate(model, params, prompt, max_new=n + 1)
+        serve = make_serve_step(model)
+        with torch.inference_mode():
+            st = model.init_states(params, B, S + n + 1)
+            lg, st = model.prefill(params, {"tokens": prompt}, st)
+            plain_logits, tok, t_plain = [lg[:, -1]], None, 0.0
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            plain_ids = [tok]
+            for t in range(S, S + n):
+                pos = torch.full((B, 1), t, dtype=torch.int32, device=device)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                lg, st = serve(params, st, tok, pos)
+                torch.cuda.synchronize()
+                t_plain += time.perf_counter() - t1
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                plain_logits.append(lg[:, -1])
+                plain_ids.append(tok)
+            del st
+            st = model.init_states(params, B, S + n + 1)
+            pre = build.lower_prefill(
+                cfg, ShapeConfig("mesh_prefill", S, B, "prefill"), mesh,
+                values=(params, {"tokens": prompt}, st),
+                last_logits_only=False)
+            lg, dst = pre.run()
+            dec = build.lower_decode(
+                cfg, ShapeConfig("mesh_decode", S + n + 1, B, "decode"),
+                mesh, values=(params, dst, prompt[:, :1], prompt[:, :1]))
+            lg = lg.full_tensor()
+            mesh_logits = [lg[:, -1]]
+            tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            mesh_ids, t_mesh = [tok], 0.0
+            dparams, dst = dec.args[0], dec.args[1]
+            from repro_torch.launch import sharding as sh
+            for t in range(S, S + n):
+                pos = torch.full((B, 1), t, dtype=torch.int32, device=device)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with build.partitioning(mesh):
+                    lg, dst = dec.step(dparams, dst,
+                                       sh.distribute(tok, dec.specs[2], mesh),
+                                       sh.distribute(pos, dec.specs[3], mesh))
+                torch.cuda.synchronize()
+                t_mesh += time.perf_counter() - t1
+                lg = lg.full_tensor()
+                tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                mesh_logits.append(lg[:, -1])
+                mesh_ids.append(tok)
+        decode = dict(
+            rows=B, prompt=S, steps=n,
+            ids_equal_greedy_generate=bool(torch.equal(
+                torch.cat(mesh_ids, 1), ids_ref)) and bool(torch.equal(
+                    torch.cat(plain_ids, 1), ids_ref)),
+            logits_equal=all(bits_equal(torch, a, b) for a, b in
+                             zip(plain_logits, mesh_logits)),
+            step_ms=dict(plain=t_plain / n * 1e3,
+                         partitioned=t_mesh / n * 1e3))
+        checks = dict(train_loss=train["loss_equal"],
+                      train_params=train["params_equal"],
+                      lu_params=local["params_equal"],
+                      lu_loss=local["loss_equal"],
+                      lu_kernels=local["k2_k3_launched"],
+                      lu_launches=local["launches_equal"],
+                      lu_phase_12=local["same_as_phase_12"] is not False,
+                      decode_ids=decode["ids_equal_greedy_generate"],
+                      decode_logits=decode["logits_equal"])
+        phase_done(torch, "mesh_1x1", t0, arch=cfg.name,
+                   layers=cfg.num_layers, mesh="(1, 1) data x model, nccl",
+                   batch=LM_BATCH, seq=LM_SEQ, H=LM_H, train=train,
+                   local_updates=local, decode=decode, checks=checks)
+        if not all(checks.values()):
+            raise SystemExit(f"chip_smoke: the partitioned paths on the (1, "
+                             f"1) mesh differ from the unpartitioned ones "
+                             f"{checks} (see the mesh_1x1 line)")
+    finally:
+        tdist.destroy_process_group()
+    del params, opt0
+    free(torch)
+    return mesh_l
+
+
+def mesh_moe_phase(torch, work, device="cuda") -> None:
+    """14b: MESH_MOE's arch at phase 11's widths on a (1, 1) mesh: its
+    first MoE block on DTensors takes _moe_sharded (the counter shows
+    it) and equals moe_apply bit for bit, and so does the prefill."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import build
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.dist import init_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _period, layer_plan
+    from repro_torch.utils.device import full_f32_matmul
+    from repro_torch.utils.trees import tree_map
+
+    full_f32_matmul()
+    free(torch)
+    t0 = time.perf_counter()
+    arch, layers, B, S = MESH_MOE
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    plan = layer_plan(cfg)
+    # the first MoE layer's channel block (the prologue's are dense)
+    k = next(i for i, (_, ch) in enumerate(plan) if ch == "moe")
+    c, slot = divmod(k - cfg.moe.first_k_dense, _period(cfg))
+    moe_p = tree_map(lambda a: a[c], params["stack"][slot]["channel"])
+    gen = torch.Generator(device=device).manual_seed(11)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=device, dtype=torch.int32)
+    init_group("nccl", "file://" + os.path.join(work, "mesh_moe"), 1, 0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        with torch.inference_mode():
+            y_plain, aux_plain = L.moe_apply(moe_p, cfg, x)
+            before = dict(L.MOE_PATHS)
+            specs = sh.param_specs({"channel": moe_p}, mesh,
+                                   fsdp=True)["channel"]
+            dmoe = sh.distribute(moe_p, specs, mesh)
+            with build.partitioning(mesh):
+                y_mesh, aux_mesh = L.moe_apply(
+                    dmoe, cfg, sh.distribute(x, ("data", None, None), mesh))
+            block_paths = {n: L.MOE_PATHS[n] - before[n] for n in before}
+            block_equal = bits_equal(torch, y_plain, y_mesh.full_tensor())
+            aux_equal = bits_equal(torch, aux_plain, aux_mesh.full_tensor())
+            del y_plain, y_mesh
+            st = model.init_states(params, B, S)
+            lg_plain, _ = model.prefill(params, {"tokens": prompt}, st,
+                                        last_logits_only=True)
+            del st
+            before = dict(L.MOE_PATHS)
+            pre = build.lower_prefill(
+                cfg, ShapeConfig("mesh_moe_prefill", S, B, "prefill"), mesh,
+                values=(params, {"tokens": prompt},
+                        model.init_states(params, B, S)))
+            lg_mesh, _ = pre.run()
+            prefill_paths = {n: L.MOE_PATHS[n] - before[n] for n in before}
+            prefill_equal = bits_equal(torch, lg_plain, lg_mesh.full_tensor())
+        n_moe = sum(ch == "moe" for _, ch in plan)
+        checks = dict(block_sharded=block_paths == {"global": 0, "sharded": 1},
+                      block_equal=block_equal, aux_equal=aux_equal,
+                      prefill_sharded=prefill_paths == {
+                          "global": 0, "sharded": n_moe},
+                      prefill_equal=prefill_equal)
+        phase_done(torch, "mesh_moe_1x1", t0, arch=arch, layers=layers,
+                   of_layers=full.num_layers, batch=B, prompt=S,
+                   moe_layers=n_moe, block_paths=block_paths,
+                   prefill_paths=prefill_paths, checks=checks,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        if not all(checks.values()):
+            raise SystemExit(f"chip_smoke: the expert-parallel MoE on the "
+                             f"(1, 1) mesh differs from moe_apply {checks} "
+                             f"(see the mesh_moe_1x1 line)")
+    finally:
+        tdist.destroy_process_group()
+    del params, moe_p
+    free(torch)
+
+
+def mesh_gloo_cfg():
+    from repro_torch.configs import get_config
+    full = get_config(MESH_GLOO["arch"])
+    E = MESH_GLOO["experts"]
+    moe = dataclasses.replace(full.moe, num_experts=E, capacity_factor=E)
+    return full, dataclasses.replace(full, moe=moe)
+
+
+def mesh_gloo_rank(rank: int, world: int, device, job: dict) -> dict:
+    """One rank of 14c: the MoE layer on its (2, 2) mesh coordinate."""
+    import torch
+
+    from repro_torch.comm.collectives import recording
+    from repro_torch.launch import build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    _, cfg = mesh_gloo_cfg()
+    p = L.init_moe(torch.Generator(device=device).manual_seed(0), cfg,
+                   dtype=torch.float32)
+    x = torch.randn((MESH_GLOO["batch"], MESH_GLOO["seq"], cfg.d_model),
+                    generator=torch.Generator(device=device).manual_seed(1),
+                    device=device) * 0.1
+    mesh = make_mesh((2, 2), ("data", "model"), "cuda")
+    before = dict(L.MOE_PATHS)
+    with recording() as log, build.partitioning(mesh), torch.no_grad():
+        y, aux = L.moe_apply(p, cfg, x)
+    torch.cuda.synchronize()
+    return dict(y=y.cpu(), aux=float(aux), coord=mesh.get_coordinate(),
+                paths={n: L.MOE_PATHS[n] - before[n] for n in before},
+                log=[(c.op, c.nbytes, c.staged, c.K) for c in log],
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def mesh_gloo_phase(torch, work, device="cuda") -> None:
+    """14c: 4 gloo ranks on the card as a (2, 2) mesh against the
+    single-process moe_apply."""
+    from repro_torch.analysis.traffic import all_to_all_bytes
+    from repro_torch.comm.collectives import LoggedCall
+    from repro_torch.launch.dist import spawn
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import _capacity
+
+    free(torch)
+    t0 = time.perf_counter()
+    full, cfg = mesh_gloo_cfg()
+    res = spawn(LU_K, mesh_gloo_rank, backend="gloo", device=device,
+                init_file=os.path.join(work, "mesh_gloo"), args=({},),
+                timeout_s=600)
+    p = L.init_moe(torch.Generator(device=device).manual_seed(0), cfg,
+                   dtype=torch.float32)
+    B, S = MESH_GLOO["batch"], MESH_GLOO["seq"]
+    x = torch.randn((B, S, cfg.d_model),
+                    generator=torch.Generator(device=device).manual_seed(1),
+                    device=device) * 0.1
+    with torch.no_grad():
+        y_ref, _ = L.moe_apply(p, cfg, x)
+    y_ref = y_ref.cpu()
+    rows = B // 2
+    tp = 2
+    C_loc = _capacity(cfg.moe, rows * S, False)
+    true_a2a = 2 * cfg.moe.num_experts * C_loc * cfg.d_model * 4 * (tp - 1) \
+        // tp
+    per_rank, ok = [], True
+    for r in res:
+        d = r["coord"][0]
+        want = y_ref[d * rows:(d + 1) * rows]
+        err = float((r["y"] - want).abs().max())
+        a2a = [LoggedCall(op, "float32", n, st, None, None, K)
+               for op, n, st, K in r["log"] if op == "all_to_all"]
+        logged = all_to_all_bytes(a2a, tp)
+        rank_ok = (err <= MESH_GLOO_RTOL * float(want.abs().max())
+                   and r["paths"] == {"global": 0, "sharded": 1}
+                   and logged == true_a2a and len(a2a) == 2)
+        ok &= rank_ok
+        per_rank.append(dict(coord=r["coord"], max_abs_err=err,
+                             max_abs_ref=float(want.abs().max()),
+                             all_to_all_calls=len(a2a),
+                             all_to_all_logged_bytes=logged,
+                             calls=[c[:3] for c in r["log"]],
+                             max_memory_allocated=r["max_memory_allocated"],
+                             ok=rank_ok))
+    phase_done(torch, "mesh_gloo_moe", t0, arch=full.name, mesh="(2, 2) gloo "
+               "ranks on cuda:0", d_model=cfg.d_model, top_k=cfg.moe.top_k,
+               d_expert=cfg.moe.d_expert,
+               experts=dict(published=full.moe.num_experts,
+                            run=cfg.moe.num_experts),
+               capacity_factor=cfg.moe.capacity_factor, batch=B, seq=S,
+               C_loc=C_loc, true_all_to_all_bytes_a_rank=true_a2a,
+               rtol=MESH_GLOO_RTOL, ranks=per_rank, ok=ok)
+    if not ok:
+        raise SystemExit("chip_smoke: the 4-rank expert-parallel MoE "
+                         "differs from moe_apply or its all-to-all bytes "
+                         "from the form's (see the mesh_gloo_moe line)")
+    free(torch)
+
+
+def mesh_dry_rows() -> list:
+    """The dry-run and roofline of MESH_DRY on a fake 16 x 16 group, on
+    the host (no card): per pair, per-device bytes (the peak live ones
+    against the card's 80 GB) and the dominant term."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.launch import dryrun, roofline
+    torch.set_num_threads(1)
+    rows = []
+    try:
+        for arch, shape in MESH_DRY:
+            t1 = time.perf_counter()
+            rec = dryrun.run_pair(arch, shape, multi_pod=False, verbose=False)
+            roof = roofline.roofline_pair(arch, shape, dry=rec)
+            b = rec["per_device_bytes"]
+            rows.append(dict(
+                arch=arch, shape=shape, status=rec["status"],
+                depth=rec["depth"], notes=rec["notes"],
+                arguments=b["arguments"], outputs=b["outputs"],
+                aliased=b["aliased"], peak_live=b["peak_live"],
+                fits_80GB=b["peak_live"] < CARD_BYTES, flops=rec["flops"],
+                collective_bytes=rec["collective_operand_bytes"],
+                collectives=rec["collectives"], dominant=roof["dominant"],
+                dominant_fused=roof["dominant_fused"],
+                terms_s={k: roof[k] for k in ("compute_s", "memory_s",
+                                              "memory_products_s",
+                                              "collective_s")},
+                seconds=time.perf_counter() - t1))
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    return rows
+
+
+def pin_away_from(core: int) -> list:
+    """Move every thread of this process off ``core`` (the threads it
+    starts later, and the processes it spawns, inherit the mask), so that
+    a child pinned to ``core`` shares no core with what this process
+    times; returns the cores left to this process."""
+    rest = sorted(os.sched_getaffinity(0) - {core})
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), rest)
+        except ProcessLookupError:      # a thread that has ended
+            pass
+    return rest
+
+
+def start_mesh_dry(work: str):
+    """14d in a child process on the host while the card works: ``python
+    chip_smoke.py --mesh-dry-run <json>``, pinned to the last of this
+    process's cores, which this process and the ranks it spawns then
+    leave to it (one thread: the timed phases' host work keeps the other
+    cores); returns (the process, its JSON path, its log path)."""
+    import atexit
+    out = os.path.join(work, "mesh_dry.json")
+    log = os.path.join(work, "mesh_dry.log")
+    cores = sorted(os.sched_getaffinity(0))
+    core = cores[-1]
+    rest = pin_away_from(core) if len(cores) > 1 else cores
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--mesh-dry-run", out], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(stop_process, proc)
+    # before its interpreter has started a thread: they inherit the mask
+    os.sched_setaffinity(proc.pid, {core})
+    emit(phase="mesh_dry_start", child_core=core, main_cores=rest)
+    return proc, out, log
+
+
+def stop_process(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def mesh_dry_phase(torch, dry, timeout_s: float = 600) -> None:
+    """14d: wait for the child :func:`start_mesh_dry` started and emit its
+    rows."""
+    proc, out, log = dry
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    finally:
+        stop_process(proc)
+    rows = []
+    if rc == 0:
+        with open(out) as f:
+            rows = json.load(f)
+    ok = rc == 0 and bool(rows) and all(r["status"] == "ok" for r in rows)
+    emit(phase="mesh_dry_run", waited_seconds=time.perf_counter() - t0,
+         mesh="16x16", device="fake group of 256 on the host", pairs=rows,
+         ok=ok)
+    if not ok:
+        with open(log) as f:
+            tail = f.read()[-4000:]
+        raise SystemExit(f"chip_smoke: the dry-run child failed (rc {rc}):"
+                         f"\n{tail}")
+
+
+def mesh_phase(torch, counters, work, dry, lu_hashes=None) -> dict:
+    """Phase 14 (14a to 14d); returns 14a's local-updates launches."""
+    t14 = time.perf_counter()
+    mesh_l = mesh_train_decode_phase(torch, counters, work, lu_hashes)
+    mesh_moe_phase(torch, work)
+    mesh_gloo_phase(torch, work)
+    mesh_dry_phase(torch, dry)
+    emit(phase="mesh", seconds=time.perf_counter() - t14)
+    return mesh_l
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=16384)
@@ -2976,7 +3500,18 @@ def main(argv=None) -> int:
                     help="examples of the long-row path (webspam's)")
     ap.add_argument("--long-n", type=int, default=1024)
     ap.add_argument("--long-rounds", type=int, default=30)
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="build the kernels and run phase 14 alone (no "
+                         "result line)")
+    ap.add_argument("--mesh-dry-run", metavar="JSON",
+                    help="(phase 14d's child) write the dry-run rows of "
+                         "MESH_DRY to JSON; needs no card")
     args = ap.parse_args(argv)
+    if args.mesh_dry_run:
+        rows = mesh_dry_rows()
+        with open(args.mesh_dry_run, "w") as f:
+            json.dump(rows, f)
+        return 0
 
     # phase 10's ef: path holds ~68 GB at its largest leaf; without
     # expandable segments the caching allocator strands ~12 GB there
@@ -3021,6 +3556,15 @@ def main(argv=None) -> int:
                library=os.path.relpath(info.path, ROOT), ptxas=ptxas)
     counters = ([scd_solve] + list(enc.values()) + list(dec.values())
                 + [topk_select, bmv.batched_matvec, bmv.batched_vecmat])
+    if args.only_mesh:
+        work = os.path.join(ROOT, "build", "chip_smoke_mesh")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            mesh_phase(torch, counters, work, start_mesh_dry(work))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
 
     # -- data and the first trainer at the slice's size -----------------
     t0 = time.perf_counter()
@@ -4373,6 +4917,14 @@ def main(argv=None) -> int:
     emit(phase="serve", seconds=time.perf_counter() - t11,
          paths=[arch for arch, *_ in SERVE_PATHS])
 
+    # 14d's dry-run runs in a child on the host from here on, while the
+    # card works through phases 12 to 14c (stopped at exit, whatever
+    # happens before)
+    dry_work = os.path.join(ROOT, "build", "chip_smoke_dry")
+    shutil.rmtree(dry_work, ignore_errors=True)
+    os.makedirs(dry_work)
+    dry = start_mesh_dry(dry_work)
+
     # -- 12. local-update rounds across ranks: 1-rank NCCL, gloo ranks --
     t12 = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke_lu")
@@ -4387,8 +4939,14 @@ def main(argv=None) -> int:
         t13 = time.perf_counter()
         analysis_phase(torch, work)
         emit(phase="analysis_sweep", seconds=time.perf_counter() - t13)
+
+        # -- 14. the partitioned paths: meshes, DTensors, the dry-run ---
+        mesh_l = mesh_phase(torch, counters, work, dry,
+                            lu_nccl.get("int8", {}).get("hashes"))
     finally:
+        stop_process(dry[0])
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(dry_work, ignore_errors=True)
 
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the
@@ -4479,6 +5037,10 @@ def main(argv=None) -> int:
         entry["local_updates_dist"] = (
             dict(launches=dist_l, at_largest_leaf=timed) if dist_l
             else "not on the local-update paths")
+        # phase 14a: launches in the local-updates round on the (1, 1)
+        # mesh (lower_train_local_updates, int8)
+        entry["mesh"] = (dict(launches=mesh_l[name]) if mesh_l.get(name)
+                         else "not on the partitioned paths")
     by_key["scd_solve"]["tradeoff_device_ms_by_H"] = {
         str(H_): t for H_, t in k1_by_H.items()}
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -68,6 +68,12 @@ def derived_round_traffic(log, exchange, K: int) -> int:
     return 2 * K * sum(c.nbytes for c in payload_collectives(log))
 
 
+def all_to_all_bytes(log, K: int) -> int:
+    """Bytes this rank's all-to-alls sent to the other ranks: (K-1)/K of
+    each logged operand (the chunk addressed to itself stays put)."""
+    return sum(c.nbytes * (K - 1) // K for c in log if c.op == "all_to_all")
+
+
 def quantized_wire_dtypes(log) -> set[str]:
     """Sub-f32 dtypes present in payload-moving calls (all-gathers and
     ring sends): int8 for int8, uint8 for packed int4 and int2."""

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as tdist
 
 from repro_torch.comm.codec import FP_ITEMSIZE, UpdateCodec
+from repro_torch.utils.partitioning import bound_mesh, sub_mesh
 
 COLLECTIVE_BACKENDS = ("xla", "ring")
 
@@ -66,7 +67,8 @@ def padded_len(length: int, K: int) -> int:
 @dataclass(frozen=True)
 class LoggedCall:
     """One call into the process group: the op (``all_reduce``,
-    ``all_gather``, ``reduce_scatter``, ``send`` or ``broadcast``), the
+    ``all_gather``, ``reduce_scatter``, ``all_to_all``, ``send`` or
+    ``broadcast``), the
     operand's dtype (``torch`` name: ``float32``, ``int8``, ...), the
     operand bytes this rank put in, whether the operand was copied to
     the host for the group, the 1-based round it belongs to (``None``
@@ -78,6 +80,7 @@ class LoggedCall:
     staged: bool
     round: int | None
     peer: int | None = None
+    K: int | None = None
 
 
 class CollectiveLog(list):
@@ -151,7 +154,7 @@ class Fabric:
         if log is not None:
             log.append(LoggedCall(op, str(x.dtype).removeprefix("torch."),
                                   x.numel() * x.element_size(), staged,
-                                  self.round, peer))
+                                  self.round, peer, self.K))
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x``."""
@@ -201,6 +204,32 @@ class Fabric:
             req.wait()
         return buf.to(x.device) if staged else buf
 
+    def all_to_all(self, x: torch.Tensor, split_axis: int, concat_axis: int,
+                   tiled: bool = True) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+        ``x`` split along ``split_axis`` into K equal chunks, chunk ``j``
+        sent to rank ``j``, and the K chunks received concatenated along
+        ``concat_axis`` in rank order. One ``all_to_all_single`` (gloo
+        has it; a CUDA operand is staged through the host), whose
+        operand is recorded; a true all-to-all moves (K-1)/K of it
+        (``analysis.traffic.all_to_all_bytes``)."""
+        if not tiled:
+            raise NotImplementedError("Fabric.all_to_all: tiled=True only")
+        a, b, K = split_axis % x.ndim, concat_axis % x.ndim, self.K
+        if x.shape[a] % K:
+            raise ValueError(f"all_to_all: dim {a} of {tuple(x.shape)} is "
+                             f"not a multiple of {K}")
+        parts = x.reshape(*x.shape[:a], K, x.shape[a] // K,
+                          *x.shape[a + 1:]).movedim(a, 0)
+        h, staged = self._stage(parts)
+        out = torch.empty_like(h)
+        self._record("all_to_all", h, staged)
+        tdist.all_to_all_single(out, h, group=self.group)
+        out = out.to(x.device) if staged else out
+        chunk = out.shape[1:]
+        return out.movedim(0, b).reshape(*chunk[:b], K * chunk[b],
+                                         *chunk[b + 1:])
+
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``x`` on every rank."""
         h, staged = self._stage(x)
@@ -212,17 +241,28 @@ class Fabric:
 
 def data_fabric(axis_name) -> Fabric | None:
     """The fabric a round exchanges over: ``None`` (no exchange), a
-    :class:`Fabric`, or a ``torch.distributed`` process group wrapped in
-    one. The port has no device mesh, so a mesh-axis name raises."""
+    :class:`Fabric`, a ``torch.distributed`` process group wrapped in
+    one, or a mesh-axis name (or a tuple of names) of the mesh that
+    ``launch.build.partitioning`` binds: the group of that sub-mesh,
+    through this rank. An axis name with no mesh bound raises, as an
+    unbound axis name does in the reference."""
     if axis_name is None or isinstance(axis_name, Fabric):
         return axis_name
     if isinstance(axis_name, tdist.ProcessGroup):
         return Fabric(axis_name)
-    raise TypeError(
-        f"data axis {axis_name!r}: takes None, a repro_torch.comm."
-        f"collectives.Fabric or a torch.distributed process group; the "
-        f"port has no device mesh, so no mesh-axis name (ROADMAP.md, "
-        f"Queue 1 item 13)")
+    names = (axis_name,) if isinstance(axis_name, str) else axis_name
+    if not (isinstance(names, tuple) and names
+            and all(isinstance(n, str) for n in names)):
+        raise TypeError(
+            f"data axis {axis_name!r}: takes None, a repro_torch.comm."
+            f"collectives.Fabric, a torch.distributed process group, or "
+            f"mesh-axis names")
+    mesh = bound_mesh()
+    if mesh is None or not set(names) <= set(mesh.mesh_dim_names):
+        raise NameError(f"unbound axis name: {axis_name!r} (no mesh with "
+                        f"these axes is bound; bind one with "
+                        f"repro_torch.launch.build.partitioning)")
+    return Fabric(sub_mesh(mesh, names).get_group())
 
 
 def pmean(x: torch.Tensor, fabric: Fabric) -> torch.Tensor:

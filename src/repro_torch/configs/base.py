@@ -1,13 +1,15 @@
 """Config schema of the architectures: the port of ``repro.configs.base``.
 
 Plain frozen dataclasses, copied field for field from the reference so
-that a config means the same model in both packages. The reference's
-``input_specs`` and the dry-run's ``SHAPES`` stay out: the port has no
-dry-run yet (ROADMAP.md, Queue 1 item 13).
+that a config means the same model in both packages, and the four input
+shapes of the dry-run (``SHAPES``) with ``input_specs``, their inputs as
+meta-device tensors (shapes and dtypes, nothing allocated).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -145,3 +147,54 @@ def padded_vocab(cfg: ModelConfig, multiple: int = 256) -> int:
     v = cfg.vocab_size
     return ((v + multiple - 1) // multiple) * multiple
 
+
+
+# ----------------------------------------------------------------------
+# The four assigned input shapes.
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-device stand-ins for every model input, the reference's
+    shapes and dtypes: token ids (and labels for train; one token and
+    its position a row for decode, whose cache of length S is the step's
+    state); the vlm's stub patch embeddings and their M-RoPE positions
+    outside decode; whisper's stub encoder frame embeddings."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    specs: dict = {}
+    if shape.kind == "train":
+        specs["tokens"] = _meta((B, S), i32)
+        specs["labels"] = _meta((B, S), i32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = _meta((B, S), i32)
+    else:
+        specs["tokens"] = _meta((B, 1), i32)
+        specs["positions"] = _meta((B, 1), i32)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        n_patch = min(cfg.num_patch_tokens or 256, S // 2)
+        specs["patch_embeds"] = _meta((B, n_patch, cfg.d_model),
+                                      torch.bfloat16)
+        specs["patch_positions"] = _meta((B, n_patch, 3), i32)
+    if cfg.family == "audio":
+        specs["frame_embeds"] = _meta((B, cfg.encdec.source_len,
+                                       cfg.d_model), torch.bfloat16)
+    return specs

@@ -101,20 +101,32 @@ def _apply_layer(p, cfg, mixer, channel, x, positions, mode, state):
     loss (None for the other channels, which have none: no kernel is
     spent on a zero). A decode step's MoE routes without drops."""
     aux = None
+    # Megatron-style sequence parallelism under partitioning: the
+    # residual stream is sharded over the model axis on the sequence
+    # dim, and the block outputs (row-parallel partial sums) are
+    # constrained back to it, a reduce-scatter in place of an all-reduce
+    x = L.constrain(x, "dp", "tp", None)
+    full = mode == "full"
     h_in = L.apply_norm(p["mixer_norm"], x, cfg.norm)
     h, state = _apply_mixer(p["mixer"], cfg, mixer, h_in, positions, mode,
                             state)
+    if full:
+        h = L.constrain(h, "dp", "tp", None)
     if cfg.parallel_block and channel != "none":
-        return x + h + L.mlp_apply(p["channel"], cfg, h_in), state, aux
+        c = L.mlp_apply(p["channel"], cfg, h_in)
+        if full:
+            c = L.constrain(c, "dp", "tp", None)
+        return x + h + c, state, aux
     x = x + h
     if channel == "mlp":
-        x = x + L.mlp_apply(p["channel"], cfg,
-                            L.apply_norm(p["channel_norm"], x, cfg.norm))
+        y = L.mlp_apply(p["channel"], cfg,
+                        L.apply_norm(p["channel_norm"], x, cfg.norm))
+        x = x + (L.constrain(y, "dp", "tp", None) if full else y)
     elif channel == "moe":
         y, aux = L.moe_apply(p["channel"], cfg,
                              L.apply_norm(p["channel_norm"], x, cfg.norm),
                              no_drop=(mode == "step"))
-        x = x + y
+        x = x + (L.constrain(y, "dp", "tp", None) if full else y)
     return x, state, aux
 
 
@@ -166,7 +178,8 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict):
     ``patch_positions`` (B, P, 3) the first P positions."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = L.constrain(L.embed_lookup(params["embed"], tokens), "dp", "tp",
+                    None)
     if "positions" in batch:
         positions = batch["positions"]
     else:
@@ -253,7 +266,7 @@ def mtp_logits(params, cfg: ModelConfig, hidden, batch):
     MLP, at positions 0 ... S - 2; (B, S - 1, V)."""
     mtp = params["mtp"]
     tokens = batch["tokens"]
-    emb_next = params["embed"][tokens[:, 1:].long()]
+    emb_next = L.embed_lookup(params["embed"], tokens[:, 1:])
     h2 = L.dense(mtp["proj"], torch.cat([
         L.apply_norm(mtp["norm"], hidden[:, :-1], cfg.norm), emb_next], -1))
     B, S1 = tokens.shape[0], tokens.shape[1] - 1
@@ -266,7 +279,9 @@ def mtp_logits(params, cfg: ModelConfig, hidden, batch):
 
 def unembed(params, cfg: ModelConfig, x):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = (x @ w).float()
+    logits = L.dense({"w": w}, x).float()
+    if logits.ndim == 3:
+        logits = L.constrain(logits, "dp", None, "tp")
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

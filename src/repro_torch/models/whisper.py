@@ -75,11 +75,11 @@ def _bidir_attn(p, cfg, x):
     """Non-causal encoder self-attention (dense: source_len is short)."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = L.dense(p["wq"], x).reshape(B, S, H, Dh)
-    k = L.dense(p["wk"], x).reshape(B, S, KV, Dh)
-    v = L.dense(p["wv"], x).reshape(B, S, KV, Dh)
+    q = L._unflatten(L.dense(p["wq"], x), (B, S, H, Dh))
+    k = L._unflatten(L.dense(p["wk"], x), (B, S, KV, Dh))
+    v = L._unflatten(L.dense(p["wv"], x), (B, S, KV, Dh))
     out = L._attend_dense(q, k, v, None, Dh ** -0.5)
-    return L.dense(p["wo"], out.reshape(B, S, H * Dh))
+    return L.dense(p["wo"], L._flatten(out, (B, S, H * Dh)))
 
 
 def encode(params, cfg: ModelConfig, frame_embeds):
@@ -103,8 +103,8 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def _cross_kv(p, cfg, enc_out):
     B, S, _ = enc_out.shape
     KV, Dh = cfg.num_kv_heads, cfg.head_dim
-    k = L.dense(p["wk"], enc_out).reshape(B, S, KV, Dh)
-    v = L.dense(p["wv"], enc_out).reshape(B, S, KV, Dh)
+    k = L._unflatten(L.dense(p["wk"], enc_out), (B, S, KV, Dh))
+    v = L._unflatten(L.dense(p["wv"], enc_out), (B, S, KV, Dh))
     return k, v, _positions(B, S, enc_out.device)
 
 
@@ -125,7 +125,8 @@ def decode(params, cfg: ModelConfig, tokens, enc_out, *, mode="full",
     B, S = tokens.shape
     if positions is None:
         positions = _positions(B, S, tokens.device)
-    x = params["embed"][tokens.long()] + params["dec_pos"][positions.long()]
+    x = (L.embed_lookup(params["embed"], tokens)
+         + L.embed_lookup(params["dec_pos"], positions))
     for i, lp in enumerate(params["dec_layers"]):
         if states is None:
             ck, cv, cpos = _cross_kv(lp["cross"], cfg, enc_out)
@@ -145,7 +146,7 @@ def decode(params, cfg: ModelConfig, tokens, enc_out, *, mode="full",
         x = x + L.mlp_apply(lp["mlp"], cfg,
                             L.apply_norm(lp["mlp_norm"], x, "layernorm"))
     x = L.apply_norm(params["dec_norm"], x, "layernorm")
-    logits = (x @ params["embed"].T).float()
+    logits = L.dense({"w": params["embed"].T}, x).float()
     return logits, ([None] * len(params["dec_layers"]) if states is None
                     else states)
 

@@ -23,8 +23,13 @@ Two drivers:
   reference's ``pmean`` (one ``all_reduce`` of the f32 delta a leaf,
   divided by K); under a lossy codec :func:`_codec_mean` (this rank's
   delta encoded as one ``(1, L)`` row, each wire part all-gathered in
-  rank order, one decode+mean of the ``(K, ...)`` parts). With
-  ``axis_name=None`` nothing is exchanged (what the launcher runs).
+  rank order, one decode+mean of the ``(K, ...)`` parts); or a mesh-axis
+  name under ``launch.build.partitioning`` (the group of those axes).
+  Leaves that are DTensors (split over ``model``) are exchanged whole,
+  each gathered over its split first so that the codec's scale and
+  payload are the unsplit leaf's, and placed back after, each rank
+  keeping its shard. With ``axis_name=None`` nothing is exchanged (what
+  the launcher runs).
 * :func:`virtual_round` runs K shards held on one device, one after
   another, then the exchange leaf by leaf in leaf order: the K f32
   deltas ``pH - p0`` as a ``(K, L)`` stack, encoded in one launch,
@@ -45,7 +50,8 @@ import torch
 from repro_torch.comm import get_codec
 from repro_torch.comm.codec import FP_ITEMSIZE
 from repro_torch.comm.collectives import Fabric, data_fabric, pmean
-from repro_torch.utils.trees import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.trees import (is_dtensor, tree_leaves, tree_map,
+                                     tree_unflatten)
 
 
 @dataclass(frozen=True)
@@ -120,8 +126,33 @@ def _steps(step_fn, params, opt_state, batches):
     return params, opt_state, metrics
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A leaf whole: a DTensor gathered over the axes that split it (the
+    params of a partitioned round are split over ``model`` only), so
+    that a codec's scale is the whole leaf's, as GSPMD's is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _placed_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (a whole leaf every rank holds alike) placed as ``like``:
+    each rank keeps its own shard, nothing sent."""
+    if not is_dtensor(like):
+        return value
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(value, like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
 def _pmean_f32(x: torch.Tensor, fabric: Fabric) -> torch.Tensor:
-    """:func:`pmean` in f32, cast back to ``x``'s dtype."""
+    """:func:`pmean` in f32, cast back to ``x``'s dtype; a DTensor's own
+    shard is averaged over the fabric's ranks (which hold the same
+    shard of it)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(_pmean_f32(x.to_local(), fabric),
+                                  x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
     return pmean(x.float(), fabric).to(x.dtype)
 
 
@@ -152,9 +183,10 @@ def _exchange_deltas(p0, shard: list, codec, fabric: Fabric, states=None):
     the bytes of every rank's encoded parts, as :func:`virtual_round`
     counts them)."""
     new, new_states, wire = [], [], 0
-    for i, p in enumerate(tree_leaves(p0)):
+    for i, leaf in enumerate(tree_leaves(p0)):
+        p = _whole(leaf)
         p0f = p.float().reshape(-1)
-        delta = shard[i].float().reshape(-1) - p0f
+        delta = _whole(shard[i]).float().reshape(-1) - p0f
         shard[i] = None
         if codec.lossless:
             mean, st, parts = pmean(delta, fabric), None, (delta,)
@@ -165,7 +197,8 @@ def _exchange_deltas(p0, shard: list, codec, fabric: Fabric, states=None):
             wire += 2 * sum(t.numel() * t.element_size() for t in parts)
         del delta, parts
         new_states.append(st)
-        new.append((p0f + mean).reshape(p.shape).to(p.dtype))
+        new.append(_placed_like((p0f + mean).reshape(p.shape).to(p.dtype),
+                                leaf))
     return new, (None if states is None else new_states), wire
 
 

@@ -5,6 +5,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import (replicated, vocab_argmax,
+                                       vocab_gather, vocab_logsumexp)
+
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  z_loss_coef: float = 1e-4):
@@ -12,12 +15,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     Returns (loss, metrics)."""
     valid = labels >= 0
     labels_safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels_safe[..., None])[..., 0] - logz
+    logz = vocab_logsumexp(logits)
+    ll = vocab_gather(logits, labels_safe) - logz
     n = torch.clamp(valid.sum(), min=1)
     ce = -(ll * valid).sum() / n
     zl = z_loss_coef * ((logz ** 2) * valid).sum() / n
-    acc = ((logits.argmax(-1) == labels_safe) & valid).sum() / n
+    acc = torch.logical_and(vocab_argmax(logits) == labels_safe,
+                            valid).sum() / n
     return ce + zl, {"ce": ce, "z_loss": zl, "accuracy": acc}
 
 
@@ -43,6 +47,7 @@ def lm_loss(model, params, batch, *, z_loss_coef: float = 1e-4,
                                           remat=remat)
         loss, metrics = softmax_xent(logits, batch["labels"], z_loss_coef)
         loss = loss + aux
+    loss = replicated(loss)
     metrics["aux_loss"] = aux
     metrics["loss"] = loss
     return loss, metrics

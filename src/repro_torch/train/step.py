@@ -32,9 +32,33 @@ def loss_and_grads(model, params, batch, *, remat: bool = False):
     with torch.enable_grad():
         loss, metrics = lm_loss(model, tree_unflatten(params, live), batch,
                                 remat=remat)
-        grads = torch.autograd.grad(loss, live)
+        # a leaf the loss does not reach (command-r's parallel block
+        # leaves channel_norm unused) has a zero gradient, as in jax
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, list(grads)
+
+
+def _microbatches(batch: dict, n: int) -> list:
+    """The batch's leading dim split n ways: microbatch i the rows [i B/n,
+    (i+1) B/n). A DTensor batch split over the data axes is split on
+    each rank's own rows instead (microbatch i: the i-th n-th of every
+    shard), so that no row moves between ranks; the step's sum of the
+    microbatch gradients is the same, in another order."""
+    def split(v):
+        from torch.distributed.tensor import DTensor
+        if not isinstance(v, DTensor):
+            return list(v.reshape(n, v.shape[0] // n, *v.shape[1:]))
+        loc = v.to_local()
+        shape = (v.shape[0] // n, *v.shape[1:])
+        return [DTensor.from_local(c, v.device_mesh, v.placements,
+                                   run_check=False, shape=torch.Size(shape),
+                                   stride=torch.empty(shape,
+                                                      device="meta").stride())
+                for c in loc.reshape(n, loc.shape[0] // n, *loc.shape[1:])]
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
@@ -59,11 +83,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = False,
 
     def step(params, opt_state, batch):
         if microbatch and microbatch > 1:
-            mbs = [{k: v.reshape(microbatch, v.shape[0] // microbatch,
-                                 *v.shape[1:])[i] for k, v in batch.items()}
-                   for i in range(microbatch)]
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            mbs = _microbatches(batch, microbatch)
+            g_acc = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree_leaves(params)]
             ms = []
             for b in mbs:

@@ -15,6 +15,15 @@ from typing import Any, Callable, Iterator
 import torch
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor`` (imported
+    only for a tensor that is not a plain one)."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _is_node(x) -> bool:
     return isinstance(x, (dict, list, tuple))
 

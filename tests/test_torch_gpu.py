@@ -1627,3 +1627,85 @@ def test_launch_train_reduced_runs_every_token_family_on_the_card(
     losses = [float(line.split("loss=")[1].split()[0])
               for line in out.splitlines() if line.startswith("round ")]
     assert len(losses) == 2 and all(np.isfinite(losses)), out
+
+
+# -- the partitioned paths on a (1, 1) mesh ---------------------------------
+def _mesh_1x1():
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((1, 1), ("data", "model"), "cuda")
+
+
+def _whole(tree):
+    from repro_torch.utils.trees import tree_map
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, tree)
+
+
+def test_partitioned_train_step_on_a_1x1_mesh_is_bit_identical(
+        cuda, one_rank_group):
+    """``lower_train`` of the reduced tinyllama on a (1, 1) mesh over a
+    1-rank NCCL group (DTensor params, batch and opt state) gives the
+    unpartitioned step's loss and params bit for bit, and so does one
+    ``lower_train_local_updates`` round under int8 (K2 and K3 launched
+    on the whole leaves)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import build
+    from repro_torch.optim import (AdamWConfig, LocalUpdatesConfig,
+                                   local_updates_round)
+    from repro_torch.comm.collectives import Fabric
+    step, params, opt, batches = _reduced_round_inputs(cuda, 1)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    one_rank_group("nccl")
+    mesh = _mesh_1x1()
+    batch = {n: v[0, 0] for n, v in batches.items()}
+    p1, o1, m1 = step(params, opt, batch)
+    shape = ShapeConfig("gpu_train", 32, 2, "train")
+    built = build.lower_train(cfg, shape, mesh, remat=False,
+                              opt_cfg=AdamWConfig(lr=1e-3),
+                              values=(params, opt, batch))
+    p2, o2, m2 = built.run()
+    assert torch.equal(_bits(m1["loss"]), _bits(m2["loss"].full_tensor()))
+    assert _same_bits(p1, _whole(p2)) and _same_bits(o1, _whole(o2))
+    rnd = {n: v[0] for n, v in batches.items()}
+    lc = LocalUpdatesConfig(H=2, codec="int8")
+    want = local_updates_round(step, params, opt, rnd, lc, Fabric())
+    fns = (quant.quantize_pack_int8, dequant.decode_reduce_int8)
+    before = [f.launches for f in fns]
+    lu = build.lower_train_local_updates(cfg, shape, mesh, H=2, codec="int8",
+                                         remat=False,
+                                         opt_cfg=AdamWConfig(lr=1e-3),
+                                         values=(params, opt, rnd))
+    got = lu.run()
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [12, 12]
+    assert _same_bits(want[0], _whole(got[0]))
+    assert _same_bits(want[1], _whole(got[1]))
+
+
+def test_moe_sharded_on_a_1x1_mesh_is_bit_identical(cuda, one_rank_group):
+    """deepseek-v3's MoE block at ``.reduced()`` in bf16 on DTensors of a
+    (1, 1) mesh takes ``_moe_sharded`` (its all-to-alls over the 1-rank
+    model group) and gives ``moe_apply``'s output and aux loss bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import build
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import layers as L
+    cfg = get_config("deepseek-v3-671b").reduced()
+    p = L.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg)
+    x = torch.randn((4, 16, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    y0, aux0 = L.moe_apply(p, cfg, x)
+    one_rank_group("nccl")
+    mesh = _mesh_1x1()
+    dp = sh.distribute(p, sh.param_specs({"channel": p}, mesh,
+                                         fsdp=True)["channel"], mesh)
+    before = dict(L.MOE_PATHS)
+    with build.partitioning(mesh):
+        y1, aux1 = L.moe_apply(dp, cfg, sh.distribute(x, ("data", None, None),
+                                                      mesh))
+    assert L.MOE_PATHS["sharded"] - before["sharded"] == 1
+    assert L.MOE_PATHS["global"] == before["global"]
+    assert torch.equal(y0, y1.full_tensor())
+    assert torch.equal(_bits(aux0), _bits(aux1.full_tensor()))

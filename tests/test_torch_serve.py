@@ -440,8 +440,9 @@ def test_serve_example_on_the_cpu(capsys):
 
 def test_local_updates_round_takes_axis_name_sixth(tmp_path):
     """The sixth parameter is the reference's ``axis_name``: a mesh-axis
-    name raises (the port has no mesh), a one-rank process group returns
-    what ``None`` does, and ``codec_state`` comes after it."""
+    name with no mesh bound raises (an unbound axis name, as in the
+    reference), a one-rank process group returns what ``None`` does, and
+    ``codec_state`` comes after it."""
     import torch.distributed as tdist
     cfg = get_config("tinyllama-1.1b").reduced()
     m = build_model(cfg)
@@ -452,7 +453,7 @@ def test_local_updates_round_takes_axis_name_sixth(tmp_path):
     bs = [ts.next_batch() for _ in range(2)]
     batches = {k: torch.tensor(np.stack([b[k] for b in bs])) for k in bs[0]}
     lc = LocalUpdatesConfig(H=2)
-    with pytest.raises(TypeError, match="Queue 1 item 13"):
+    with pytest.raises(NameError, match="unbound axis name"):
         local_updates_round(step, params, adamw_init(params, opt_cfg),
                             batches, lc, "data", codec_state=None)
     p1, o1, m1 = local_updates_round(step, params,
