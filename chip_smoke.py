@@ -31,9 +31,13 @@ JSON line:
      n_pad 65,536, H 256), alpha in device memory; K2 and K3 at
      (8, 1,048,579), K2 streaming, and at (8, 350,000), K2 in registers
      at C = 16, each width; K4 at (8, 350,000) with k = 43,750,
-     (1, 10^6) with k = 1 and (2, 200,003) with k = L, in its
-     device-memory forms, and at the main path's stack forced into the
-     device-memory form); the fixed-order batched products (``bmv.cu``:
+     (1, 10^6) with k = 1 and (2, 200,003) with k = L, as planned (the
+     first in the grid form since PR 28, the others in the
+     device-memory forms), and at the main path's stack forced into the
+     device-memory form; K4's and K2's grid forms forced at (4,
+     1,000,003), rows of ties in [-3, 3], zeros, one nonzero and normal,
+     k = 1, ceil(L/100) and L, x aligned and one float off); the
+     fixed-order batched products (``bmv.cu``:
      matvec and vecmat) at mini-batch SCD's (K, n_pad, m) stack, SGD's
      (K, m/K, n) row blocks and local SGD's gathered rows, and on ragged,
      misaligned and expanded inputs, within the dot-product bound
@@ -89,8 +93,9 @@ JSON line:
   5. timing at the main path's shapes, for every kernel two times: the
      wrapper's time per call by CUDA events around back-to-back calls
      (host work included when the host launches slower than the device
-     runs), and the kernel's device time per launch from a
-     ``torch.profiler`` trace of the same calls; beside them the least
+     runs), and its device time per call from a ``torch.profiler``
+     trace of the same calls (every kernel of the form, summed); beside
+     them the least
      time the card could take, the plain version's time by events and,
      for K4, ``torch.topk`` of the magnitudes (the library call that
      computes the same selection; the port never calls it). K1, K2 and
@@ -104,7 +109,9 @@ JSON line:
      SGD's shapes, beside their plain versions, ``torch.matmul`` and
      the loop of one ``torch.matmul`` a worker; then every kernel at the
      long-row path's shapes
-     (its round-1 inputs and Δv), K4 also at C = 16, 8 and 4;
+     (its round-1 inputs and Δv), K4 also at C = 16, 8 and 4, and both
+     forms of K4 (k at r = 0.125 and 0.01) and K2 (int8) at (8, 10^6,
+     2^21 and 2^22), the lengths on each side of the plans' switch;
   6. device traces: ``torch.profiler`` over 5 rounds of
      ``compressed:int8`` and of ``compressed:ef:topk(r=0.125)`` (after 2
      untraced ones each), each kernel's device time by name and the
@@ -338,6 +345,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -372,6 +380,14 @@ SCD_LONG = ((8, 350000, 128, 128, None), (8, 262148, 128, 64, 4),
             (2, 4096, 65536, 256, None))
 QUANT_LONG = ((8, 1048579), (8, 350000))
 TOPK_LONG = (((8, 350000), 43750), ((1, 1000000), 1), ((2, 200003), 200003))
+# K4's and K2's grid forms, forced, in phase 2b: rows of integer ties in
+# [-3, 3], all zeros, one nonzero and normal; L not a multiple of 4
+GRID_LONG = ((4, 1000003),)
+# phase 5: both forms at the lengths on each side of the plans' switch to
+# the grid form (kernels/topk.py::takes_grid: 2^21 at r = 0.01, webspam's
+# 350,000 at r = 0.125, which timing_long's long row times by C;
+# kernels/quant.py::takes_grid: 2^22)
+GRID_CROSSOVER = ((8, 1000000), (8, 2097152), (8, 4194304))
 # the baselines phase (after 4b), at the main shape: mini-batch SCD
 # (H = n_local, up to SCD_ROUNDS rounds, rounds-to-eps at each of
 # BASELINE_EPS; 4e-3 is the drivers benchmark's int8 multiplier for
@@ -630,13 +646,17 @@ CODECS = ("int8", "int4", "int2")
 BITS = {"int8": 8, "int4": 4, "int2": 2}
 # K2 and K4 run at the planned C (None) and at every C forced
 CLUSTER_RUNS = (None, 16, 8, 4, 2, 1)
-# the name of each timed kernel's __global__ function, as the profiler
-# reports it (a substring of the demangled name)
-KERNEL_NAMES = {"scd_solve": "scd_kernel", "topk": "topk_kernel",
-                "topk_k_eq_L": "topk_kernel",
-                "topk_device_form": "topk_kernel",
-                "int8": "quant_kernel<1,", "int4": "quant_kernel<2,",
-                "int2": "quant_kernel<4,",
+# the names of each timed wrapper's __global__ functions, as the profiler
+# reports them (substrings of the demangled names): every kernel of each
+# of its forms (K4's and K2's grid forms launch several) and none of
+# torch.topk's
+TOPK_KERNELS = ("topk_kernel", "topk_grid_")
+KERNEL_NAMES = {"scd_solve": "scd_kernel", "topk": TOPK_KERNELS,
+                "topk_k_eq_L": TOPK_KERNELS,
+                "topk_device_form": TOPK_KERNELS,
+                **{c: (f"quant_kernel<{8 // b},", "quant_grid_init",
+                       "quant_grid_absmax", f"quant_grid_pack<{8 // b}>")
+                   for c, b in (("int8", 8), ("int4", 4), ("int2", 2))},
                 "decode_int8": "dequant_kernel<8,",
                 "decode_int4": "dequant_kernel<4,",
                 "decode_int2": "dequant_kernel<2,",
@@ -707,21 +727,23 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, kernel: str, guards=None):
-    """Mean device milliseconds per launch of the kernel whose name holds
-    ``kernel``, from a ``torch.profiler`` trace of ``reps`` warm calls of
-    ``fn``; "not measured" when the trace holds no such kernel. The
-    trace's guard counts are appended to ``guards`` when it is a list."""
+def device_ms(torch, fn, reps: int, kernel, guards=None):
+    """Mean device milliseconds per call of ``fn``: the device time of
+    every kernel whose name holds ``kernel`` (a substring, or a tuple of
+    them: a form of several kernels is summed) in a ``torch.profiler``
+    trace of ``reps`` warm calls, over ``reps``; "not measured" when the
+    trace holds no such kernel. The trace's guard counts are appended to
+    ``guards`` when it is a list."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     trace = device_trace(torch, lambda: [fn() for _ in range(reps)])
     if guards is not None:
         guards.append(trace["guard"])
     hits = [v for name, v in trace.get("kernels", {}).items()
-            if kernel in name]
-    calls = sum(v["calls"] for v in hits)
-    if not calls:
+            if any(n in name for n in names)]
+    if not sum(v["calls"] for v in hits):
         return "not measured"
-    return sum(v["device_ms"] for v in hits) / calls
+    return sum(v["device_ms"] for v in hits) / reps
 
 
 def quant_fits(L: int, bits: int, cluster) -> bool:
@@ -3845,6 +3867,42 @@ def main(argv=None) -> int:
                              max_err(got[1].long(), want[1].long()))
         err["topk"] = max(err["topk"], long_err[name])
         del x, got, want
+    # the grid forms, forced, at rows that put every key in one bin (the
+    # passes past the candidate cap read x again) or tie across the pass
+    # tiles; k = 1, ceil(L/100), L; x aligned and one float off
+    for K_, L_ in GRID_LONG:
+        for off in (0, 1):
+            x = torch.randn(K_ * L_ + off, generator=gl,
+                            device=dev)[off:].view(K_, L_)
+            x[0] = torch.randint(-3, 4, (L_,), generator=gl,
+                                 device=dev).float()
+            x[1] = 0.0
+            x[2] = 0.0
+            x[2, L_ // 2] = -1.5
+            for kk in sorted({1, -(-L_ // 100), L_}):
+                got, want = topk_select(x, kk, grid=True), topk_select_ref(
+                    x, kk)
+                name = f"topk_select grid {K_}x{L_} +{off}, k {kk}"
+                long_plans[name] = dataclasses.asdict(topk_select.last_plan)
+                long_ok[name] = all(bits_equal(torch, a, b_)
+                                    for a, b_ in zip(got, want))
+                long_err[name] = max(max_err(got[0], want[0]),
+                                     max_err(got[2], want[2]),
+                                     max_err(got[1].long(), want[1].long()))
+                err["topk"] = max(err["topk"], long_err[name])
+                del got, want
+            for c in CODECS:
+                pk, sk = enc[c](x, grid=True)
+                pp, sp = enc_ref[c](x)
+                name = f"quantize_pack_{c} grid {K_}x{L_} +{off}"
+                long_plans[name] = dataclasses.asdict(
+                    quant.quant_plan(K_, L_, BITS[c], grid=True))
+                long_ok[name] = (bits_equal(torch, pk, pp)
+                                 and bits_equal(torch, sk, sp))
+                long_err[name] = max(max_err(pk, pp), max_err(sk, sp))
+                err[c] = max(err[c], long_err[name])
+                del pk, sk, pp, sp
+            del x
     # the main path's stack in K4's device-memory form, which phase 5
     # times against the shared form the plan takes there
     for kk in (k_main, m):
@@ -4423,6 +4481,33 @@ def main(argv=None) -> int:
     topk_long_by_c = {str(cl): device_ms(
         torch, lambda cl=cl: topk_select(dvL, kL, cluster=cl), args.reps,
         "topk_kernel") for cl in (16, 8, 4)}
+    # both forms of K4 (k at r = TOPK_R and 0.01) and K2 (int8) on each
+    # side of the plans' switch to the grid form
+    crossover = {}
+    for K_, L_ in GRID_CROSSOVER:
+        x = torch.randn((K_, L_), generator=g, device=dev) * 1e-3
+        cells = {}
+        for r in (TOPK_R, 0.01):
+            kk = math.ceil(r * L_)
+            cells[f"topk k={kk}"] = {
+                "grid": lambda kk=kk: topk_select(x, kk, grid=True),
+                "cluster": lambda kk=kk: topk_select(x, kk,
+                                                     survivors="device")}
+        cells["int8"] = {"grid": lambda: enc["int8"](x, grid=True),
+                         "cluster": lambda: enc["int8"](x, grid=False)}
+        crossover[f"{K_}x{L_}"] = {
+            cell: {form: dict(ms=time_ms(torch, fn, args.reps),
+                              device_ms=device_ms(
+                                  torch, fn, args.reps,
+                                  KERNEL_NAMES["int8" if cell == "int8"
+                                               else "topk"]))
+                   for form, fn in forms.items()}
+            for cell, forms in cells.items()}
+        crossover[f"{K_}x{L_}"]["planned"] = dict(
+            topk=topk_plan(K_, L_, math.ceil(TOPK_R * L_)).variant,
+            int8=quant.quant_plan(K_, L_, 8).variant)
+        del x
+    free(torch)
     long_bounds, long_distinct, long_scd_bytes = kernel_bounds(
         idxL, n_padL, mL, kL)
     long_row = {key: dict(
@@ -4438,6 +4523,7 @@ def main(argv=None) -> int:
                distinct_columns=long_distinct, scd_bytes=long_scd_bytes,
                topk_k=kL, kernels=long_row, topk_plan=topk_long_plan,
                topk_device_ms_by_cluster=topk_long_by_c,
+               grid_crossover=crossover,
                bit_identical_to_plain=same)
     if not all(same.values()):
         raise SystemExit("chip_smoke: K2 or K3 disagrees with its plain "

@@ -1,5 +1,6 @@
 // K2: absmax quantize of the (K, L) update stack for the int8, int4 and
-// int2 codecs, one thread-block cluster per row.
+// int2 codecs, one thread-block cluster per row, or for long rows two
+// grids of many CTAs a row (the grid form, below quant_launch's helpers).
 //
 // Replaces the TPU kernels of src/repro/kernels/quant.py, which the
 // reference vmaps over workers; here the K rows go in one launch:
@@ -136,6 +137,29 @@ __device__ __forceinline__ void store_group(uint8_t* __restrict__ ok, int j,
   }
 }
 
+// The row's scale from its absmax, the largest code and the code's bias.
+template <int PER>
+__device__ __forceinline__ void row_scale(float row, float& s, float& qmax,
+                                          int& bias) {
+  if (PER == 1) {
+    // (float)1e-30 rounds the double literal to f32, as the reference
+    // rounds its Python float
+    s = row > 0.f ? __fadd_rn(__fdiv_rn(row, 127.0f), (float)1e-30) : 1.0f;
+    qmax = 127.0f;
+    bias = 0;
+  } else if (PER == 2) {
+    s = row > 0.f ? __fdiv_rn(row, 7.5f) : 1.0f;
+    qmax = 7.0f;
+    bias = 8;
+  } else {
+    // (float)(2.0 / 3.0) is INT2_SCALE_MUL rounded to f32, as the
+    // reference rounds its Python float
+    s = row > 0.f ? __fmul_rn(row, (float)(2.0 / 3.0)) : 1.0f;
+    qmax = 1.0f;
+    bias = 2;
+  }
+}
+
 // PER elements to a byte (1: int8, 2: int4, 4: int2); ITEMS groups of
 // four output bytes a thread held in registers, or 0: the CTA's range
 // streamed twice, an absmax pass and a quantize pass that reads the
@@ -223,23 +247,7 @@ quant_kernel(const float* __restrict__ x, uint8_t* __restrict__ out,
   // -- 4. the scale, the codes, whole bytes ------------------------------
   float s, qmax;
   int bias;
-  if (PER == 1) {
-    // (float)1e-30 rounds the double literal to f32, as the reference
-    // rounds its Python float
-    s = row > 0.f ? __fadd_rn(__fdiv_rn(row, 127.0f), (float)1e-30) : 1.0f;
-    qmax = 127.0f;
-    bias = 0;
-  } else if (PER == 2) {
-    s = row > 0.f ? __fdiv_rn(row, 7.5f) : 1.0f;
-    qmax = 7.0f;
-    bias = 8;
-  } else {
-    // (float)(2.0 / 3.0) is INT2_SCALE_MUL rounded to f32, as the
-    // reference rounds its Python float
-    s = row > 0.f ? __fmul_rn(row, (float)(2.0 / 3.0)) : 1.0f;
-    qmax = 1.0f;
-    bias = 2;
-  }
+  row_scale<PER>(row, s, qmax, bias);
   if constexpr (ITEMS > 0) {
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
@@ -304,6 +312,128 @@ int plan_span(int W, int C) {
   return (int)((s + 3) / 4 * 4);
 }
 
+// -- the grid form, for long rows --------------------------------------
+// Two kernels over grids of G CTAs a row (grid (G, K)), each CTA taking
+// tiles of 4096 elements (absmax) or 4096 output bytes (pack) in turn:
+//   absmax  the |x| bit patterns' maximum over the CTA's tiles (a NaN
+//           pattern counts as 0, as fmaxf leaves a NaN out above; -0.0 is
+//           0; inf is the largest), combined per row by one integer
+//           atomicMax a CTA: exact, in any order;
+//   pack    the row's scale from that maximum (row_scale), then the codes
+//           of the CTA's bytes exactly as the cluster form's step 4
+//           (load_group / store_group: the same pairing, rules and IEEE
+//           quotient); CTA 0 of the row writes the scale.
+// x is read twice (an L2 miss each time at the transformer's leaves) and
+// the payload written once. The row maxima live in a K-word scratch the
+// wrapper gives, zeroed by quant_grid_init first.
+constexpr int kGridTile = 4 * 4 * kThreads;    // elements / bytes a tile
+constexpr int kGridCtas = 4224;                // a grid's CTAs in all
+
+// G for n elements or bytes a row: the tiles, at most ~4,224 CTAs in all
+int grid_ctas(int K, long long n) {
+  const long long tiles = (n + kGridTile - 1) / kGridTile;
+  const long long want = (kGridCtas + K - 1) / K;
+  return (int)(tiles < want ? tiles : want);
+}
+
+__global__ void quant_grid_init(uint32_t* amax, int K) {
+  for (int i = threadIdx.x; i < K; i += blockDim.x) amax[i] = 0u;
+}
+
+__device__ __forceinline__ uint32_t mag(float v) {
+  const uint32_t u = __float_as_uint(v) & 0x7FFFFFFFu;
+  return u > 0x7F800000u ? 0u : u;
+}
+
+__global__ void __launch_bounds__(kThreads)
+quant_grid_absmax(const float* __restrict__ x, uint32_t* __restrict__ amax,
+                  int L) {
+  __shared__ uint32_t warp_max[kWarps];
+  const int row = blockIdx.y;
+  const float* xr = x + (size_t)row * L;
+  // a scalar head up to a 16-byte boundary, then 16-byte loads, then a
+  // scalar tail: at most 3 + 3 elements, read by CTA 0
+  const int head = (int)min((long long)L,
+      (long long)(((16u - (uint32_t)(reinterpret_cast<uintptr_t>(xr) & 15u))
+                   & 15u) / 4u));
+  const long long nvec = ((long long)L - head) / 4;
+  const int tail0 = head + (int)(4 * nvec);
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+  uint32_t m = 0u;
+  if (blockIdx.x == 0) {
+    const int t = threadIdx.x;
+    if (t < head) m = mag(xr[t]);
+    else if (t >= 4 && t - 4 < L - tail0) m = mag(xr[tail0 + t - 4]);
+  }
+  constexpr int kVec = kGridTile / 4;
+  const long long tiles = (nvec + kVec - 1) / kVec;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    float4 f[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long q = t * kVec + j * kThreads + threadIdx.x;
+      f[j] = q < nvec ? xv[q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      m = max(m, max(max(mag(f[j].x), mag(f[j].y)),
+                     max(mag(f[j].z), mag(f[j].w))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) m = max(m, warp_max[w]);
+    if (m) atomicMax(&amax[row], m);
+  }
+}
+
+template <int PER>
+__global__ void __launch_bounds__(kThreads)
+quant_grid_pack(const float* __restrict__ x, uint8_t* __restrict__ out,
+                float* __restrict__ scales,
+                const uint32_t* __restrict__ amax, int L, int vec) {
+  const int row = blockIdx.y;
+  const int W = (int)(((long long)L + PER - 1) / PER);   // bytes of a row
+  const float* xk = x + (size_t)row * L;
+  uint8_t* ok = out + (size_t)row * W;
+  float s, qmax;
+  int bias;
+  row_scale<PER>(__uint_as_float(__ldcg(&amax[row])), s, qmax, bias);
+  const long long tiles = ((long long)W + kGridTile - 1) / kGridTile;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    float v[4][PER][4];
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const long long j = t * kGridTile + 4LL * (threadIdx.x + it * kThreads);
+      if (j < W) load_group<PER>(xk, (int)j, W, L, W, vec, v[it]);
+    }
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const long long j = t * kGridTile + 4LL * (threadIdx.x + it * kThreads);
+      if (j < W) store_group<PER>(ok, (int)j, W, vec, v[it], s, qmax, bias);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) scales[row] = s;
+}
+
+template <int PER>
+cudaError_t grid_launch(const float* x, uint8_t* out, float* scales,
+                        uint32_t* amax, int K, int L, int g_abs, int g_pack,
+                        int vec, cudaStream_t st) {
+  quant_grid_init<<<1, kThreads, 0, st>>>(amax, K);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  quant_grid_absmax<<<dim3((unsigned)g_abs, (unsigned)K), kThreads, 0, st>>>(
+      x, amax, L);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  quant_grid_pack<PER><<<dim3((unsigned)g_pack, (unsigned)K), kThreads, 0,
+                         st>>>(x, out, scales, amax, L, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // One launch of K clusters of `cluster` CTAs, each CTA `span` output
@@ -333,5 +463,37 @@ extern "C" int quant_launch(const float* x, void* out, float* scales,
     e = dispatch<2>(x, o, scales, K, L, cluster, span, stream, vec, st);
   else
     e = dispatch<4>(x, o, scales, K, L, cluster, span, stream, vec, st);
+  return (int)e;
+}
+
+// The grid form on the caller's stream: quant_grid_init, quant_grid_absmax
+// over `ctas_absmax` CTAs a row, quant_grid_pack over `ctas_pack`; both
+// come from the Python plan (kernels/quant.py::quant_plan), and `amax` is
+// its K-word scratch. A plan this side does not reproduce is refused with
+// cudaErrorInvalidValue.
+extern "C" int quant_grid_launch(const float* x, void* out, float* scales,
+                                 void* amax, int K, int L, int bits,
+                                 int ctas_absmax, int ctas_pack,
+                                 void* stream_ptr) {
+  if (K < 1 || K > 65535 || L < 1 || amax == nullptr ||
+      (bits != 8 && bits != 4 && bits != 2))
+    return (int)cudaErrorInvalidValue;
+  const int per = 8 / bits;
+  const int W = (int)(((long long)L + per - 1) / per);
+  if (ctas_absmax != grid_ctas(K, L) || ctas_pack != grid_ctas(K, W))
+    return (int)cudaErrorInvalidValue;
+  const int vec = (L % (4 * per) == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(out) % 4 == 0);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  uint32_t* m = static_cast<uint32_t*>(amax);
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t e;
+  if (bits == 8)
+    e = grid_launch<1>(x, o, scales, m, K, L, ctas_absmax, ctas_pack, vec, st);
+  else if (bits == 4)
+    e = grid_launch<2>(x, o, scales, m, K, L, ctas_absmax, ctas_pack, vec, st);
+  else
+    e = grid_launch<4>(x, o, scales, m, K, L, ctas_absmax, ctas_pack, vec, st);
   return (int)e;
 }

@@ -1,6 +1,7 @@
 """K2: absmax quantize of the (K, L) update stack for the int8, int4 and
-int2 codecs, as one hand-written CUDA kernel in three widths
-(``csrc/quant.cu``), a thread-block cluster per row.
+int2 codecs, as hand-written CUDA kernels in three widths
+(``csrc/quant.cu``): a thread-block cluster per row, or for long rows
+two grids of CTAs per row.
 
 Replaces the TPU kernels of ``repro.kernels.quant``, which the reference
 runs once per worker under ``vmap``; here the K rows go in one launch:
@@ -27,6 +28,15 @@ CTA past 128 elements a thread (a row past 524,288 at C = 16), the
 streaming form, which reads the CTA's elements twice: an absmax pass,
 then a quantize pass whose reads are mostly L2 hits.
 
+A long row takes the **grid form** (also ``csrc/quant.cu``): an absmax
+kernel over a grid of G CTAs a row, whose CTAs combine their maxima of
+the |x| bit patterns per row with an integer ``atomicMax`` (exact in any
+order), then a quantize-and-pack kernel over its own grid, each CTA
+tiles of 4096 output bytes with the same pairing, scale rules and IEEE
+quotient as the cluster form; three launches (a zeroing one first) on
+the caller's stream, a K-word scratch from the wrapper. ``quant_plan``
+takes it by the rule in its docstring.
+
 The plain versions ``quantize_pack_int{8,4,2}_ref`` are the port's
 copies of ``Int{8,4,2}Codec.encode_ref`` run op by op, and each kernel is
 bit-identical to its plain version. They divide by a tensor, never by a
@@ -36,8 +46,9 @@ reciprocal instead, which is not the IEEE quotient the reference takes.
 a multiply, so its jitted int4 scale can sit one ulp from the eager one;
 the port holds the eager reference.)
 
-Each wrapper takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; its ``.launches`` counts the kernel launches.
+Each wrapper takes the plain version for a CPU tensor and launches a
+form for a CUDA tensor; its ``.launches`` counts one a stack, however
+many CUDA launches the form makes.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCH = [_P, _P, _P] + [_I] * 6 + [_P]
+_GRID_LAUNCH = [_P] * 4 + [_I] * 5 + [_P]
 
 CLUSTERS = (16, 8, 4, 2, 1)      # cluster sizes, largest first
 THREADS = 256                    # a CTA (csrc/quant.cu kThreads)
@@ -64,14 +76,58 @@ INDEX_MAX = 2**31 - 1
 # absmax costs a push to every peer, and 16 CTAs of 1024 elements ran
 # slower than 8 of 2048 on an H100
 SLAB_MIN = 2048
+# the grid form (csrc/quant.cu): elements (absmax) or output bytes (pack)
+# a CTA takes at a time, and a grid's CTAs in all (4 waves of 8 a SM)
+GRID_TILE = 4096
+GRID_CTAS = 4224
+# the grid form's rows are its grids' second dimension
+GRID_ROWS_MAX = 65535
+# the grid form from this row length on (takes_grid)
+GRID_MIN_LEN = 2**22
 
 
 @dataclass(frozen=True)
 class QuantPlan:
-    cluster: int        # C, CTAs per row
-    span: int           # output bytes per CTA, a multiple of 4
-    slab: int           # elements a CTA reads: span * (8 // bits)
-    variant: str = "registers"   # or "stream": past SLAB_MAX, read twice
+    cluster: int        # C, CTAs per row (0: the grid form)
+    span: int           # output bytes a CTA (grid: a tile), a multiple of 4
+    slab: int           # elements a CTA (a tile) reads: span * (8 // bits)
+    variant: str = "registers"   # or "stream": past SLAB_MAX, read twice;
+                                 # or "grid"
+    ctas_absmax: int = 0         # grid form: the absmax kernel's CTAs a row
+    ctas_pack: int = 0           # grid form: the pack kernel's CTAs a row
+
+
+def grid_ctas(K: int, n: int) -> int:
+    """G of a grid-form kernel over n elements or bytes a row: its
+    4096-wide tiles, at most ceil(``GRID_CTAS`` / K) (``grid_ctas`` in
+    ``csrc/quant.cu``)."""
+    return min(-(-n // GRID_TILE), -(-GRID_CTAS // K))
+
+
+def takes_grid(K: int, L: int) -> bool:
+    """Whether the plan takes the grid form for K rows of L elements:
+    from L = ``GRID_MIN_LEN`` (2^22) on, in every width.
+
+    The rule rests on ``src/repro_torch/bench/codec_grid.py`` (NVIDIA H100
+    80GB HBM3, 700.00 W; ms a call by CUDA events, grid / cluster form,
+    int8, x ~ N(0, 1) * 1e-3; PR 28):
+
+    ===========  ==============  ==============  ==============
+    L            K = 1           K = 4           K = 8
+    ===========  ==============  ==============  ==============
+    350,000      0.097 / 0.102   0.073 / 0.091   0.090 / 0.073
+    1,000,000    0.082 / 0.052   0.091 / 0.051   0.100 / 0.081
+    2,097,152    0.060 / 0.070   0.061 / 0.111   0.096 / 0.148
+    4,194,304    0.097 / 0.127   0.086 / 0.213   0.139 / 0.250
+    16,777,216   0.088 / 0.723   0.232 / 0.784   0.434 / 0.903
+    253,755,392  0.784 / 10.49   3.155 / 11.30   6.221 / 13.10
+    ===========  ==============  ==============  ==============
+
+    From 2^22 the grid form won at every K in every width (int4 and int2
+    there: 0.077-0.126 / 0.095-0.212 ms); below it the host's two extra
+    launches (~20-40 us) lose or tie against one, although the grid
+    form's device time is mostly the lower from 350,000 on."""
+    return L >= GRID_MIN_LEN
 
 
 def byte_span(n_bytes: int, cluster: int) -> int:
@@ -81,10 +137,18 @@ def byte_span(n_bytes: int, cluster: int) -> int:
     return -(-span // 4) * 4
 
 
-def quant_plan(K: int, L: int, bits: int, cluster: int | None = None
-               ) -> QuantPlan:
+def quant_plan(K: int, L: int, bits: int, cluster: int | None = None,
+               grid: bool | None = None) -> QuantPlan:
     """C, the bytes and elements of one CTA and its variant for K rows of
     L elements at ``bits`` bits a code.
+
+    The grid form where ``grid`` is True, or, with ``grid`` and
+    ``cluster`` None, where ``takes_grid`` says so: the absmax kernel's
+    and the pack kernel's CTAs a row (``grid_ctas`` of L elements and of
+    the row's ceil(L / (8 // bits)) bytes), each CTA taking the
+    4096-element or 4096-byte tiles g, g + G, ... of its row (``span``
+    and ``slab`` are a pack tile's bytes and elements). ``cluster``
+    forces the cluster form, and ``grid=False`` keeps it.
 
     Without ``cluster``: the largest C of ``CLUSTERS`` whose CTAs each
     read at least ``SLAB_MIN`` elements (C = 1 for a short row). With
@@ -104,6 +168,17 @@ def quant_plan(K: int, L: int, bits: int, cluster: int | None = None
                          f"the kernel's int32 indices (at most {INDEX_MAX})")
     per = 8 // bits
     W = -(-L // per)
+    if grid and cluster is not None:
+        raise ValueError(f"quant_plan: grid=True takes no cluster, got "
+                         f"cluster={cluster}")
+    if grid is None and cluster is None:
+        grid = takes_grid(K, L)
+    if grid:
+        if K > GRID_ROWS_MAX:
+            raise ValueError(f"quant_plan: the grid form takes at most "
+                             f"{GRID_ROWS_MAX} rows, got K={K}")
+        return QuantPlan(0, GRID_TILE, GRID_TILE * per, "grid",
+                         grid_ctas(K, L), grid_ctas(K, W))
     if cluster is None:
         cluster = next((c for c in CLUSTERS
                         if byte_span(W, c) * per >= SLAB_MIN), 1)
@@ -187,58 +262,71 @@ def quantize_pack_int2_ref(x: torch.Tensor
 
 
 def _launch(x: torch.Tensor, what: str, bits: int, dtype: torch.dtype,
-            cluster: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+            cluster: int | None, grid: bool | None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Validate ``x``, plan, allocate the payload and scales, launch the
-    kernel on the current stream and raise if it was refused."""
+    planned form on the current stream and raise if it was refused."""
     _build.require_cuda(x, what)
     rows = _rows(x, what)
     K, L = rows.shape
     _build.require(rows, "x", dtype=torch.float32, shape=(K, L),
                    device=x.device)
-    plan = quant_plan(K, L, bits, cluster)
-    fn = _build.function("quant_launch", _LAUNCH)
+    plan = quant_plan(K, L, bits, cluster, grid)
     payload = torch.empty((K, -(-L // (8 // bits))), dtype=dtype,
                           device=x.device)
     scale = torch.empty((K,), dtype=torch.float32, device=x.device)
-    err = fn(rows.data_ptr(), payload.data_ptr(), scale.data_ptr(), K, L,
-             bits, plan.cluster, plan.span, int(plan.variant == "stream"),
-             _build.stream_ptr(x.device))
-    _build.check_launch(err, "quant_launch")
+    if plan.variant == "grid":
+        fn = _build.function("quant_grid_launch", _GRID_LAUNCH)
+        amax = torch.empty((K,), dtype=torch.int32, device=x.device)
+        err = fn(rows.data_ptr(), payload.data_ptr(), scale.data_ptr(),
+                 amax.data_ptr(), K, L, bits, plan.ctas_absmax,
+                 plan.ctas_pack, _build.stream_ptr(x.device))
+        _build.check_launch(err, "quant_grid_launch")
+    else:
+        fn = _build.function("quant_launch", _LAUNCH)
+        err = fn(rows.data_ptr(), payload.data_ptr(), scale.data_ptr(), K,
+                 L, bits, plan.cluster, plan.span,
+                 int(plan.variant == "stream"), _build.stream_ptr(x.device))
+        _build.check_launch(err, "quant_launch")
     return _out(x, payload, scale)
 
 
-def quantize_pack_int8(x: torch.Tensor, cluster: int | None = None
+def quantize_pack_int8(x: torch.Tensor, cluster: int | None = None,
+                       grid: bool | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 encode of a (L,) update or a (K, L) stack of them, through
     K2 on the card (the plain version on the CPU); bit-identical to
-    ``Int8Codec.encode_ref``."""
+    ``Int8Codec.encode_ref``. ``cluster`` or ``grid=True`` force a form
+    (for tests and timing); None plans it."""
     if x.device.type == "cpu":
         return quantize_pack_int8_ref(x)
-    out = _launch(x, "quantize_pack_int8", 8, torch.int8, cluster)
+    out = _launch(x, "quantize_pack_int8", 8, torch.int8, cluster, grid)
     quantize_pack_int8.launches += 1
     return out
 
 
-def quantize_pack_int4(x: torch.Tensor, cluster: int | None = None
+def quantize_pack_int4(x: torch.Tensor, cluster: int | None = None,
+                       grid: bool | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """int4 encode of a (L,) update or a (K, L) stack of them, through
     K2's int4 kernel on the card (the plain version on the CPU);
     bit-identical to the eager ``Int4Codec.encode_ref``."""
     if x.device.type == "cpu":
         return quantize_pack_int4_ref(x)
-    out = _launch(x, "quantize_pack_int4", 4, torch.uint8, cluster)
+    out = _launch(x, "quantize_pack_int4", 4, torch.uint8, cluster, grid)
     quantize_pack_int4.launches += 1
     return out
 
 
-def quantize_pack_int2(x: torch.Tensor, cluster: int | None = None
+def quantize_pack_int2(x: torch.Tensor, cluster: int | None = None,
+                       grid: bool | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """int2 encode of a (L,) update or a (K, L) stack of them, through
     K2's int2 kernel on the card (the plain version on the CPU);
     bit-identical to ``Int2Codec.encode_ref``."""
     if x.device.type == "cpu":
         return quantize_pack_int2_ref(x)
-    out = _launch(x, "quantize_pack_int2", 2, torch.uint8, cluster)
+    out = _launch(x, "quantize_pack_int2", 2, torch.uint8, cluster, grid)
     quantize_pack_int2.launches += 1
     return out
 

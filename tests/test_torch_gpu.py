@@ -792,10 +792,10 @@ def test_topk_kernel_device_form_at_the_main_shape(cuda, k):
 @pytest.mark.parametrize("L,k", [(16384, 2048), (350000, 43750),
                                  (1000000, 1)])
 def test_topk_plan_on_the_card_takes_resident_clusters(cuda, L, k):
-    """The planned C is the widest whose 8 clusters the card holds at
-    once (webspam's row: not C = 16 at 188 KB a CTA)."""
+    """The cluster forms' C is the widest whose 8 clusters the card holds
+    at once (webspam's row: not C = 16 at 188 KB a CTA)."""
     x = torch.randn((8, L), device=cuda)
-    topk_select(x, k)
+    topk_select(x, k, grid=False)
     plan = topk_select.last_plan
     assert topk.max_active_clusters(x.device, plan) >= 8
     for wider in topk.CLUSTERS:
@@ -804,6 +804,156 @@ def test_topk_plan_on_the_card_takes_resident_clusters(cuda, L, k):
         p = topk.topk_plan(8, L, k, wider)
         if p.slab >= topk.SLAB_MIN:
             assert topk.max_active_clusters(x.device, p) < 8
+
+
+# -- the grid forms of K4 and K2 (long rows) ---------------------------------
+
+# a few million elements at most: L not a multiple of 4, one tile or a
+# scalar tail alone, and rows of many pass tiles (4096 elements each)
+GRID_LENGTHS = [1, 5, 4097, 1000003, 3000001]
+GRID_KINDS = ["normal", "ties", "zeros", "single", "negzero"]
+
+
+def _grid_stack(kind, K, L, g, dev, offset):
+    """K rows of ``kind`` ("mixed": row r of ``GRID_KINDS[r % 5]``) in a
+    buffer ``offset`` floats past a 16-byte boundary."""
+    x = torch.empty(K * L + offset, device=dev)[offset:].view(K, L)
+    for r in range(K):
+        x[r] = _topk_row(GRID_KINDS[r % 5] if kind == "mixed" else kind, L,
+                         g, dev)
+    return x
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+@pytest.mark.parametrize("kind", GRID_KINDS + ["mixed"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_topk_grid_form_bit_identical(cuda, K, kind, offset):
+    """K4's grid form forced: integer ties in [-3, 3] across the pass
+    tiles, all-zero rows and one nonzero a row (every key in one bin:
+    the passes past the candidate cap read x again), -0.0 entries, k = 1,
+    ceil(L/100) and L, x offset by one float; one count a stack."""
+    g = torch.Generator(device=cuda).manual_seed(K * 10 + offset)
+    for L in GRID_LENGTHS:
+        x = _grid_stack(kind, K, L, g, cuda, offset)
+        for k in sorted({1, -(-L // 100), L}):
+            before = topk_select.launches
+            got = topk_select(x, k, grid=True)
+            assert topk_select.launches == before + 1
+            assert topk_select.last_plan.form == "grid"
+            _assert_topk_equal(got, topk_select_ref(x, k))
+
+
+def test_topk_grid_form_two_launches_bit_identical(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = _grid_stack("mixed", 4, 3000001, g, cuda, 0)
+    for k in (30001, 3000001):
+        first = topk_select(x, k, grid=True)
+        _assert_topk_equal(first, topk_select(x, k, grid=True))
+        _assert_topk_equal(first, topk_select_ref(x, k))
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+@pytest.mark.parametrize("K", [1, 4, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_quant_grid_form_bit_identical(cuda, name, K, offset):
+    """K2's grid form forced, each width: rows at three scales, an
+    all-zero row (scale 1) and one nonzero a row (in the last pad byte's
+    slot), L not a multiple of 4, x offset by one float; one count a
+    stack."""
+    enc = getattr(quant, f"quantize_pack_{name}")
+    ref = getattr(quant, f"quantize_pack_{name}_ref")
+    g = torch.Generator(device=cuda).manual_seed(K + offset)
+    for L in GRID_LENGTHS:
+        x = _grid_stack("normal", K, L, g, cuda, offset)
+        x[0] *= 1e-6
+        if K > 1:
+            x[1] = 0.0
+        if K > 2:
+            x[2] = 0.0
+            x[2, L - 1] = -2.5
+        if K > 3:
+            x[3] *= 1e6
+        before = enc.launches
+        pk, sk = enc(x, grid=True)
+        assert enc.launches == before + 1
+        pp, sp = ref(x)
+        assert pk.dtype == pp.dtype and pk.equal(pp), (L, K)
+        assert _bits(sk).equal(_bits(sp)), (L, K)
+        if K > 1:
+            assert sk[1].item() == 1.0
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_quant_grid_form_nan_and_inf_rows_as_the_cluster_form(cuda, name):
+    """A NaN leaves the absmax as fmaxf leaves it (the cluster form's
+    rule; the plain version's amax would take the NaN), an inf makes it
+    inf: the grid form's bits equal the cluster form's."""
+    enc = getattr(quant, f"quantize_pack_{name}")
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((5, 1000003), generator=g, device=cuda)
+    x[0, 5] = float("nan")
+    x[1, 7] = float("inf")
+    x[2] = float("nan")
+    x[3, 9] = -float("inf")
+    x[3, 10] = float("nan")
+    x[4, 11] = -0.0
+    grid, cl = enc(x, grid=True), enc(x, cluster=16)
+    assert grid[0].equal(cl[0]) and _bits(grid[1]).equal(_bits(cl[1]))
+    assert torch.isinf(grid[1][1]) and grid[1][2].item() == 1.0
+    # the row with a -0.0 and no NaN or inf: the plain version's bits
+    pp, sp = getattr(quant, f"quantize_pack_{name}_ref")(x[4:])
+    assert grid[0][4:].equal(pp) and _bits(grid[1][4:]).equal(_bits(sp))
+
+
+@pytest.mark.parametrize("name", list(WIDTHS))
+def test_quant_grid_form_two_launches_bit_identical(cuda, name):
+    enc = getattr(quant, f"quantize_pack_{name}")
+    x = torch.randn((4, 3000001), device=cuda)
+    first, second = enc(x, grid=True), enc(x, grid=True)
+    assert first[0].equal(second[0])
+    assert _bits(first[1]).equal(_bits(second[1]))
+
+
+def test_grid_launch_failure_raises(cuda):
+    """A grid plan the C side does not reproduce (CTAs a row, scratch
+    bytes) is refused and raises; nothing falls back."""
+    x = torch.randn((2, 5000), device=cuda)
+    plan = topk.topk_plan(2, 5000, 50, grid=True)
+    fn = _build.function("topk_grid_launch", topk._GRID_LAUNCH)
+    out = [torch.empty((2, 50), device=cuda),
+           torch.empty((2, 50), dtype=torch.int32, device=cuda),
+           torch.empty((2,), device=cuda)]
+    scratch = torch.empty((plan.scratch_bytes,), dtype=torch.uint8,
+                          device=cuda)
+    for ctas, nbytes in ((plan.ctas + 1, plan.scratch_bytes),
+                         (plan.ctas, plan.scratch_bytes - 256)):
+        err = fn(x.data_ptr(), *(t.data_ptr() for t in out), 2, 5000, 50,
+                 ctas, scratch.data_ptr(), nbytes, _build.stream_ptr(cuda))
+        with pytest.raises(RuntimeError, match="topk_grid_launch"):
+            _build.check_launch(err, "topk_grid_launch")
+    qp = quant.quant_plan(2, 5000, 8, grid=True)
+    fn = _build.function("quant_grid_launch", quant._GRID_LAUNCH)
+    pay = torch.empty((2, 5000), dtype=torch.int8, device=cuda)
+    amax = torch.empty((2,), dtype=torch.int32, device=cuda)
+    err = fn(x.data_ptr(), pay.data_ptr(), out[2].data_ptr(),
+             amax.data_ptr(), 2, 5000, 8, qp.ctas_absmax + 1, qp.ctas_pack,
+             _build.stream_ptr(cuda))
+    with pytest.raises(RuntimeError, match="quant_grid_launch"):
+        _build.check_launch(err, "quant_grid_launch")
+
+
+def test_leaf_shapes_plan_the_grid_forms(cuda):
+    """tinyllama's largest leaf at one and four rows: both kernels take
+    the grid form, one count a stack."""
+    L = TINYLLAMA_LARGEST
+    x = torch.randn((1, L), device=cuda) * 1e-3
+    before = (topk_select.launches, quantize_pack_int8.launches)
+    topk_select(x, -(-L // 100))
+    assert topk_select.last_plan.form == "grid"
+    quantize_pack_int8(x)
+    assert quant.quant_plan(1, L, 8).variant == "grid"
+    assert (topk_select.launches, quantize_pack_int8.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 # -- K3: 16-byte groups, ragged strides ---------------------------------------

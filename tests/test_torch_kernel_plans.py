@@ -3,6 +3,7 @@
 launcher cache of ``repro_torch.kernels._build``, and the two wrappers on
 CPU tensors, which take their plain versions whatever cluster is asked
 for and match the reference's encodes bit for bit."""
+import math
 import types
 
 import jax.numpy as jnp
@@ -12,6 +13,7 @@ import torch
 from jax import lax
 
 from repro.comm.codec import get_codec as get_codec_ref
+from repro_torch.comm.codec import get_codec
 from repro_torch.kernels import _build, quant, topk
 from repro_torch.kernels.quant import QuantPlan, quant_plan
 from repro_torch.kernels.topk import TopkPlan, topk_plan, topk_select
@@ -226,6 +228,165 @@ def test_topk_plan_admits_rows_past_the_one_cta_limit():
     for k in (1, 7500, 60000):
         plan = topk_plan(2, 60000, k)
         assert plan.cluster == 16 and plan.shared_bytes <= topk.SHARED_LIMIT
+
+
+# -- the grid forms (long rows) ---------------------------------------------
+
+LEAF = 22 * 2048 * 5632                   # tinyllama's largest leaf
+# (K, L, bits) of the transformer rows' largest leaves: tinyllama's under
+# virtual_round and at one NCCL rank, mamba2's int8 and ef:int4 rows,
+# deepseek's, whisper's ef:int2
+LEAF_ROWS = [(4, LEAF, 8), (1, LEAF, 8), (4, 649789440, 8),
+             (4, 433192960, 4), (4, 117440512, 8), (4, 19955712, 2)]
+GRID_LENGTHS = [1, 3, 5, 4095, 4097, 8191, 8193, 60001, 100003]
+
+
+def grid_pass_reads(L, G, tile, offset):
+    """The elements each CTA of a grid-form pass over a row reads, as
+    csrc/topk_grid.cu's topk_grid_pass and csrc/quant.cu's
+    quant_grid_absmax take them (``tile`` 4096 both): a scalar head up
+    to the row's first 16-byte boundary (the row starts ``offset``
+    floats past one) and a scalar tail of fewer than 4 elements, both by
+    CTA 0; then the tiles of ``tile`` elements (float4 loads), tile t by
+    CTA t mod G."""
+    head = min(L, (4 - offset % 4) % 4)
+    nvec = (L - head) // 4
+    reads = [list(range(head)) + list(range(head + 4 * nvec, L))]
+    reads += [[] for _ in range(G - 1)]
+    vec = tile // 4
+    for t in range(-(-nvec // vec)):
+        q0, q1 = t * vec, min((t + 1) * vec, nvec)
+        reads[t % G].extend(range(head + 4 * q0, head + 4 * q1))
+    return reads
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_grid_passes_read_each_element_once(K, offset):
+    """K4's passes over x and K2's absmax pass: every element of the row
+    once, for any alignment of the row; G at most ceil(4224 / K)."""
+    for L in GRID_LENGTHS:
+        plan = topk_plan(K, L, 1, grid=True)
+        qplan = quant_plan(K, L, 8, grid=True)
+        for G, tile in ((plan.ctas, topk.GRID_TILE),
+                        (qplan.ctas_absmax, quant.GRID_TILE)):
+            assert 1 <= G <= -(-4224 // K) and G <= -(-L // tile)
+            reads = grid_pass_reads(L, G, tile, offset)
+            assert len(reads) == G
+            assert sorted(i for r in reads for i in r) == list(range(L))
+
+
+@pytest.mark.parametrize("bits", WIDTHS)
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_quant_grid_byte_tiles_cover_each_byte_once(bits, K):
+    """K2's pack kernel: tile t of 4096 output bytes by CTA t mod G; byte
+    j packs elements j, j + W, ... (the cluster form's pairing), so the
+    tiles read each element of the row once."""
+    per = 8 // bits
+    for L in GRID_LENGTHS:
+        plan = quant_plan(K, L, bits, grid=True)
+        W = -(-L // per)
+        assert plan.variant == "grid" and plan.cluster == 0
+        assert (plan.span, plan.slab) == (quant.GRID_TILE,
+                                          quant.GRID_TILE * per)
+        assert plan.ctas_pack == quant.grid_ctas(K, W)
+        owned = [[] for _ in range(plan.ctas_pack)]
+        for t in range(-(-W // quant.GRID_TILE)):
+            owned[t % plan.ctas_pack].extend(
+                range(t * quant.GRID_TILE, min((t + 1) * quant.GRID_TILE, W)))
+        assert sorted(j for o in owned for j in o) == list(range(W))
+        read = sorted(j + p * W for o in owned for j in o for p in range(per)
+                      if j + p * W < L)
+        assert read == list(range(L))
+
+
+@pytest.mark.parametrize("K,L,k", [(4, LEAF, 2537554), (1, LEAF, 2537554),
+                                   (8, 350000, 43750), (2, 5, 5),
+                                   (3, 2**23, 1), (8, 2**23, 2**23)])
+def test_topk_grid_scratch_follows_its_formula(K, L, k):
+    """256-byte-aligned parts: every row's state and six histograms, k
+    survivor keys a row, max(k, 2 cap) keys a row of work space, cap =
+    min(L, 2^22); ceil(log2(ceil(k / 4096))) merge rounds."""
+    plan = topk_plan(K, L, k, grid=True)
+
+    def up(b):
+        return -(-b // 256) * 256
+    cap = min(L, 2**22)
+    assert (plan.form, plan.cluster, plan.cap) == ("grid", 0, cap)
+    assert plan.scratch_bytes == (up(4 * K * (64 + 6 * 2048))
+                                  + up(8 * K * k)
+                                  + up(8 * K * max(k, 2 * cap)))
+    assert plan.merges == max(0, math.ceil(math.log2(-(-k // 4096))))
+    assert plan.variant == f"grid of {plan.ctas} CTAs a row"
+
+
+def test_topk_grid_scratch_at_the_leaf_is_below_a_gigabyte():
+    """tinyllama's leaf under virtual_round, k = 2,537,554: 349,835,008
+    B of scratch, where the cluster form's was K*C*scratch_words*8 =
+    5,368,709,120."""
+    k = get_codec("topk(r=0.01)")._k(LEAF)
+    assert k == 2537554
+    plan = topk_plan(4, LEAF, k)
+    assert plan.form == "grid" and plan.scratch_bytes == 349835008
+    old = topk_plan(4, LEAF, k, survivors="device")
+    assert 4 * old.cluster * old.scratch_words * 8 == 5368709120
+
+
+@pytest.mark.parametrize("K,L,bits", LEAF_ROWS)
+def test_leaf_rows_plan_the_grid_forms(K, L, bits):
+    plan = quant_plan(K, L, bits)
+    assert plan.variant == "grid"
+    assert plan.ctas_absmax == plan.ctas_pack == -(-4224 // K)
+    k = -(-L // 100)
+    assert topk_plan(K, L, k).form == "grid"
+    assert topk_plan(K, L, k).ctas == -(-4224 // K)
+
+
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_grid_rule_switches_at_the_measured_lengths(K):
+    """The cluster forms below ``GRID_MIN_LEN``, the grid forms from it on
+    (the card timings in each ``takes_grid``'s docstring)."""
+    for L, want in ((topk.GRID_MIN_LEN - 1, "cluster"),
+                    (topk.GRID_MIN_LEN, "grid")):
+        assert topk_plan(K, L, -(-L // 100)).form == want
+    for L, k, want in ((topk.GRID_MIN_LEN_K, topk.GRID_MIN_K - 1, "cluster"),
+                       (topk.GRID_MIN_LEN_K, topk.GRID_MIN_K, "grid"),
+                       (topk.GRID_MIN_LEN_K - 1, topk.GRID_MIN_K, "cluster")):
+        assert topk_plan(K, L, k).form == want
+    for L, want in ((quant.GRID_MIN_LEN - 1, False),
+                    (quant.GRID_MIN_LEN, True)):
+        for bits in WIDTHS:
+            assert (quant_plan(K, L, bits).variant == "grid") == want
+
+
+def test_main_path_keeps_the_cluster_forms_webspam_k4_the_grid():
+    """The main path's K2 and K4 and webspam's K2 keep their cluster
+    forms; webspam's ef:topk row (k = 43,750) takes K4's grid form,
+    which the card timed faster there at K = 1, 4 and 8 (takes_grid)."""
+    assert topk_plan(8, 16384, 2048).form == "cluster"
+    assert topk_plan(8, 16384, 16384).form == "cluster"
+    assert topk_plan(8, 350000, 43750).form == "grid"
+    assert topk_plan(8, 350000, 3500).form == "cluster"
+    assert topk_plan(8, 349999, 43750).form == "cluster"
+    for bits in WIDTHS:
+        assert quant_plan(8, 16384, bits).variant == "registers"
+        assert quant_plan(8, 350000, bits).variant == "registers"
+
+
+def test_grid_plans_refuse_what_they_cannot_take():
+    with pytest.raises(ValueError, match="grid=True takes no cluster"):
+        topk_plan(1, 5000, 50, cluster=16, grid=True)
+    with pytest.raises(ValueError, match="grid=True takes no cluster"):
+        topk_plan(1, 5000, 50, survivors="device", grid=True)
+    with pytest.raises(ValueError, match="grid=True takes no cluster"):
+        quant_plan(1, 5000, 8, cluster=16, grid=True)
+    with pytest.raises(ValueError, match="at most 65535 rows"):
+        topk_plan(65536, 8, 1, grid=True)
+    with pytest.raises(ValueError, match="at most 65535 rows"):
+        quant_plan(65536, 8, 8, grid=True)
+    # grid=False keeps the cluster forms where the rule would not
+    assert topk_plan(1, LEAF, 1, grid=False).form == "cluster"
+    assert quant_plan(1, LEAF, 8, grid=False).variant == "stream"
 
 
 # -- the launcher cache -----------------------------------------------------

@@ -129,7 +129,12 @@ def test_quant_plan_main_shape_unchanged(bits):
                                  (409603, 4097), (1000000, 1),
                                  (200003, 200003)])
 def test_topk_plan_at_long_shapes(L, k):
-    plan = topk_plan(K_ROWS, L, k)
+    """The cluster forms' variants at the shapes the shared form refused
+    (``grid=False``); the plan itself takes the grid form where
+    ``takes_grid`` says so (webspam's row since PR 28)."""
+    assert (topk_plan(K_ROWS, L, k).form == "grid") == topk.takes_grid(
+        K_ROWS, L, k) == (L == WEBSPAM_M)
+    plan = topk_plan(K_ROWS, L, k, grid=False)
     assert plan.survivors == "device" and plan.cluster == 16
     assert plan.patterns == ("device" if L == 1000000 else "shared")
     assert plan.variant == (f"survivors in device, patterns in "
@@ -148,10 +153,13 @@ def test_topk_plan_webspam_row():
     k = get_codec("topk(r=0.125)")._k(WEBSPAM_M)
     assert k == 43750
     assert topk.shared_bytes(21876, k, 16) == 723456
-    # the patterns (87,504 B), a sort tile of 8192 keys, 16 peers'
-    # histograms in two parities, its own two, the scratch
-    assert topk_plan(K_ROWS, WEBSPAM_M, k).shared_bytes == \
+    # the cluster form's CTA: the patterns (87,504 B), a sort tile of
+    # 8192 keys, 16 peers' histograms in two parities, its own two, the
+    # scratch; the plan takes the grid form there (PR 28's timings)
+    assert topk_plan(K_ROWS, WEBSPAM_M, k, grid=False).shared_bytes == \
         4 * 21876 + 8 * 8192 + 2 * 16 * 1024 + 2048 + 512
+    assert topk_plan(K_ROWS, WEBSPAM_M, k) == topk.grid_layout(
+        K_ROWS, WEBSPAM_M, k)
 
 
 def test_topk_plan_main_shape_unchanged():
@@ -167,24 +175,25 @@ def _resident_below(cluster, count):
 
 
 def test_topk_plan_takes_the_widest_resident_cluster():
-    """webspam's ef:topk row: 8 clusters of 16 CTAs of 188 KB do not all
-    fit the card at once (7 do), so the plan takes C = 8, its slab's
-    patterns read again from x."""
+    """webspam's ef:topk row in the cluster forms: 8 clusters of 16 CTAs
+    of 188 KB do not all fit the card at once (7 do), so the plan takes
+    C = 8, its slab's patterns read again from x."""
     k = get_codec("topk(r=0.125)")._k(WEBSPAM_M)
     plan = topk_plan(K_ROWS, WEBSPAM_M, k,
-                     max_active_clusters=_resident_below(16, 7))
+                     max_active_clusters=_resident_below(16, 7), grid=False)
     assert (plan.cluster, plan.survivors, plan.patterns) == (
         8, "device", "device")
     assert plan == topk_plan(K_ROWS, WEBSPAM_M, k, cluster=8)
     # all 8 resident: C = 16, as the pure plan
     assert topk_plan(K_ROWS, WEBSPAM_M, k, max_active_clusters=
-                     _resident_below(16, 8)).cluster == 16
+                     _resident_below(16, 8), grid=False).cluster == 16
 
 
 @pytest.mark.parametrize("L,k", [(16384, 2048), (16384, 16384),
                                  (WEBSPAM_M, 43750), (1000000, 1)])
 def test_topk_plan_with_none_resident_takes_the_narrowest(L, k):
-    plan = topk_plan(K_ROWS, L, k, max_active_clusters=lambda p: K_ROWS - 1)
+    plan = topk_plan(K_ROWS, L, k, max_active_clusters=lambda p: K_ROWS - 1,
+                     grid=False)
     assert plan == topk_plan(K_ROWS, L, k, cluster=1)
 
 
@@ -217,6 +226,38 @@ def test_topk_select_on_cpu_takes_a_forced_form():
     got = topk.topk_select(x, 126, survivors="device")
     want = topk.topk_select_ref(x, 126)
     assert all(a.equal(b) for a, b in zip(got, want))
+
+
+def test_codecs_on_cpu_take_a_forced_grid_form():
+    """grid=True on a CPU tensor is the plain version, as every forced
+    form is; no kernel is counted."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 1001), generator=g)
+    x[1] = torch.randint(-3, 4, (1001,), generator=g).float()
+    x[2] = 0.0
+    before = topk.topk_select.launches
+    got = topk.topk_select(x, 126, grid=True)
+    assert all(a.equal(b) for a, b in zip(got, topk.topk_select_ref(x, 126)))
+    assert topk.topk_select.launches == before
+    for name in ("int8", "int4", "int2"):
+        enc = getattr(quant, f"quantize_pack_{name}")
+        before = enc.launches
+        got = enc(x, grid=True)
+        want = getattr(quant, f"quantize_pack_{name}_ref")(x)
+        assert all(a.equal(b) for a, b in zip(got, want))
+        assert enc.launches == before
+
+
+@pytest.mark.parametrize("K,L", [(4, 22 * 2048 * 5632), (1, 22 * 2048 * 5632),
+                                 (4, 2**21)])
+def test_topk_plan_at_the_leaf_rows_takes_the_grid_form(K, L):
+    """tinyllama's leaf under virtual_round and at one rank, and the
+    first length of the grid rule: the grid form, whatever the
+    residency of clusters."""
+    k = get_codec("topk(r=0.01)")._k(L)
+    plan = topk_plan(K, L, k, max_active_clusters=lambda p: 0)
+    assert plan == topk.grid_layout(K, L, k)
+    assert plan.survivors == plan.patterns == "device"
 
 
 # -- the CPU path at L = 350,000 against the reference -------------------------
