@@ -212,7 +212,7 @@ JSON line:
      encode kernel at its largest leaf (checked before the row runs), and
      holds two bf16 gradients of one more step from the same params bit
      for bit (a traced step for tinyllama's rows and mamba2's ``int8``);
-  10b. each of the seven other archs at ``.reduced()``: one train step's
+  10b. each of the eight archs trained at ``.reduced()``: one train step's
      loss, its CE, aux and MTP terms (rtol 1e-5) and every gradient leaf
      (within 1e-4 of the leaf's largest |CPU| value, floored at 1e-4) in
      f32 on the card against the CPU on the same params and batch
@@ -332,7 +332,22 @@ JSON line:
      the logged all-to-all bytes equal to 2 E C_loc d 4 (tp - 1) / tp;
      (d) the dry-run and roofline of six pairs on a fake 16 x 16 group
      (``--mesh-dry-run``, a child on the host started before phase 12).
-     ``--only-mesh`` builds the kernels and runs phase 14 alone.
+     ``--only-mesh`` builds the kernels and runs phase 14 alone;
+  15. the bench harness (``repro_torch.bench``): ``BENCH_SPECS``, three
+     specs registered here, time K1, K2 and K3 (``int8``) and K4 at the
+     main path's shapes by ``bench.trace.device_ms``, with their bounds
+     from ``bench.bounds.kernel_bounds`` as counters, through
+     ``run.run_benchmarks`` into a temporary directory: each ``ok``, each
+     file loaded back by ``schema.load`` with an ``env`` naming the card
+     and its power limit as nvidia-smi prints them, ``compare`` of each
+     file against itself exiting 0 and of K1's against a copy with its
+     time doubled exiting 1 with REGRESSION; a fourth spec sleeping
+     past a 1 s budget must come back ``timeout``. Printed: each
+     kernel's device time beside phase 5's.
+
+Every bound is ``repro_torch.bench.bounds``'s and every device time
+``repro_torch.bench.trace``'s, at the card's peaks in
+``repro_torch.launch.mesh``.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device the script exits 1 before
@@ -357,12 +372,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # when this process began running this file (a spawned rank of phase 8
 # reports it, to split its start-up time)
 LOADED_AT = time.time()
+# phase 10's ef: path holds ~68 GB at its largest leaf; without
+# expandable segments the caching allocator strands ~12 GB there. Set
+# before the imports below bring in torch
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
-# f32 operations/s outside the tensor cores, dense bf16 FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+from repro_torch.bench import compare, registry, run, schema  # noqa: E402
+from repro_torch.bench.bounds import (bound_ms, codec_bounds,  # noqa: E402
+                                      dense_products, kernel_bounds,
+                                      lm_predicted_peak, state_bytes,
+                                      step_weight_bytes)
+from repro_torch.bench.trace import device_ms, device_trace, time_ms  # noqa: E402
+from repro_torch.launch.mesh import CARD_BYTES, PEAK_FLOPS_BF16  # noqa: E402
+
 
 # the paths phase 3 drives, and the codec whose kernels each launches
 TOPK_R = 0.125
@@ -520,8 +542,8 @@ LM_TRACED = {("tinyllama-1.1b", "f32"), ("tinyllama-1.1b", "int8"),
 LM_REPS = 3
 # phase 10b: one train step of each arch at .reduced(), batch x seq, on
 # the card and on the CPU in f32, then twice on the card in bf16
-LM_SMALL_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b", "chatglm3-6b",
-                  "whisper-tiny", "qwen2-vl-72b",
+LM_SMALL_ARCHS = ("tinyllama-1.1b", "mamba2-2.7b", "recurrentgemma-9b",
+                  "chatglm3-6b", "whisper-tiny", "qwen2-vl-72b",
                   "llama4-maverick-400b-a17b", "deepseek-v3-671b")
 LM_SMALL = (2, 64)
 LM_SMALL_RTOL, LM_SMALL_GRAD_TOL, LM_SMALL_GRAD_FLOOR = 1e-5, 1e-4, 1e-4
@@ -631,14 +653,14 @@ MESH_DRY = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "decode_32k"),
             ("deepseek-v3-671b", "train_4k"),
             ("deepseek-v3-671b", "decode_32k"),
             ("mamba2-2.7b", "prefill_32k"), ("whisper-tiny", "decode_32k"))
-CARD_BYTES = 80e9
-# device_trace's guard on each side of the traced window: marker
-# kernels (``torch.cuda._sleep``, named "spin_kernel"), left out of every
-# sum. A profiler session in a process that has traced before loses its
-# first few kernel records (2 after phase 5, 11-12 in phase 10, on an
-# H100): the markers ahead take that loss, and a trace counts the
-# markers it kept on each side
-TRACE_MARKERS, MARKER = 32, "spin_kernel"
+# phase 15: specs registered here (not in the harness's DEFAULT_MODULES),
+# each timing kernels (KERNEL_NAMES' keys) at the main path's shapes,
+# run by repro_torch.bench.run; then one that sleeps BENCH_SLEEP[0] s
+# past a budget of BENCH_SLEEP[1] s and must come back "timeout"
+BENCH_SPECS = {"chip_smoke_k1": ("scd_solve",),
+               "chip_smoke_k2_k3_int8": ("int8", "decode_int8"),
+               "chip_smoke_k4": ("topk",)}
+BENCH_SLEEP = (3.0, 1.0)
 # substrings of the names of cuBLAS's matrix-product kernels
 LM_GEMM = ("gemm", "xmma", "cutlass", "sm90_", "nvjet")
 POWER_ITERS = 30
@@ -711,41 +733,6 @@ def max_err(a, b, chunk: int = 1 << 26) -> float:
                default=0.0)
 
 
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call from CUDA events around ``reps`` warm
-    calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps: int, kernel, guards=None):
-    """Mean device milliseconds per call of ``fn``: the device time of
-    every kernel whose name holds ``kernel`` (a substring, or a tuple of
-    them: a form of several kernels is summed) in a ``torch.profiler``
-    trace of ``reps`` warm calls, over ``reps``; "not measured" when the
-    trace holds no such kernel. The trace's guard counts are appended to
-    ``guards`` when it is a list."""
-    names = (kernel,) if isinstance(kernel, str) else kernel
-    fn()
-    trace = device_trace(torch, lambda: [fn() for _ in range(reps)])
-    if guards is not None:
-        guards.append(trace["guard"])
-    hits = [v for name, v in trace.get("kernels", {}).items()
-            if any(n in name for n in names)]
-    if not sum(v["calls"] for v in hits):
-        return "not measured"
-    return sum(v["device_ms"] for v in hits) / reps
-
-
 def quant_fits(L: int, bits: int, cluster) -> bool:
     """Whether K2 takes ``cluster`` CTAs a row of L elements."""
     from repro_torch.kernels.quant import quant_plan
@@ -771,48 +758,6 @@ def dot_bound(n: int) -> float:
     orders, differ by at most this times the sum of their magnitudes."""
     u = 2.0 ** -24
     return 2 * n * u / (1 - n * u)
-
-
-def bound_ms(nbytes: float, ops: float,
-             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def codec_bounds(K: int, L: int, k: int) -> dict:
-    """The bounds of K2 and K3 (each width) on a (K, L) stack and its
-    payloads, and of K4 on that stack keeping k."""
-    bounds = {}
-    for c, per in (("int8", 1), ("int4", 2), ("int2", 4)):
-        wire = -(-L // per)
-        # quantize reads the f32 stack, writes the payload and scales;
-        # decode reads the payload and scales, writes the (L,) f32 sum
-        bounds[c] = bound_ms(K * (4 * L + wire + 4), 6 * K * L)
-        bounds[f"decode_{c}"] = bound_ms(K * (wire + 4) + 4 * L, 2 * K * L)
-    # K4 reads the f32 stack and writes k values, k indices and one
-    # threshold per row; one magnitude per element
-    bounds["topk"] = bound_ms(K * 4 * L + K * (8 * k + 4), K * L)
-    return bounds
-
-
-def kernel_bounds(idx, n_pad: int, m: int, k: int):
-    """Each kernel's bound at one shape: K1 on the (K, H) index stream
-    ``idx`` over K blocks of n_pad columns of m rows, K2 and K3 on a
-    (K, m) stack and its payloads, K4 on that stack keeping k. Returns
-    the bounds by kernel key, the distinct columns and K1's bytes."""
-    import torch
-    K, H = idx.shape
-    # K1 reads each distinct visited column once (this run's idx), its
-    # norm, the index stream, alpha in and out, w, and writes Delta v;
-    # a step is a dot and an axpy, 4m operations, plus ~10 scalar ones
-    distinct = int(torch.unique(idx.long()
-                                + torch.arange(K, device=idx.device)[:, None]
-                                * n_pad).numel())
-    scd_bytes = 4 * (distinct * (m + 1) + K * H + 2 * K * n_pad + m + K * m)
-    bounds = {"scd_solve": bound_ms(scd_bytes, K * H * (4 * m + 10))}
-    bounds.update(codec_bounds(K, m, k))
-    return bounds, distinct, scd_bytes
 
 
 def own_kernels(codec) -> tuple:
@@ -880,79 +825,6 @@ def indices_differ(torch, a, b) -> int:
     """How many selected indices of a row the other run did not select
     (``a`` and ``b`` are two (K, k) top-k index tensors)."""
     return sum(int((~torch.isin(ra, rb)).sum()) for ra, rb in zip(a, b))
-
-
-def device_trace(torch, fn, host=()) -> dict:
-    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activities) and
-    sum the device time of each kernel by name, with the device's busy
-    share of the host window, and the host time of each CPU op whose
-    name holds one of the ``host`` substrings. ``TRACE_MARKERS`` marker
-    kernels run on each side of ``fn``; the trace says how many of them
-    it kept. A trace that holds no device time says so instead of
-    failing."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def markers():
-        for _ in range(TRACE_MARKERS):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        markers()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-        markers()
-    by_name, spans, host_ops, marks = {}, [], {}, []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            if any(h in ev.name for h in host):
-                n, us = host_ops.get(ev.name, (0, 0.0))
-                host_ops[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        if MARKER in ev.name:
-            marks.append(start)
-            continue
-        if end <= start:
-            continue
-        spans.append((start, end))
-        name = ev.name if len(ev.name) <= 80 else ev.name[:77] + "..."
-        n, us = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, us + (end - start))
-    host_ms = {name: {"calls": n, "host_ms": us / 1e3}
-               for name, (n, us) in host_ops.items()}
-    first = min(s_ for s_, _ in spans) if spans else None
-    guard = dict(
-        markers_kept=(dict(before=sum(m < first for m in marks),
-                           after=sum(m > first for m in marks))
-                      if spans else {"either side": len(marks)}),
-        markers_launched=dict(before=TRACE_MARKERS, after=TRACE_MARKERS))
-    if not spans:
-        return dict(device_time="none in the trace", window_ms=window_us / 1e3,
-                    guard=guard, **({"host_ops": host_ms} if host else {}))
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s_, e_ in spans[1:]:             # the union of the device spans
-        if s_ > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += cur_e - cur_s
-    device_span = spans[-1][1] - spans[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    return dict(
-        window_ms=window_us / 1e3, device_busy_ms=busy / 1e3,
-        device_span_ms=device_span / 1e3,
-        busy_share_of_window=busy / window_us,
-        busy_share_of_device_span=busy / device_span,
-        kernels={name: {"calls": n, "device_ms": us / 1e3}
-                 for name, (n, us) in top}, guard=guard,
-        **({"host_ops": host_ms} if host else {}))
 
 
 def link_fields(link) -> dict:
@@ -1073,7 +945,7 @@ def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
     tr = trainer("cocoa", "compressed:int8")
     go = lambda: run(tr, GLOO_TRACE_ROUNDS, None)     # noqa: E731
     if rank == 0:
-        out["trace"] = device_trace(torch, go, host=GLOO_HOST_OPS)
+        out["trace"] = device_trace(go, host=GLOO_HOST_OPS)
     else:
         go()
     # each kernel at its sharded shape: K1 on this worker's block, K2 and
@@ -1108,7 +980,7 @@ def sharded_rank(rank: int, world: int, device, job: dict) -> dict:
                                "bmv_cols_kernel", 20, tuple(A_T.shape))}
         out["kernels"] = {
             key: dict(shape=list(shape), device_ms=device_ms(
-                torch, fn, n, kname), plan=None)
+                fn, n, kname), plan=None)
             for key, (fn, kname, n, shape) in calls.items()}
         out["kernels"]["scd_solve"]["plan"] = dataclasses.asdict(
             scd_solve.last_plan)
@@ -1154,11 +1026,11 @@ def time_codec_kernels(torch, codec_, e, parts, K: int) -> dict:
         guards = []
         timing[key] = dict(
             shape=[K, L], k=k if key == "topk" else None,
-            ms=time_ms(torch, fn, LM_REPS, warmup=1),
-            device_ms=device_ms(torch, fn, LM_REPS, KERNEL_NAMES[key],
+            ms=time_ms(fn, LM_REPS, warmup=1),
+            device_ms=device_ms(fn, LM_REPS, KERNEL_NAMES[key],
                                 guards),
-            plain_ms=time_ms(torch, ref, 1, warmup=0),
-            library_ms=(time_ms(torch, lib[key], 1, warmup=1)
+            plain_ms=time_ms(ref, 1, warmup=0),
+            library_ms=(time_ms(lib[key], 1, warmup=1)
                         if key in lib else None),
             bound_ms=b[key][0], bound_by=b[key][1], trace_guard=guards[0])
         got, want = fn(), ref()
@@ -1214,23 +1086,6 @@ def lm_lr(cfg) -> float:
     """A row's peak learning rate: ``LM_LR`` scaled by ``LM_FAN_IN`` over
     its widest product input, at most ``LM_LR``."""
     return LM_LR * min(1.0, LM_FAN_IN / lm_fan_in(cfg))
-
-
-def lm_predicted_peak(cfg, n_params: int, largest: int, codec: str,
-                      K: int = LM_K) -> int:
-    """A phase 10 row's predicted peak device bytes while the last shard
-    steps: p0 and the K shards' bf16 copies (2 + 2K B a param), the
-    start, running and next f32 AdamW states and the f32 opt sum (32 B),
-    the bf16 grads (2 B), under an ``ef:`` codec the (K, L) f32 residuals
-    (4K B); AdamW's f32 temporaries on the largest leaf (28 B an
-    element: the grad, its square, the moments, the step's quotients, the
-    param in f32); the f32 logits and their gradient (16 B a logit, twice
-    with an MTP head); 1.5 GB of activations under per-layer remat."""
-    from repro_torch.configs.base import padded_vocab
-    per = 2 + 2 * K + 32 + 2 + (4 * K if codec.startswith("ef:") else 0)
-    logits = (LM_BATCH * LM_SEQ * padded_vocab(cfg) * 16
-              * (2 if cfg.mtp_depth else 1))
-    return n_params * per + 28 * largest + logits + int(1.5e9)
 
 
 def lm_batches(torch, ts, cfg, K: int, H: int, rng, device) -> dict:
@@ -1327,7 +1182,8 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
         embed_len = params["embed"].numel()
         plan = codec_kernel_plan(codec, K, largest)
         n_params = tree_params(params)
-        predicted = lm_predicted_peak(cfg, n_params, largest, codec_name)
+        predicted = lm_predicted_peak(cfg, n_params, largest, codec_name,
+                                      K=LM_K, batch=LM_BATCH, seq=LM_SEQ)
         lr = lm_lr(cfg)
         opt_cfg = AdamWConfig(lr=lr)
         opt = adamw_init(params, opt_cfg)
@@ -1456,7 +1312,7 @@ def transformer_phase(torch, counters, device="cuda") -> dict:
         repeat = grads_repeat(torch, model, params, b0)
         step_trace = "not traced (LM_TRACED)"
         if (arch, codec_name) in LM_TRACED:
-            trace = device_trace(torch, lambda: step(params, opt, b0))
+            trace = device_trace(lambda: step(params, opt, b0))
             kern = trace.get("kernels", {})
             step_trace = dict(
                 window_ms=trace["window_ms"],
@@ -1676,134 +1532,6 @@ class ServeRecorder:
 
     def ms(self):
         return [a.elapsed_time(b) for a, b in self.marks]
-
-
-def mixer_products(cfg, mixer: str, decode: bool = False) -> list:
-    """The (d_in, d_out) of a mixer's bf16 projections. MLA: the query's
-    down and up projections, the latent's and the RoPE key's, and, over
-    a whole sequence only, the latent's up projections to the heads' keys
-    and values (a decode step's absorbed form applies them in f32
-    einsums, which are not counted, as the attention's score products
-    are not), then the output projection."""
-    d = cfg.d_model
-    if mixer == "rglru":
-        W = cfg.rglru.lru_width or d
-        return [(d, W), (d, W), (W, W), (W, W), (W, d)]
-    if mixer == "ssd":
-        s = cfg.ssm
-        din = s.d_inner(d)
-        return [(d, 2 * din + 2 * s.n_groups * s.d_state + s.n_heads(d)),
-                (din, d)]
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if mixer == "mla":
-        m = cfg.mla
-        up = [] if decode else [(m.kv_lora_rank, H * m.qk_nope_dim),
-                                (m.kv_lora_rank, H * m.v_head_dim)]
-        return [(d, m.q_lora_rank),
-                (m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim)),
-                (d, m.kv_lora_rank), (d, m.qk_rope_dim)] + up + [
-                    (H * m.v_head_dim, d)]
-    return [(d, H * Dh), (d, KV * Dh), (d, KV * Dh), (H * Dh, d)]
-
-
-def dense_products(cfg, tokens: int, frames: int = 0,
-                   decode: bool = False) -> tuple[float, float]:
-    """The bf16 matrix products of a forward over ``tokens`` positions,
-    each layer's mixer and channel projections and the unembedding:
-    (flops, bytes), each weight, input and output read or written once
-    (the attention's score products, MLA's absorbed decode, the MoE
-    router and the SSD and RG-LRU scans run in f32 and are not counted).
-    An MoE channel: every expert's three weights, and ``tokens * top_k``
-    rows through them (every assignment, the dropped ones with them),
-    and the shared expert's over ``tokens``. whisper: the decoder's
-    self-attention, cross q and o and MLP over ``tokens``, and over
-    ``frames`` encoder positions (its prefill; 0 in a decode step, which
-    reads the cached cross keys and values) the encoder and each layer's
-    cross k and v."""
-    from repro_torch.configs import padded_vocab
-    from repro_torch.models.transformer import layer_plan
-
-    def mlp(f):
-        return [(d, f), (f, d)] + ([(d, f)] if cfg.mlp_gated else [])
-    d = cfg.d_model
-    shapes = []                         # (positions, d_in, d_out, copies)
-    for mixer, channel in layer_plan(cfg):
-        proj = mixer_products(cfg, mixer, decode)
-        if cfg.family == "audio":               # self, then cross
-            shapes += [(tokens, *ab, 1) for ab in proj + [proj[0], proj[3]]]
-            shapes += [(frames, *ab, 1) for ab in proj[1:3]]
-        else:
-            shapes += [(tokens, *ab, 1) for ab in proj]
-        if channel == "mlp":
-            shapes += [(tokens, *ab, 1) for ab in mlp(cfg.d_ff)]
-        elif channel == "moe":
-            mo = cfg.moe
-            shapes += [(tokens * mo.top_k, *ab, mo.num_experts)
-                       for ab in mlp(mo.d_expert)]
-            if mo.num_shared:
-                shapes += [(tokens, *ab, 1)
-                           for ab in mlp(mo.num_shared * mo.d_expert)]
-    if cfg.family == "audio":
-        shapes += [(frames, *ab, 1) for _ in range(cfg.encdec.num_layers)
-                   for ab in mixer_products(cfg, "attn") + mlp(cfg.d_ff)]
-    shapes.append((tokens, d, padded_vocab(cfg), 1))
-    shapes = [sh for sh in shapes if sh[0]]
-    flops = sum(2 * n * a * b for n, a, b, _ in shapes)
-    nbytes = sum(2 * (n * a + c * a * b + n * b) for n, a, b, c in shapes)
-    return flops, nbytes
-
-
-def state_bytes(cfg, B: int, max_len: int) -> tuple[int, int]:
-    """The bytes of ``init_states(cfg, B, max_len)`` in bf16, from the
-    config alone: (attention caches, ``{h, conv}`` states). A KV cache
-    holds T = min(window, max_len) slots of bf16 k and v and int32
-    ``pos_abs``; an MLA cache max_len slots of the bf16 latent and RoPE
-    key and int32 ``pos_abs``, B T (2 (kv_lora_rank + qk_rope_dim) + 4);
-    an RG-LRU or SSD state an f32 ``h`` and a bf16 conv tail of d_conv -
-    1 rows; a whisper decoder layer also its cross k and v, B source_len
-    KV Dh each in bf16."""
-    from repro_torch.models.transformer import layer_plan
-    attn = rec = 0
-    for mixer, _ in layer_plan(cfg):
-        if mixer == "rglru":
-            W = cfg.rglru.lru_width or cfg.d_model
-            rec += B * (W * 4 + (cfg.rglru.d_conv - 1) * W * 2)
-        elif mixer == "ssd":
-            s = cfg.ssm
-            conv = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
-            rec += B * (s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
-                        + (s.d_conv - 1) * conv * 2)
-        elif mixer == "mla":
-            m = cfg.mla
-            attn += B * max_len * (2 * (m.kv_lora_rank + m.qk_rope_dim) + 4)
-        else:
-            window = cfg.sliding_window
-            if mixer == "attn_local" and cfg.rglru:
-                window = cfg.rglru.local_window
-            T = min(window, max_len) if window else max_len
-            attn += B * T * (2 * cfg.num_kv_heads * cfg.head_dim * 2 + 4)
-            if cfg.family == "audio":
-                attn += (B * cfg.encdec.source_len * cfg.num_kv_heads
-                         * cfg.head_dim * 2 * 2)
-    return attn, rec
-
-
-def step_weight_bytes(cfg, params) -> int:
-    """The weight bytes a decode step reads: every one but the embedding
-    table's (a step gathers B rows of it), which it reads whole where it
-    is also the unembedding, and the MTP head's (which serving does not
-    run); an MoE layer's every expert (the dispatch without drops hands
-    each expert a slab of T top_k rows); for whisper only the decoder's,
-    less each layer's cross k and v projections (their outputs are
-    cached), with the tied embedding whole (``dec_pos``: B rows)."""
-    from repro_torch.utils.trees import tree_bytes
-    if cfg.family == "audio":
-        return (tree_bytes(params["dec_layers"])
-                + tree_bytes(params["dec_norm"]) + tree_bytes(params["embed"])
-                - sum(tree_bytes(lp["cross"][k]) for lp in params["dec_layers"]
-                      for k in ("wk", "wv")))
-    return (tree_bytes(params) - tree_bytes(params.get("mtp", {}))
-            - (0 if cfg.tie_embeddings else tree_bytes(params["embed"])))
 
 
 def serve_extras(torch, cfg, B: int, S: int, rng, device) -> dict:
@@ -2111,10 +1839,10 @@ def serve_phase(torch, counters, device="cuda") -> None:
                 + cache_bytes + rec_bytes)
         decode_bound = bound_ms(read, dense_products(cfg, B,
                                                      decode=True)[0],
-                                BF16_FLOPS_PER_S)
+                                PEAK_FLOPS_BF16)
         frames = B * cfg.encdec.source_len if cfg.encdec else 0
         pre_flops, pre_bytes = dense_products(cfg, B * S, frames)
-        prefill_bound = bound_ms(pre_bytes, pre_flops, BF16_FLOPS_PER_S)
+        prefill_bound = bound_ms(pre_bytes, pre_flops, PEAK_FLOPS_BF16)
         # 5 decode steps more, traced, writing on past the last slot
         # (positions wrap in the cache; the checks are done)
         step = lambda t: model.decode_step(       # noqa: E731
@@ -2126,7 +1854,7 @@ def serve_phase(torch, counters, device="cuda") -> None:
                 for t in range(SERVE_TRACE_STEPS):
                     step(S + n - 1 + t)
 
-        trace = device_trace(torch, steps)
+        trace = device_trace(steps)
         kern = trace.get("kernels", {})
         n_kern = sum(v["calls"] for v in kern.values())
         # and one prefill, into new states
@@ -2136,7 +1864,7 @@ def serve_phase(torch, counters, device="cuda") -> None:
             with torch.inference_mode():
                 model.prefill(params, {"tokens": prompts, **extras}, st)
 
-        p_trace = device_trace(torch, prefill)
+        p_trace = device_trace(prefill)
         p_kern = p_trace.get("kernels", {})
         del st
         held, f32_peak = tf_bf16, None
@@ -3044,8 +2772,8 @@ def step_cost(torch, fn) -> dict:
     """One call of ``fn``: its milliseconds (CUDA events, after a warm
     call) and the kernels it launched (a profiler trace)."""
     fn()
-    ms = time_ms(torch, fn, reps=2, warmup=0)
-    trace = device_trace(torch, fn)
+    ms = time_ms(fn, reps=2, warmup=0)
+    trace = device_trace(fn)
     kernels = sum(v["calls"] for v in trace.get("kernels", {}).values())
     return dict(ms=ms, kernels=kernels,
                 device_busy_ms=trace.get("device_busy_ms", "not measured"))
@@ -3506,6 +3234,109 @@ def mesh_phase(torch, counters, work, dry, lu_hashes=None) -> dict:
     return mesh_l
 
 
+def bench_phase(torch, calls: dict, bounds: dict, timing_ms: dict,
+                card: str) -> None:
+    """Phase 15: the bench harness on the card. ``BENCH_SPECS`` are
+    registered and run through ``run.run_benchmarks``, each timing its
+    kernels' ``calls`` (key: (fn, reps)) by ``device_ms``, with the
+    kernels' ``bounds`` as counters; every result must be ``ok``, load
+    back through ``schema.load`` with an ``env`` naming ``card`` (the
+    card and its power limit as nvidia-smi prints them), compare equal to
+    itself (``compare.main`` exits 0) and, with one timing doubled, exit
+    1 and print REGRESSION; a spec sleeping past its budget must come
+    back ``timeout``. Printed: each spec's device times beside phase 5's
+    (``timing_ms``)."""
+    import io
+    import tempfile
+
+    t0 = time.perf_counter()
+
+    def spec(keys):
+        def fn(ctx):
+            timings, counters, rows = {}, {}, []
+            for key in keys:
+                call, reps = calls[key]
+                guards = []
+                t = device_ms(call, reps, KERNEL_NAMES[key], guards)
+                if not isinstance(t, float):
+                    raise RuntimeError(f"{key}: device time {t} "
+                                       f"(trace guard {guards})")
+                timings[f"{key}_device_s"] = t / 1e3
+                counters[f"{key}_bound_ms"] = bounds[key][0]
+                rows.append(dict(kernel=key, trace_guard=guards[0]))
+            return dict(params={key: calls[key][1] for key in keys},
+                        timings_s=timings, counters=counters, rows=rows)
+        return fn
+
+    def sleep(ctx):
+        time.sleep(BENCH_SLEEP[0])
+        return {}
+
+    for name, keys in BENCH_SPECS.items():
+        registry.benchmark(name, description=", ".join(keys)
+                           + " at the main path's shapes")(spec(keys))
+    registry.benchmark("chip_smoke_sleep")(sleep)
+
+    def quiet(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = compare.main(argv)
+        return rc, buf.getvalue().splitlines()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results")
+        results = run.run_benchmarks(only=list(BENCH_SPECS), out_dir=out)
+        failed = {r.benchmark: r.notes for r in results if r.status != "ok"}
+        if failed:
+            raise SystemExit(f"chip_smoke: bench specs failed: {failed}")
+        slept = run.run_benchmarks(only=["chip_smoke_sleep"],
+                                   out_dir=os.path.join(tmp, "sleep"),
+                                   timeout_s=BENCH_SLEEP[1], verbose=False)[0]
+        paths = {r.benchmark: os.path.join(out, schema.result_filename(
+            r.benchmark)) for r in results}
+        loaded = {name: schema.load(path) for name, path in paths.items()}
+        envs = {name: f"{r.env.device_kind}, {r.env.power_limit}"
+                for name, r in loaded.items()}
+        itself = {name: quiet([path, path])[0] for name, path in paths.items()}
+        # a copy of K1's result with its timing doubled (K1's ~3.6 ms is
+        # above compare's --min-time floor of 0.1 ms; K2's ~3 us is not)
+        first = next(iter(BENCH_SPECS))
+        doubled = loaded[first].to_dict()
+        metric = sorted(doubled["timings_s"])[0]
+        doubled["timings_s"][metric] *= 2
+        doubled_path = os.path.join(tmp, "doubled",
+                                    schema.result_filename(first))
+        os.makedirs(os.path.dirname(doubled_path))
+        with open(doubled_path, "w") as f:
+            json.dump(doubled, f)
+        doubled_rc, doubled_lines = quiet([paths[first], doubled_path])
+        env = dataclasses.asdict(loaded[first].env)
+    kernels = {row["kernel"]: dict(
+        harness_device_ms=r.timings_s[f"{row['kernel']}_device_s"] * 1e3,
+        timing_phase_device_ms=timing_ms[row["kernel"]],
+        bound_ms=r.counters[f"{row['kernel']}_bound_ms"],
+        trace_guard=row["trace_guard"]) for r in results for row in r.rows}
+    ok = dict(env_names_the_card=all(e == card for e in envs.values()),
+              compare_itself_exits_0=all(rc == 0 for rc in itself.values()),
+              compare_doubled_exits_1=doubled_rc == 1,
+              doubled_prints_regression=any("REGRESSION" in ln
+                                            for ln in doubled_lines),
+              sleep_times_out=slept.status == "timeout")
+    phase_done(torch, "bench_harness", t0, kernels=kernels,
+               status={r.benchmark: r.status for r in results},
+               wall_s={r.benchmark: r.wall_s for r in results},
+               env=env, env_card=envs, card=card, compare_itself=itself,
+               compare_doubled=dict(metric=metric, exit=doubled_rc,
+                                    lines=doubled_lines),
+               sleep=dict(status=slept.status, wall_s=slept.wall_s,
+                          slept_s=BENCH_SLEEP[0], budget_s=BENCH_SLEEP[1],
+                          notes=slept.notes), checks=ok)
+    if not all(ok.values()):
+        raise SystemExit(f"chip_smoke: the bench harness failed "
+                         f"{[k for k, v in ok.items() if not v]} (see the "
+                         f"bench_harness line)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=16384)
@@ -3535,9 +3366,6 @@ def main(argv=None) -> int:
             json.dump(rows, f)
         return 0
 
-    # phase 10's ef: path holds ~68 GB at its largest leaf; without
-    # expandable segments the caching allocator strands ~12 GB there
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4123,7 +3951,7 @@ def main(argv=None) -> int:
                            or "not reached")),
         bmv_per_round("minibatch_scd"))
     t0 = time.perf_counter()
-    trace = device_trace(torch, lambda: trB.run(5))
+    trace = device_trace(lambda: trB.run(5))
     phase_done(torch, "baseline_trace", t0, path=label, rounds=5, **trace)
     del trB
     free(torch)
@@ -4167,7 +3995,7 @@ def main(argv=None) -> int:
             sgd_stack = trS._algo.local_step(trS._data, local0, alpha0_s,
                                              trS.row_source(1), 1)[0]
             t0 = time.perf_counter()
-            trace = device_trace(torch, lambda: trS.run_workers(
+            trace = device_trace(lambda: trS.run_workers(
                 5, record_every=1, p_star=base_p_star, p_zero=base_p_zero))
             phase_done(torch, "baseline_trace", t0, path=label, rounds=5,
                        **trace)
@@ -4238,31 +4066,31 @@ def main(argv=None) -> int:
     idx1 = tr.index_source(1)
     L = m
     ms, plain = {}, {}
-    ms["scd_solve"] = time_ms(torch, lambda: scd_solve(
+    ms["scd_solve"] = time_ms(lambda: scd_solve(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps)
-    plain["scd_solve"] = time_ms(torch, lambda: scd_steps(
+    plain["scd_solve"] = time_ms(lambda: scd_steps(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), 3, warmup=1)
-    scd_ms = {str(c): time_ms(torch, lambda c=c: scd_solve(
+    scd_ms = {str(c): time_ms(lambda c=c: scd_solve(
         tr.A_T, tr.col_sq, alpha0, w0, idx1, cluster=c, **kw), args.reps)
         for c in fits}
-    ms["topk"] = time_ms(torch, lambda: topk_select(dv_k, k_main),
+    ms["topk"] = time_ms(lambda: topk_select(dv_k, k_main),
                          4 * args.reps)
-    ms["topk_k_eq_L"] = time_ms(torch, lambda: topk_select(dv_k, L),
+    ms["topk_k_eq_L"] = time_ms(lambda: topk_select(dv_k, L),
                                 args.reps)
-    ms["topk_device_form"] = time_ms(torch, lambda: topk_select(
+    ms["topk_device_form"] = time_ms(lambda: topk_select(
         dv_k, k_main, survivors="device"), 4 * args.reps)
-    plain["topk"] = time_ms(torch, lambda: topk_select_ref(dv_k, k_main),
+    plain["topk"] = time_ms(lambda: topk_select_ref(dv_k, k_main),
                             4 * args.reps)
-    library = {"topk": time_ms(torch, lambda: torch.topk(
+    library = {"topk": time_ms(lambda: torch.topk(
         dv_k.abs(), k_main, dim=1, sorted=True), 4 * args.reps)}
     for c in CODECS:
         p, s, _ = main_payload[c]
-        ms[c] = time_ms(torch, lambda: enc[c](dv_k), 4 * args.reps)
-        plain[c] = time_ms(torch, lambda: enc_ref[c](dv_k), 4 * args.reps)
+        ms[c] = time_ms(lambda: enc[c](dv_k), 4 * args.reps)
+        plain[c] = time_ms(lambda: enc_ref[c](dv_k), 4 * args.reps)
         ms[f"decode_{c}"] = time_ms(
-            torch, lambda: dec[c](p, s, L, mean=False), 4 * args.reps)
+            lambda: dec[c](p, s, L, mean=False), 4 * args.reps)
         plain[f"decode_{c}"] = time_ms(
-            torch, lambda: dec_ref[c](p, s, L, mean=False), 4 * args.reps)
+            lambda: dec_ref[c](p, s, L, mean=False), 4 * args.reps)
     # the same calls again under the profiler: each kernel's own device
     # time per launch, without the host's part of the wrapper
     calls = {"scd_solve": (lambda: scd_solve(
@@ -4277,7 +4105,7 @@ def main(argv=None) -> int:
         calls[c] = (lambda c=c: enc[c](dv_k), 4 * args.reps)
         calls[f"decode_{c}"] = (lambda p=p, s=s, c=c: dec[c](
             p, s, L, mean=False), 4 * args.reps)
-    dev_ms = {key: device_ms(torch, fn, n, KERNEL_NAMES[key])
+    dev_ms = {key: device_ms(fn, n, KERNEL_NAMES[key])
               for key, (fn, n) in calls.items()}
     # K2 and K4 also at every C that fits the main path's stack
     ms_by_c, dev_by_c = {}, {}
@@ -4287,9 +4115,9 @@ def main(argv=None) -> int:
                   if key == "topk" else
                   (lambda cl=cl, key=key: enc[key](dv_k, cluster=cl)))
             ms_by_c.setdefault(key, {})[str(cl)] = time_ms(
-                torch, fn, 4 * args.reps)
+                fn, 4 * args.reps)
             dev_by_c.setdefault(key, {})[str(cl)] = device_ms(
-                torch, fn, 4 * args.reps, KERNEL_NAMES[key])
+                fn, 4 * args.reps, KERNEL_NAMES[key])
     bounds, distinct, scd_bytes = kernel_bounds(idx1, n_pad, m, k_main)
     bounds["topk_k_eq_L"] = kernel_bounds(idx1, n_pad, m, L)[0]["topk"]
     phase_done(torch, "timing", t0, reps=args.reps,
@@ -4313,8 +4141,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fixed = lambda: scd_steps_fixed_point_batched(   # noqa: E731
         tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
-    fixed_ms = time_ms(torch, fixed, args.reps)
-    fixed_trace = device_trace(torch, lambda: [fixed()
+    fixed_ms = time_ms(fixed, args.reps)
+    fixed_trace = device_trace(lambda: [fixed()
                                                for _ in range(args.reps)])
     fixed_dev = (fixed_trace["device_busy_ms"] / args.reps
                  if "device_busy_ms" in fixed_trace else "not measured")
@@ -4354,12 +4182,12 @@ def main(argv=None) -> int:
                       max_err(got[1].long(), want[1].long()))
     sgd_calls["topk"] = (lambda: topk_select(sgd_stack, k_sgd), 4 * args.reps)
     sgd_plain["topk"] = lambda: topk_select_ref(sgd_stack, k_sgd)
-    sgd_ms = {key: time_ms(torch, fn, n) for key, (fn, n) in sgd_calls.items()}
-    sgd_dev = {key: device_ms(torch, fn, n, KERNEL_NAMES[key])
+    sgd_ms = {key: time_ms(fn, n) for key, (fn, n) in sgd_calls.items()}
+    sgd_dev = {key: device_ms(fn, n, KERNEL_NAMES[key])
                for key, (fn, n) in sgd_calls.items()}
-    sgd_plain_ms = {key: time_ms(torch, fn, 4 * args.reps)
+    sgd_plain_ms = {key: time_ms(fn, 4 * args.reps)
                     for key, fn in sgd_plain.items()}
-    sgd_library = {"topk": time_ms(torch, lambda: torch.topk(
+    sgd_library = {"topk": time_ms(lambda: torch.topk(
         sgd_stack.abs(), k_sgd, dim=1, sorted=True), 4 * args.reps)}
     sgd_bounds = codec_bounds(Ks, Ls, k_sgd)
     sgd_row = {key: dict(
@@ -4412,17 +4240,17 @@ def main(argv=None) -> int:
         nb = 4 * (Kb * rb * cb + Kb * rb                  # M, and y or x
                   + (cb if key.startswith("matvec") else Kb * cb))
         bnd = bound_ms(nb, 2 * Kb * rb * cb)
-        dev_t = device_ms(torch, lambda: kern(*a_), args.reps,
+        dev_t = device_ms(lambda: kern(*a_), args.reps,
                           KERNEL_NAMES[key.split("_")[0]])
         bmv_row[key] = dict(
-            shape=[Kb, rb, cb], ms=time_ms(torch, lambda: kern(*a_),
+            shape=[Kb, rb, cb], ms=time_ms(lambda: kern(*a_),
                                            args.reps),
             device_ms=dev_t, bound_ms=bnd[0], bound_by=bnd[1],
             bound_ratio=(dev_t / bnd[0] if isinstance(dev_t, float)
                          else "not measured"),
-            plain_ms=time_ms(torch, lambda: ref_(*a_), 5, warmup=1),
-            library_ms=time_ms(torch, lambda: lib(*a_), args.reps),
-            per_worker_loop_ms=time_ms(torch, lambda: loop(*a_), args.reps))
+            plain_ms=time_ms(lambda: ref_(*a_), 5, warmup=1),
+            library_ms=time_ms(lambda: lib(*a_), args.reps),
+            per_worker_loop_ms=time_ms(lambda: loop(*a_), args.reps))
     for key in ("matvec", "vecmat"):
         ms[key], dev_ms[key] = bmv_row[key]["ms"], bmv_row[key]["device_ms"]
         plain[key], library[key] = (bmv_row[key]["plain_ms"],
@@ -4466,20 +4294,20 @@ def main(argv=None) -> int:
             p, s, mL, mean=False), args.reps)
         long_plain[f"decode_{c}"] = lambda c=c, p=pL, s=sL: dec_ref[c](
             p, s, mL, mean=False)
-    long_ms = {key: time_ms(torch, fn, n)
+    long_ms = {key: time_ms(fn, n)
                for key, (fn, n) in long_calls.items()}
-    long_dev = {key: device_ms(torch, fn, n, KERNEL_NAMES[key])
+    long_dev = {key: device_ms(fn, n, KERNEL_NAMES[key])
                 for key, (fn, n) in long_calls.items()}
-    long_plain_ms = {key: time_ms(torch, fn, 3, warmup=1)
+    long_plain_ms = {key: time_ms(fn, 3, warmup=1)
                      for key, fn in long_plain.items()}
-    long_library = {"topk": time_ms(torch, lambda: torch.topk(
+    long_library = {"topk": time_ms(lambda: torch.topk(
         dvL.abs(), kL, dim=1, sorted=True), args.reps)}
     # K4's plan at the long row (the widest C whose clusters are all
     # resident), and its device time when C is forced
     topk_select(dvL, kL)
     topk_long_plan = dataclasses.asdict(topk_select.last_plan)
     topk_long_by_c = {str(cl): device_ms(
-        torch, lambda cl=cl: topk_select(dvL, kL, cluster=cl), args.reps,
+        lambda cl=cl: topk_select(dvL, kL, cluster=cl), args.reps,
         "topk_kernel") for cl in (16, 8, 4)}
     # both forms of K4 (k at r = TOPK_R and 0.01) and K2 (int8) on each
     # side of the plans' switch to the grid form
@@ -4496,9 +4324,9 @@ def main(argv=None) -> int:
         cells["int8"] = {"grid": lambda: enc["int8"](x, grid=True),
                          "cluster": lambda: enc["int8"](x, grid=False)}
         crossover[f"{K_}x{L_}"] = {
-            cell: {form: dict(ms=time_ms(torch, fn, args.reps),
+            cell: {form: dict(ms=time_ms(fn, args.reps),
                               device_ms=device_ms(
-                                  torch, fn, args.reps,
+                                  fn, args.reps,
                                   KERNEL_NAMES["int8" if cell == "int8"
                                                else "topk"]))
                    for form, fn in forms.items()}
@@ -4538,7 +4366,7 @@ def main(argv=None) -> int:
         if tr is None:
             tr = CoCoATrainer(dataclasses.replace(cfg, exchange=ex), A, b)
         tr.run(2)                    # p_star and the first rounds, untraced
-        trace = device_trace(torch, lambda: tr.run(5))
+        trace = device_trace(lambda: tr.run(5))
         tr = None
         free(torch)
         phase_done(torch, "trace", t0, exchange=ex, rounds=5, **trace)
@@ -4849,7 +4677,7 @@ def main(argv=None) -> int:
         launches = {fn.__name__: fn.launches for fn in counters}
         peak = torch.cuda.max_memory_allocated()
         n_rounds = len(hist.rounds)
-        trace = device_trace(torch, lambda: trH.run(SWEEP_TRACE_ROUNDS))
+        trace = device_trace(lambda: trH.run(SWEEP_TRACE_ROUNDS))
         k1 = [v for name_, v in trace.get("kernels", {}).items()
               if KERNEL_NAMES["scd_solve"] in name_]
         calls = sum(v["calls"] for v in k1)
@@ -5033,6 +4861,23 @@ def main(argv=None) -> int:
         stop_process(dry[0])
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(dry_work, ignore_errors=True)
+
+    # -- 15. the bench harness: K1, K2 and K3 (int8) and K4 as specs -----
+    tr = CoCoATrainer(cfg, A, b)
+    alpha0, w0 = tr.init_state()
+    idx1 = tr.index_source(1)
+    dv15, _ = scd_solve(tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw)
+    p15, s15 = enc["int8"](dv15)
+    calls = {"scd_solve": (lambda: scd_solve(
+        tr.A_T, tr.col_sq, alpha0, w0, idx1, **kw), args.reps),
+        "int8": (lambda: enc["int8"](dv15), 4 * args.reps),
+        "decode_int8": (lambda: dec["int8"](p15, s15, m, mean=False),
+                        4 * args.reps),
+        "topk": (lambda: topk_select(dv15, k_main), 4 * args.reps)}
+    bench_phase(torch, calls, kernel_bounds(idx1, n_pad, m, k_main)[0],
+                dev_ms, card)
+    del tr, calls, dv15, p15, s15
+    free(torch)
 
     src = "src/repro_torch/kernels/csrc/"
     # the paths that launch each codec's kernels: CoCoA's, then the

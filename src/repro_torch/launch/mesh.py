@@ -75,9 +75,12 @@ def make_worker_mesh(K: int, device_type: str | None = None):
 
 
 # Hardware constants: NVIDIA H100 80GB HBM3, 700 W power limit, data
-# sheet (SXM part, dense rates), used by the roofline analysis.
+# sheet (SXM part, dense rates), used by the roofline analysis and the
+# kernels' bounds (``bench.bounds``).
 PEAK_FLOPS_BF16 = 989e12          # per card
+PEAK_OPS_F32 = 67e12              # f32 operations/s outside the tensor cores
 HBM_BW = 3.35e12                  # bytes/s per card
+CARD_BYTES = 80e9                 # device memory per card
 # NVLink, each way, per card (900 GB/s in both directions together). A
 # model axis of 16 spans two 8-card NVLink hosts, whose inter-host half
 # runs over the network at a fraction of this: the collective term is

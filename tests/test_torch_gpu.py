@@ -1668,9 +1668,9 @@ def test_mla_decode_step_on_the_card_equals_the_cpu(cuda):
 
 # -- training every family (phase 10's rows, at .reduced()) -----------------
 
-TRAIN_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b", "chatglm3-6b",
-               "whisper-tiny", "qwen2-vl-72b", "llama4-maverick-400b-a17b",
-               "deepseek-v3-671b")
+TRAIN_ARCHS = ("tinyllama-1.1b", "mamba2-2.7b", "recurrentgemma-9b",
+               "chatglm3-6b", "whisper-tiny", "qwen2-vl-72b",
+               "llama4-maverick-400b-a17b", "deepseek-v3-671b")
 
 
 def _train_inputs(arch, B=2, S=64):
@@ -1859,3 +1859,38 @@ def test_moe_sharded_on_a_1x1_mesh_is_bit_identical(cuda, one_rank_group):
     assert L.MOE_PATHS["global"] == before["global"]
     assert torch.equal(y0, y1.full_tensor())
     assert torch.equal(_bits(aux0), _bits(aux1.full_tensor()))
+
+
+# -- the bench harness on the card ---------------------------------------------
+
+def test_trace_times_a_kernel_on_the_card(cuda):
+    """``bench.trace``: K2's events and device time a call are positive,
+    a name no kernel has is "not measured", and the trace keeps its
+    markers on both sides."""
+    from repro_torch.bench.trace import TRACE_MARKERS, device_ms, device_trace, time_ms
+    x = torch.randn((8, 16384), generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    assert time_ms(lambda: quantize_pack_int8(x), 10) > 0
+    guards = []
+    got = device_ms(lambda: quantize_pack_int8(x), 10, ("quant_kernel<1,",
+                                                       "quant_grid_"), guards)
+    assert isinstance(got, float) and got > 0
+    assert guards[0]["markers_launched"] == dict(before=TRACE_MARKERS,
+                                                 after=TRACE_MARKERS)
+    assert device_ms(lambda: quantize_pack_int8(x), 2,
+                     "no_such_kernel") == "not measured"
+    trace = device_trace(lambda: quantize_pack_int8(x))
+    assert trace["device_busy_ms"] > 0 and trace["kernels"]
+
+
+def test_fingerprint_names_the_card(cuda):
+    """``EnvFingerprint.capture`` on the card: its name, nvidia-smi's power
+    limit, the toolkit's release line, the kernel library's hash."""
+    from repro_torch.bench.schema import EnvFingerprint
+    env = EnvFingerprint.capture()
+    assert env.device_kind == torch.cuda.get_device_name(0)
+    assert env.device_count == torch.cuda.device_count()
+    assert env.cuda == torch.version.cuda
+    assert env.power_limit.endswith(" W")
+    assert "release" in env.nvcc
+    assert env.kernels == _build._digest()
