@@ -44,6 +44,7 @@ import torch
 import torch.distributed as tdist
 
 from repro_torch.comm.codec import FP_ITEMSIZE, UpdateCodec
+from repro_torch.utils import spans
 from repro_torch.utils.partitioning import bound_mesh, sub_mesh
 
 COLLECTIVE_BACKENDS = ("xla", "ring")
@@ -507,11 +508,15 @@ def exchange_all_reduce(transport: str, codec: UpdateCodec,
     new_state)``. Only the encode changes; the collectives are those of
     the stateless path."""
     be = get_backend(backend)
+    if transport != "compressed" and spans.active():
+        spans.count("payload_bytes", update.nbytes)
     if transport == "compressed":
         if state is None:
             parts = codec.encode(update)     # e.g. ((1, L) int8, (1,) scale)
         else:
             parts, state = codec.encode_with_state(update, state)
+        if spans.active():
+            spans.count("payload_bytes", sum(p.nbytes for p in parts))
         gathered = tuple(be.all_gather(p, fabric) for p in parts)
         # the virtual driver's decode + sum of the (K, ...) stack, in
         # worker order: kernel K3 for the quantized codecs on the card

@@ -46,6 +46,7 @@ from repro_torch.core.cocoa import (CoCoAConfig, CoCoATrainer, History,
 from repro_torch.core.glm import (GLMProblem, optimal_objective,
                                   primal_objective)
 from repro_torch.kernels.bmv import batched_matvec, batched_vecmat
+from repro_torch.utils import spans
 from repro_torch.utils.device import full_f32_matmul, resolve_device
 
 
@@ -380,18 +381,19 @@ class MinibatchSGD:
             raise ValueError(
                 "exchange mode 'stale' has no meaning for the legacy "
                 "single-device run(); use run_workers()")
-        hist = self._history(p_star, p_zero)
-
         def step(alpha, t):
             alpha = self._global_step(alpha, t)
             return alpha, lambda: primal_objective(self.problem, self.A,
                                                    self.b, alpha)
 
-        alpha, _ = record_rounds(
-            hist, step, torch.zeros((self.n,), dtype=torch.float32,
-                                    device=self.device),
-            rounds, record_every, target_eps)
-        self.alpha_final = alpha.cpu().numpy()
+        with spans.span("solve"):
+            hist = self._history(p_star, p_zero)
+            alpha, _ = record_rounds(
+                hist, step, torch.zeros((self.n,), dtype=torch.float32,
+                                        device=self.device),
+                rounds, record_every, target_eps)
+            with spans.span("finish", sync=True):
+                self.alpha_final = alpha.cpu().numpy()
         return hist
 
     # -- the virtual driver (row-partitioned, per-worker sampling) -------
@@ -402,13 +404,15 @@ class MinibatchSGD:
         """K virtual workers, batched into each call. Under ``stale`` the
         recorded primal is one round behind, and the pending aggregates
         are absorbed after the last round, recorded or not."""
-        hist = self._history(p_star, p_zero)
-        round_fn = self._round_fn
-        (_, alpha), last_t = record_rounds(
-            hist, round_step(round_fn, self.row_source), self.init_state(),
-            rounds, record_every, target_eps)
-        self.alpha_final = dist.finish_run(round_fn, alpha,
-                                           last_t).cpu().numpy()
+        with spans.span("solve"):
+            hist = self._history(p_star, p_zero)
+            round_fn = self._round_fn
+            (_, alpha), last_t = record_rounds(
+                hist, round_step(round_fn, self.row_source),
+                self.init_state(), rounds, record_every, target_eps)
+            with spans.span("finish", sync=True):
+                self.alpha_final = dist.finish_run(round_fn, alpha,
+                                                   last_t).cpu().numpy()
         return hist
 
     def build_sharded_round(self, group=None) -> Callable:
@@ -431,17 +435,19 @@ class MinibatchSGD:
         start the ranks with ``repro_torch.launch.dist``). ``p_star`` is
         computed once, on rank 0, unless given. Every rank records the
         same History and holds the same ``alpha_final``."""
-        round_fn = self.build_sharded_round(group)
-        fabric = round_fn.fabric
-        if p_star is None:
-            p_star = from_rank0(fabric, lambda: self.p_star, self.device)
-        hist = self._history(p_star, p_zero)
-        (_, alpha), last_t = record_rounds(
-            hist, round_step(round_fn, self.row_source),
-            dist.place_state(fabric.rank, *self.init_state()), rounds,
-            record_every, target_eps)
-        self.alpha_final = dist.finish_run(round_fn, alpha,
-                                           last_t).cpu().numpy()
+        with spans.span("solve"):
+            round_fn = self.build_sharded_round(group)
+            fabric = round_fn.fabric
+            if p_star is None:
+                p_star = from_rank0(fabric, lambda: self.p_star, self.device)
+            hist = self._history(p_star, p_zero)
+            (_, alpha), last_t = record_rounds(
+                hist, round_step(round_fn, self.row_source),
+                dist.place_state(fabric.rank, *self.init_state()), rounds,
+                record_every, target_eps)
+            with spans.span("finish", sync=True):
+                self.alpha_final = dist.finish_run(round_fn, alpha,
+                                                   last_t).cpu().numpy()
         return hist
 
     def objective_of(self, alpha: np.ndarray) -> float:

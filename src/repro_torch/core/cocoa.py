@@ -52,6 +52,7 @@ from repro_torch.core import partition as part_mod
 from repro_torch.core import solvers
 from repro_torch.core.glm import (GLMProblem, optimal_objective,
                                   primal_objective, suboptimality)
+from repro_torch.utils import spans
 from repro_torch.utils.device import resolve_device
 
 
@@ -121,31 +122,43 @@ def record_rounds(hist: History, step: Callable, state, rounds: int,
         raise ValueError(f"record_every must be >= 1, got {record_every}")
     last = first_round + rounds - 1
     last_t, prev_t = 0, first_round - 1
-    t0 = time.perf_counter()
+    # the round span takes History's clock reads where it has them
+    t0 = start = time.perf_counter_ns()
     for t in range(first_round, last + 1):
-        state, primal = step(state, t)
-        last_t = t
-        if t % record_every == 0 or t == last:
-            p = float(primal())
-            hist.seconds.append(time.perf_counter() - t0)
-            s = suboptimality(p, hist.p_star, hist.p_zero)
-            hist.rounds.append(t)
-            hist.primal.append(p)
-            hist.subopt.append(s)
-            hist.span.append(t - prev_t)
-            prev_t = t
-            if target_eps is not None and s <= target_eps:
-                break
-            t0 = time.perf_counter()
+        p = None
+        with spans.span("round", t=t, start_ns=start, anchor=True) as rnd:
+            state, primal = step(state, t)
+            last_t = t
+            if t % record_every == 0 or t == last:
+                with spans.span("read_back", sync=True):
+                    p = float(primal())
+                t1 = time.perf_counter_ns()
+                rnd.stop(t1)
+        start = None
+        if p is None:
+            continue
+        hist.seconds.append((t1 - t0) / 1e9)
+        s = suboptimality(p, hist.p_star, hist.p_zero)
+        hist.rounds.append(t)
+        hist.primal.append(p)
+        hist.subopt.append(s)
+        hist.span.append(t - prev_t)
+        prev_t = t
+        if target_eps is not None and s <= target_eps:
+            break
+        t0 = start = time.perf_counter_ns()
+    spans.count("rounds", last_t - first_round + 1 if last_t else 0)
     return state, last_t
 
 
 def round_step(round_fn: Callable, source: Callable) -> Callable:
     """The :func:`record_rounds` step of a driver's run (virtual or
-    sharded): round ``t`` on ``source(t)``'s indices, the state the
-    ``(local, shared)`` pair."""
+    sharded): round ``t`` on ``source(t)``'s indices (the ``draw``
+    span), the state the ``(local, shared)`` pair."""
     def step(state, t):
-        local, shared, primal = round_fn(*state, source(t), t)
+        with spans.span("draw", round_fn.device):
+            idx = source(t)
+        local, shared, primal = round_fn(*state, idx, t)
         return (local, shared), lambda: primal
     return step
 
@@ -405,16 +418,18 @@ class CoCoATrainer:
         ``stale`` the recorded primal is one round behind (the driver's
         metric), and the pending aggregates are absorbed after the last
         round, recorded or not."""
-        hist = History(p_star=self.p_star, p_zero=self.p_zero)
-        (local, w), last_t = record_rounds(
-            hist, round_step(self._round_fn, self.index_source),
-            self.init_state() if state is None else state, rounds,
-            record_every, target_eps, first_round)
-        w = dist.finish_run(self._round_fn, w, last_t)
-        self.alpha = dist.unwrap_local_state(self.exchange, local)
-        self.w_final = w.cpu().numpy()
-        self.alpha_final = part_mod.unpack_alpha(self.alpha.cpu().numpy(),
-                                                 self.part, self.n)
+        with spans.span("solve"):
+            hist = History(p_star=self.p_star, p_zero=self.p_zero)
+            (local, w), last_t = record_rounds(
+                hist, round_step(self._round_fn, self.index_source),
+                self.init_state() if state is None else state, rounds,
+                record_every, target_eps, first_round)
+            with spans.span("finish", sync=True):
+                w = dist.finish_run(self._round_fn, w, last_t)
+                self.alpha = dist.unwrap_local_state(self.exchange, local)
+                self.w_final = w.cpu().numpy()
+                self.alpha_final = part_mod.unpack_alpha(
+                    self.alpha.cpu().numpy(), self.part, self.n)
         return hist
 
     def build_sharded_round(self, group=None) -> Callable:
@@ -436,21 +451,23 @@ class CoCoATrainer:
         History. ``p_star`` is computed once, on rank 0, unless given.
         After the run every rank holds ``w_final``, the gathered ``alpha``
         (K, n_pad) and ``alpha_final``."""
-        round_fn = self.build_sharded_round(group)
-        fabric = round_fn.fabric
-        if p_star is None:
-            p_star = from_rank0(fabric, lambda: self.p_star, self.device)
-        hist = History(p_star=p_star, p_zero=self.p_zero)
-        state = dist.place_state(fabric.rank, *self.init_state())
-        (local, w), last_t = record_rounds(
-            hist, round_step(round_fn, self.index_source), state, rounds,
-            record_every, target_eps)
-        w = dist.finish_run(round_fn, w, last_t)
-        self.alpha = fabric.all_gather(
-            dist.unwrap_local_state(self.exchange, local))
-        self.w_final = w.cpu().numpy()
-        self.alpha_final = part_mod.unpack_alpha(self.alpha.cpu().numpy(),
-                                                 self.part, self.n)
+        with spans.span("solve"):
+            round_fn = self.build_sharded_round(group)
+            fabric = round_fn.fabric
+            if p_star is None:
+                p_star = from_rank0(fabric, lambda: self.p_star, self.device)
+            hist = History(p_star=p_star, p_zero=self.p_zero)
+            state = dist.place_state(fabric.rank, *self.init_state())
+            (local, w), last_t = record_rounds(
+                hist, round_step(round_fn, self.index_source), state, rounds,
+                record_every, target_eps)
+            with spans.span("finish", sync=True):
+                w = dist.finish_run(round_fn, w, last_t)
+                self.alpha = fabric.all_gather(
+                    dist.unwrap_local_state(self.exchange, local))
+                self.w_final = w.cpu().numpy()
+                self.alpha_final = part_mod.unpack_alpha(
+                    self.alpha.cpu().numpy(), self.part, self.n)
         return hist
 
     def objective_of(self, alpha_global: np.ndarray) -> float:

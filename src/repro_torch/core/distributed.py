@@ -64,6 +64,7 @@ from repro_torch.comm.collectives import (COLLECTIVE_BACKENDS, Fabric,
                                           exchange_all_reduce,
                                           exchange_roundtrip_state,
                                           get_backend)
+from repro_torch.utils import spans
 
 COMM_TRANSPORTS = ("persistent", "spark_faithful", "compressed",
                    "reduce_scatter")
@@ -162,8 +163,12 @@ class CommScheme:
                 parts = self.codec.encode(updates)
             else:
                 parts, state = self.codec.encode_with_state(updates, state)
+            if spans.active():
+                spans.count("payload_bytes", sum(p.nbytes for p in parts))
             total = self.codec.decode_stacked_sum(parts, updates.shape[1])
         else:
+            if spans.active():
+                spans.count("payload_bytes", updates.nbytes)
             total = torch.sum(updates, dim=0)
         return total if state is None else (total, state)
 
@@ -724,13 +729,17 @@ def build_virtual_round(algo: RoundAlgorithm, exchange, data, *,
     residual frozen; an algorithm with ``live_reweight`` gets its
     aggregate rescaled by ``K / K_live``. Straggler profiles never enter.
     ``round_fn.mode`` and ``round_fn.flush`` are what :func:`finish_run`
-    reads."""
+    reads; ``round_fn.device`` is the data's, where the round's spans
+    (``local_step``, ``exchange``, ``apply``, ``metric``) take their
+    device time."""
     ex = ExchangeConfig.parse(exchange)
     ex.membership.check_workers(K)
     comm, xmode, membership = ex.scheme, ex.mode, ex.membership
     k = xmode.k
     stateful = comm.codec.stateful
     reweight = not membership.empty and getattr(algo, "live_reweight", False)
+
+    dev = data[0].device
 
     def round_fn(local, shared, idx, t=1):
         if idx.shape[0] != K:
@@ -740,43 +749,50 @@ def build_virtual_round(algo: RoundAlgorithm, exchange, data, *,
             local, cstate = local
         if xmode.stale:
             shared, queue = shared
-        upd, local_new = algo.local_step(data, local, shared, idx, t)
-        cstate_in = cstate if stateful else None
-        if not membership.empty:
-            mask = membership.live_mask(t, K, device=upd.device)
-            upd = upd * mask[:, None]
-            local_new = _freeze_dropped(local_new, local, mask)
-            if stateful:
-                # a dropped worker's encode is of an exact zero: its
-                # residual is zeroed with the update and frozen below
-                cstate_in = cstate_in * mask[:, None]
-        if stateful:
-            total, cstate_new = comm.all_reduce_stacked(upd, cstate_in)
+        with spans.span("local_step", dev):
+            upd, local_new = algo.local_step(data, local, shared, idx, t)
+        with spans.span("exchange", dev):
+            cstate_in = cstate if stateful else None
             if not membership.empty:
-                cstate_new = _freeze_dropped(cstate_new, cstate, mask)
-        else:
-            total = comm.all_reduce_stacked(upd)
-        if reweight:
-            live = torch.clamp(torch.sum(mask), min=1.0)
-            total = total * (torch.full_like(live, float(K)) / live)
-        if xmode.stale:
-            shared_new = _delayed_apply(algo, shared, queue, t, k)
-            shared_out = (shared_new, _queue_push(queue, total))
-            # the metric of ONE iterate: the shared state absorbed
-            # through round t-1 with the round-(t-1) local state
-            metric_shared = _absorb_for_metric(algo, shared_new, queue, t, k)
-            metric_local = local
-        else:
-            shared_new = algo.apply_update(shared, total, t)
-            shared_out = shared_new
-            metric_shared = shared_new
-            metric_local = local_new
-        metric_sum = torch.sum(algo.local_metric(data, metric_local,
-                                                 metric_shared))
+                mask = membership.live_mask(t, K, device=upd.device)
+                upd = upd * mask[:, None]
+                local_new = _freeze_dropped(local_new, local, mask)
+                if stateful:
+                    # a dropped worker's encode is of an exact zero: its
+                    # residual is zeroed with the update and frozen below
+                    cstate_in = cstate_in * mask[:, None]
+            if stateful:
+                total, cstate_new = comm.all_reduce_stacked(upd, cstate_in)
+                if not membership.empty:
+                    cstate_new = _freeze_dropped(cstate_new, cstate, mask)
+            else:
+                total = comm.all_reduce_stacked(upd)
+            if reweight:
+                live = torch.clamp(torch.sum(mask), min=1.0)
+                total = total * (torch.full_like(live, float(K)) / live)
+        with spans.span("apply", dev):
+            if xmode.stale:
+                shared_new = _delayed_apply(algo, shared, queue, t, k)
+                shared_out = (shared_new, _queue_push(queue, total))
+            else:
+                shared_new = algo.apply_update(shared, total, t)
+                shared_out = shared_new
+        with spans.span("metric", dev):
+            if xmode.stale:
+                # the metric of ONE iterate: the shared state absorbed
+                # through round t-1 with the round-(t-1) local state
+                metric_shared = _absorb_for_metric(algo, shared_new, queue,
+                                                   t, k)
+                metric_local = local
+            else:
+                metric_shared, metric_local = shared_new, local_new
+            metric_sum = torch.sum(algo.local_metric(data, metric_local,
+                                                     metric_shared))
+            metric = algo.finalize_metric(metric_shared, metric_sum)
         local_out = (local_new, cstate_new) if stateful else local_new
-        return local_out, shared_out, algo.finalize_metric(metric_shared,
-                                                           metric_sum)
+        return local_out, shared_out, metric
 
+    round_fn.device = dev
     round_fn.mode = xmode
     round_fn.flush = _make_flush(algo, xmode)
     return round_fn
@@ -799,11 +815,12 @@ def build_sharded_round(algo: RoundAlgorithm, exchange, data, *, group=None,
     stacked sum: the local step, the membership mask's row ``rank``
     (a dropped worker's update and ``ef:`` residual zeroed before the
     encode, its state frozen), ``CommScheme.all_reduce`` over the
-    exchange's backend, the ``live_reweight``, the stale apply and
-    queue, ``roundtrip_local_state``, and the metric as one scalar
-    all-reduce of the rank's ``local_metric``. ``round_fn.fabric`` is
-    the group's :class:`~repro_torch.comm.collectives.Fabric`, whose
-    ``round`` every recorded call carries."""
+    exchange's backend, the ``live_reweight``, ``roundtrip_local_state``,
+    the stale apply and queue, and the metric as one scalar all-reduce
+    of the rank's ``local_metric``. ``round_fn.fabric`` is the group's
+    :class:`~repro_torch.comm.collectives.Fabric`, whose ``round`` every
+    recorded call carries; ``round_fn.device`` is the data's, as on the
+    virtual driver."""
     ex = ExchangeConfig.parse(exchange)
     ex.membership.check_workers(K)
     fabric = open_fabric(group, K)
@@ -817,6 +834,8 @@ def build_sharded_round(algo: RoundAlgorithm, exchange, data, *, group=None,
     stateful = comm.codec.stateful
     reweight = not membership.empty and getattr(algo, "live_reweight", False)
 
+    dev = data[0].device
+
     def round_fn(local, shared, idx, t=1):
         if idx.shape[0] != K:
             raise ValueError(f"round_fn: idx must have K={K} rows, got "
@@ -826,45 +845,53 @@ def build_sharded_round(algo: RoundAlgorithm, exchange, data, *, group=None,
             local, cstate = local
         if xmode.stale:
             shared, queue = shared
-        upd, local_new = algo.local_step(data, local, shared,
-                                         idx[rank:rank + 1], t)
-        cstate_in = cstate if stateful else None
-        if not membership.empty:
-            mask = membership.live_mask(t, K, device=upd.device)
-            mask_k = mask[rank:rank + 1]
-            upd = upd * mask_k[:, None]
-            local_new = _freeze_dropped(local_new, local, mask_k)
-            if stateful:
-                cstate_in = cstate_in * mask_k[:, None]
-        if stateful:
-            total, cstate_new = comm.all_reduce(upd, fabric, ex.backend,
-                                                state=cstate_in)
+        with spans.span("local_step", dev):
+            upd, local_new = algo.local_step(data, local, shared,
+                                             idx[rank:rank + 1], t)
+        with spans.span("exchange", dev):
+            cstate_in = cstate if stateful else None
             if not membership.empty:
-                cstate_new = _freeze_dropped(cstate_new, cstate, mask_k)
-        else:
-            total = comm.all_reduce(upd, fabric, ex.backend)
-        if reweight:
-            live = torch.clamp(torch.sum(mask), min=1.0)
-            total = total * (torch.full_like(live, float(K)) / live)
-        if xmode.stale:
-            shared_new = _delayed_apply(algo, shared, queue, t, k)
-            shared_out = (shared_new, _queue_push(queue, total))
-            metric_shared = _absorb_for_metric(algo, shared_new, queue, t, k)
-        else:
-            shared_new = algo.apply_update(shared, total, t)
-            shared_out = shared_new
-            metric_shared = shared_new
-        local_new = comm.roundtrip_local_state(local_new, fabric, ex.backend)
-        # stale pairs the lagged shared state with the round-t-1 local
-        # state, as the virtual driver does
-        metric_local = local if xmode.stale else local_new
-        metric_sum = fabric.all_reduce(torch.sum(
-            algo.local_metric(data, metric_local, metric_shared))[None])[0]
+                mask = membership.live_mask(t, K, device=upd.device)
+                mask_k = mask[rank:rank + 1]
+                upd = upd * mask_k[:, None]
+                local_new = _freeze_dropped(local_new, local, mask_k)
+                if stateful:
+                    cstate_in = cstate_in * mask_k[:, None]
+            if stateful:
+                total, cstate_new = comm.all_reduce(upd, fabric, ex.backend,
+                                                    state=cstate_in)
+                if not membership.empty:
+                    cstate_new = _freeze_dropped(cstate_new, cstate, mask_k)
+            else:
+                total = comm.all_reduce(upd, fabric, ex.backend)
+            if reweight:
+                live = torch.clamp(torch.sum(mask), min=1.0)
+                total = total * (torch.full_like(live, float(K)) / live)
+            # spark_faithful's state round trip (no call of the apply's
+            # comes between, so the fabric's calls keep their order)
+            local_new = comm.roundtrip_local_state(local_new, fabric,
+                                                   ex.backend)
+        with spans.span("apply", dev):
+            if xmode.stale:
+                shared_new = _delayed_apply(algo, shared, queue, t, k)
+                shared_out = (shared_new, _queue_push(queue, total))
+            else:
+                shared_new = algo.apply_update(shared, total, t)
+                shared_out = shared_new
+        with spans.span("metric", dev):
+            metric_shared = (_absorb_for_metric(algo, shared_new, queue, t, k)
+                             if xmode.stale else shared_new)
+            # stale pairs the lagged shared state with the round-t-1 local
+            # state, as the virtual driver does
+            metric_local = local if xmode.stale else local_new
+            metric_sum = fabric.all_reduce(torch.sum(
+                algo.local_metric(data, metric_local, metric_shared))[None])[0]
+            metric = algo.finalize_metric(metric_shared, metric_sum)
         fabric.round = None
         local_out = (local_new, cstate_new) if stateful else local_new
-        return local_out, shared_out, algo.finalize_metric(metric_shared,
-                                                           metric_sum)
+        return local_out, shared_out, metric
 
+    round_fn.device = dev
     round_fn.fabric = fabric
     round_fn.exchange = ex
     round_fn.mode = xmode

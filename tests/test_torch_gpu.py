@@ -1894,3 +1894,93 @@ def test_fingerprint_names_the_card(cuda):
     assert env.power_limit.endswith(" W")
     assert "release" in env.nvcc
     assert env.kernels == _build._digest()
+
+
+# -- the round driver's spans on the card --------------------------------------
+SPAN_PARTS = ("draw", "local_step", "exchange", "apply", "metric")
+
+
+def _span_trainer(dev):
+    """CoCoA under K1, K2 and K3 at a round of a few ms (H = 4096 over
+    8 blocks of 1,024 columns of 16,384), warmed up."""
+    from repro_torch.core import CoCoAConfig, CoCoATrainer
+    g = torch.Generator(device=dev).manual_seed(5)
+    A = torch.randn((16384, 8192), generator=g, device=dev)
+    A *= torch.rand((16384, 8192), generator=g, device=dev) < 0.15
+    b = torch.randn((16384,), generator=g, device=dev)
+    tr = CoCoATrainer(CoCoAConfig(K=8, H=4096, solver="scd_kernel",
+                                  exchange="compressed:int8"),
+                      A.cpu().numpy(), b.cpu().numpy(), device=dev)
+    del A
+    tr.run(2)
+    return tr
+
+
+def _child(log, r, name):
+    return next(c for c in log.children(r) if c.name == name)
+
+
+def test_spans_time_the_round_on_the_device(cuda):
+    """Every device span of a round reads a positive device time from
+    its CUDA events, the host-only ones none, and ``local_step``'s is K1's
+    own time by events (on each round's draw) within 3%."""
+    from repro_torch.utils import spans
+    tr = _span_trainer(cuda)
+    with spans.recording() as log:
+        tr.run(6)
+    rounds = log.named("round")
+    ms = {n: [_child(log, r, n).device_ms for r in rounds]
+          for n in SPAN_PARTS}
+    assert all(v > 0 for n in SPAN_PARTS for v in ms[n]), ms
+    assert all(s.device_ms is None for s in log.spans
+               if s.name not in SPAN_PARTS)
+    alpha, w = tr.init_state()
+    k1 = []
+    for r in rounds:
+        idx = tr.index_source(r.t)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        scd_solve(tr.A_T, tr.col_sq, alpha, w, idx, sigma=8.0, lam=1.0,
+                  eta=1.0)
+        e1.record()
+        torch.cuda.synchronize()
+        k1.append(e0.elapsed_time(e1))
+    ratio = sum(ms["local_step"]) / sum(k1)
+    print(f"local_step {ms['local_step']} ms, K1 by events {k1} ms, "
+          f"ratio {ratio:.4f}")
+    assert 0.97 <= ratio <= 1.03
+
+
+def test_span_anchors_place_each_k1_inside_its_round(cuda):
+    """Under a CPU and CUDA profiler the spans record by themselves; each
+    round's anchor maps its spans onto the profiler's clock, where every
+    K1 kernel starts after its round's ``local_step`` began and ends
+    before the round did, within the offset's error (under 20 us); no
+    span and no anchor appears on the device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import spans
+    tr = _span_trainer(cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(6)
+    log = spans.profiled()
+    events = prof.events()
+    offs = spans.anchor_offsets(log, [(e.name, e.time_range.start,
+                                       e.time_range.end) for e in events])
+    cuda_ev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    k1 = sorted((e.time_range.start, e.time_range.end) for e in cuda_ev
+                if "scd_kernel" in e.name)
+    rounds = log.named("round")
+    assert len(k1) == len(rounds) == len(offs) == 6
+    for r, (ks, ke) in zip(rounds, k1):
+        off, err = offs[r.index]
+        assert ks >= _child(log, r, "local_step").start_ns / 1e3 + off - err
+        assert ke <= r.end_ns / 1e3 + off + err
+    errs = [e for _, e in offs.values()]
+    print(f"anchor offset errors {errs} us")
+    assert max(errs) < 20
+    names = set(SPAN_PARTS) | {"solve", "round", "read_back", "finish"}
+    assert not [e.name for e in cuda_ev
+                if e.name in names or spans.ANCHOR in e.name]

@@ -33,6 +33,7 @@ from repro_torch.core.baselines import WorkerRows
 from repro_torch.core.cocoa import WorkerColumns
 from repro_torch.data import make_glm_data
 from repro_torch.launch.dist import spawn
+from repro_torch.utils import spans
 
 M, N, K, DENSITY, ROUNDS = 98, 258, 4, 0.2, 5
 ALGOS = ("cocoa", "minibatch_scd", "minibatch_sgd")
@@ -90,11 +91,15 @@ def _rank_matrix(rank, world, device):
                                       w=getattr(tr, "w_final", None))
     for algo, ex in CELLS:
         tr = _trainer(algo, ex, A, b, device)
-        with recording() as log:
+        with recording() as log, spans.recording() as slog:
             hist = tr.run_sharded(ROUNDS, record_every=1)
         out[algo, ex] = dict(primal=hist.primal, rounds=hist.rounds,
                              alpha=tr.alpha_final,
-                             w=getattr(tr, "w_final", None), log=list(log))
+                             w=getattr(tr, "w_final", None), log=list(log),
+                             spans=[(s.name, s.parent, s.t)
+                                    for s in slog.spans],
+                             payload=[n for _, n, _, _ in
+                                      slog.counted("payload_bytes")])
     # a run of K - 1 workers on the K-rank group: refused before any call
     for algo, tr in (("cocoa", CoCoATrainer(CoCoAConfig(K=K - 1, H=16), A, b,
                                             device=device)),
@@ -141,6 +146,30 @@ def test_every_rank_records_the_same_run(sharded, cell):
         assert np.array_equal(sharded[r][cell]["alpha"], first["alpha"])
         if first["w"] is not None:
             assert np.array_equal(sharded[r][cell]["w"], first["w"])
+
+
+SPAN_PARTS = ["draw", "local_step", "exchange", "apply", "metric",
+              "read_back"]
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=_ids)
+def test_every_rank_records_the_same_span_tree(sharded, virtual, cell):
+    tree = sharded[0][cell]["spans"]
+    assert [r[1:] for r in tree[:1]] == [(None, None)]
+    assert [n for n, _, _ in tree] == (
+        ["solve"] + ["round", *SPAN_PARTS] * ROUNDS + ["finish"])
+    rounds = [i for i, (n, _, _) in enumerate(tree) if n == "round"]
+    assert [tree[i][2] for i in rounds] == list(range(1, ROUNDS + 1))
+    assert all(tree[i + 1 + j][1:] == (i, tree[i][2])
+               for i in rounds for j in range(len(SPAN_PARTS)))
+    # one count a round: the rank's own update as the codec encoded it
+    tr = virtual[cell]["trainer"]
+    length = tr.n if isinstance(tr, MinibatchSGD) else tr.m
+    assert sharded[0][cell]["payload"] == \
+        [tr.scheme.codec.wire_bytes(length)] * ROUNDS
+    for r in range(1, K):
+        assert sharded[r][cell]["spans"] == tree
+        assert sharded[r][cell]["payload"] == sharded[0][cell]["payload"]
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=_ids)
